@@ -8,8 +8,11 @@ repository checkout around this file; imports no jax and nothing of the
 JAX package. Phases, each printing one JSON line:
 
   1. device and build: the card, ``nvidia-smi``'s name and power limit,
-     and the three kernels built from ``src/repro_torch/kernels/csrc``
+     and the five kernels built from ``src/repro_torch/kernels/csrc``
      into ``build/repro_torch_kernels/`` with ptxas's registers / smem;
+
+DISGD (K1-K3):
+
   2. main path at deployment size: ``run_stream`` (backend ``"cuda"``)
      over ``synth_stream(MOVIELENS_25M)`` on a 4 x 4 grid with tables
      that hold each column's users and each split's items without
@@ -27,6 +30,23 @@ JAX package. Phases, each printing one JSON line:
      a PyTorch library call, with its bound;
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
      stream with slot collisions.
+
+DICS (K4, K5), after the DISGD state is freed:
+
+  6. ``dics_path``: ``run_stream(algorithm="dics")`` over the whole
+     ``synth_stream(NETFLIX)`` (1,386,968 events) on a 4 x 4 grid whose
+     tables hold every column's users and split's items (``rated`` 1.21
+     GB, ``co`` 37.7 MB); counts zeroed just before, read just after;
+     then 32 micro-batches again under ``torch.profiler``;
+  7. ``dics_serve``: ``grid_topn(algorithm="dics", k_nn=10)`` for 8,192
+     stream users in calls of 1,024, equal to the plain path;
+  8. ``dics_update`` on a mid-stream micro-batch of the trained state (one
+     event in ten given an unseen id) and ``dics_topn`` on one serve
+     call's inputs, each equal to its plain version, timed beside it with
+     its bound; the bucket-start scoring of the same micro-batch timed;
+  9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
+     colliding item slots, and the card's ``cuda`` run equals the same run
+     on CPU tensors: state and recall bits.
 
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -58,6 +78,10 @@ F32_FLOPS_PER_S = 67e12
 # (155,002 / 4 users) and item split (27,133 / 4 items) without collisions.
 N_I = 4
 U_CAP, I_CAP = 38_912, 6_784
+# DICS path: Netflix's Table 1 statistics (394,106 users, 3,001 items),
+# item-CF's natural shape; caps that fit each column's users (394,106 / 4)
+# and each split's items (3,001 / 4) without collisions.
+DICS_U_CAP, DICS_I_CAP, K_NN = 98_560, 768, 10
 MICRO_BATCH = 2048
 SERVE_USERS, SERVE_BATCH = 8192, 1024
 DEVICE = "cuda"
@@ -193,10 +217,14 @@ def main():
     # -- 4. kernels against their plain versions -----------------------------
     kernels = _kernel_checks(torch, np, rt, users, items, states, cfg,
                              batches[0], qcap, main_counts, serve_counts)
-    del states, res
+    del states, res, outs, batches
 
     # -- 5. backends agree on the card ---------------------------------------
     _backends_agree(torch, np, rt)
+    torch.cuda.empty_cache()
+
+    # -- 6-9. DICS -------------------------------------------------------------
+    kernels += _dics_phases(torch, np, rt, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -204,7 +232,8 @@ def main():
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
 
 
-def _profile_steps(torch, rt, users, items, cfg, steps: int):
+def _profile_steps(torch, rt, users, items, cfg, steps: int,
+                   phase: str = "profile"):
     """Where the time goes: the first ``steps`` micro-batches of the main
     path again, under ``torch.profiler`` (device activity only, so the
     host loop is not slowed by CPU-side recording). Device busy share =
@@ -226,7 +255,7 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int):
     events = int(min(n, users.size))
     total_steps = (math.ceil(events / cfg.micro_batch)
                    + math.ceil(cfg.micro_batch / cfg.bucket_capacity))
-    emit("profile", steps=total_steps, events=events,
+    emit(phase, steps=total_steps, events=events,
          wall_ms=1e3 * res.wall_seconds,
          wall_ms_per_step=1e3 * res.wall_seconds / total_steps,
          device_busy_ms=busy_ms,
@@ -326,11 +355,10 @@ def _middle_batch(torch, np, users, items, cfg, rng):
 
 
 def _clone(state):
-    from repro_torch.core.state import DisgdState, Tables
+    from repro_torch.core.state import Tables
 
-    return DisgdState(Tables(*(t.clone() for t in state.tables)),
-                      state.user_vecs.clone(), state.item_vecs.clone(),
-                      state.rated.clone())
+    return type(state)(Tables(*(t.clone() for t in state.tables)),
+                       *(x.clone() for x in state[1:]))
 
 
 def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
@@ -540,6 +568,295 @@ def _backends_agree(torch, np, rt):
          max_abs_err=err, rtol=STREAM_RTOL, atol=STREAM_ATOL,
          cuda_wall_s=a.wall_seconds, scan_wall_s=b.wall_seconds,
          recall_cuda=a.recall.mean(), recall_scan=b.recall.mean())
+
+
+def _dics_phases(torch, np, rt, dev):
+    """DICS trained over the whole Netflix stream, served, and its two
+    kernels held against their plain versions. Returns the kernel rows."""
+    from repro_torch.data.stream import NETFLIX, synth_stream
+    from repro_torch.kernels import ops
+    from repro_torch.serve.plane import query_capacity
+
+    # -- 6. dics_path ----------------------------------------------------------
+    t0 = time.perf_counter()
+    users, items, _ = synth_stream(NETFLIX, seed=0)
+    gen_s = time.perf_counter() - t0
+    n = int(users.size)
+    hyper = rt.DicsHyper(k_nn=K_NN, top_n=10, u_cap=DICS_U_CAP,
+                         i_cap=DICS_I_CAP)
+    grid = rt.GridSpec(n_i=N_I)
+    cfg = rt.StreamConfig(algorithm="dics", grid=grid,
+                          micro_batch=MICRO_BATCH, capacity_factor=2.0,
+                          hyper=hyper, backend="cuda", device=DEVICE)
+    steps = (math.ceil(n / MICRO_BATCH)
+             + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = rt.run_stream(users, items, cfg)
+    path_counts = ops.launch_counts()
+    if res.events_processed + res.dropped != n:
+        fail(f"dics: events_processed {res.events_processed} + dropped "
+             f"{res.dropped} != {n}")
+    if path_counts["dics_update"] != steps:
+        fail(f"dics_update launched {path_counts['dics_update']} times on "
+             f"the DICS path, expected one per step ({steps})")
+    states = res.final_states
+    emit("dics_path", stream="synth_stream(NETFLIX, seed=0)", events=n,
+         cut=None, generate_s=round(gen_s, 3), grid=[grid.n_i, grid.g],
+         u_cap=DICS_U_CAP, i_cap=DICS_I_CAP, k_nn=K_NN,
+         micro_batch=MICRO_BATCH, bucket_capacity=cfg.bucket_capacity,
+         steps=steps, wall_s=res.wall_seconds,
+         wall_ms_per_step=1e3 * res.wall_seconds / steps,
+         events_per_s=res.throughput, recall_at_10=res.recall.mean(),
+         events_processed=res.events_processed, dropped=res.dropped,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         rated_bytes=states.rated.numel(), co_bytes=4 * states.co.numel(),
+         launches=path_counts)
+    _profile_steps(torch, rt, users, items, cfg, steps=32,
+                   phase="dics_profile")
+
+    # -- 7. dics_serve ----------------------------------------------------------
+    rng = np.random.default_rng(0)
+    queries = rng.choice(np.unique(users), SERVE_USERS, replace=False)
+    qcap = query_capacity(SERVE_BATCH, grid.g)
+    kw = dict(algorithm="dics", grid=grid, top_n=hyper.top_n,
+              u_cap=DICS_U_CAP, qcap=qcap, k_nn=K_NN)
+    batches = [torch.as_tensor(queries[s:s + SERVE_BATCH], dtype=torch.int32,
+                               device=dev)
+               for s in range(0, SERVE_USERS, SERVE_BATCH)]
+    rt.grid_topn(states, batches[0], **kw)          # warm the allocator
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lat, outs = [], []
+    for q in batches:
+        t0 = time.perf_counter()
+        out = rt.grid_topn(states, q, **kw)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        outs.append(out)
+    serve_counts = ops.launch_counts()
+    if serve_counts["dics_topn"] != len(batches):
+        fail(f"dics_topn launched {serve_counts['dics_topn']} times for "
+             f"{len(batches)} serve calls")
+    for q, out in zip(batches, outs):
+        plain = rt.grid_topn(states, q, use_kernel=False, **kw)
+        for a, b, what in zip(out, plain, ("ids", "scores", "known",
+                                           "served")):
+            if not torch.equal(a, b):
+                fail(f"dics serve {what} differ from the plain path")
+    served = sum(int(o[3].sum()) for o in outs)
+    emit("dics_serve", queries=SERVE_USERS, batch=SERVE_BATCH, qcap=qcap,
+         served=served, qps=served / sum(lat),
+         p50_ms=1e3 * statistics.median(lat), max_ms=1e3 * max(lat),
+         known=sum(int(o[2].sum()) for o in outs),
+         listed=sum(int(torch.isfinite(o[1]).sum()) for o in outs),
+         launches=serve_counts)
+
+    # -- 8. kernels against their plain versions ---------------------------------
+    rows = _dics_kernel_checks(torch, np, users, items, states, cfg,
+                               batches[0], qcap, path_counts, serve_counts)
+    del states, res, outs, batches
+    torch.cuda.empty_cache()
+
+    # -- 9. backends agree on the card -------------------------------------------
+    _dics_backends_agree(torch, np, rt)
+    return rows
+
+
+def _dics_touched_bytes(np, uid, iid, rows, ev_u, ev_i, u_slot, i_slot,
+                        u_cap, i_cap):
+    """Bytes dics_update must move for this batch: the event inputs read
+    once; every rated row read once; every co entry and cnt it adds to read
+    and written once; the clears written once (rated row I bytes, rated
+    column U bytes, co row and column); the bookkeeping. Replays the slot
+    tenancy and the histories event by event from the batch-start rows."""
+    ev_u, ev_i, u_slot, i_slot = (x.cpu().numpy() for x in
+                                  (ev_u, ev_i, u_slot, i_slot))
+    uid, iid, rows = uid.cpu().numpy(), iid.cpu().numpy(), rows.cpu().numpy()
+    n_w, n_ev = ev_u.shape
+    total = 16 * n_w * n_ev
+    for w in range(n_w):
+        u_ten, i_ten, hist = {}, {}, {}
+        co_cells, cnt_cells, rows_read = set(), set(), set()
+        for e in range(n_ev):
+            us, is_ = int(u_slot[w, e]), int(i_slot[w, e])
+            new_u = u_ten.get(us, uid[w, us]) != ev_u[w, e]
+            new_i = i_ten.get(is_, iid[w, is_]) != ev_i[w, e]
+            if us not in hist:
+                hist[us] = set(np.flatnonzero(rows[w, e]).tolist())
+            if new_u:
+                hist[us] = set()
+                total += i_cap
+            if new_i:
+                for h in hist.values():
+                    h.discard(is_)
+                total += u_cap + 8 * i_cap + 4
+            if ev_u[w, e] < 0:
+                continue
+            u_ten[us], i_ten[is_] = ev_u[w, e], ev_i[w, e]
+            if us not in rows_read:
+                rows_read.add(us)
+                total += i_cap
+            for q in hist[us]:
+                co_cells.add((is_, q))
+                co_cells.add((q, is_))
+            cnt_cells.add(is_)
+            hist[us].add(is_)
+            total += 2 * 6 * 4 + 1                    # tables, rated[u, i]
+        total += 8 * (len(co_cells) + len(cnt_cells))
+    return total
+
+
+def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
+                        path_counts, serve_counts):
+    from repro_torch.core import dics, routing, state as state_lib
+    from repro_torch.kernels import ops, ref
+
+    hyper = cfg.resolved_hyper()
+    rng = np.random.default_rng(1)
+    ev_u, ev_i = _middle_batch(torch, np, users, items, cfg, rng)
+    n_w, cap = ev_u.shape
+    t = states.tables
+    u_slot = state_lib.slot_of(ev_u, hyper.g, hyper.u_cap)
+    i_slot = state_lib.slot_of(ev_i, hyper.n_i, hyper.i_cap)
+    events = (ev_u, ev_i, u_slot, i_slot)
+    w = torch.arange(n_w, device=ev_u.device)[:, None]
+    rows_at_start = states.rated[w, u_slot.long()]
+    rows = []
+
+    # K4 dics_update on clones of the trained state.
+    n_bytes = _dics_touched_bytes(np, t.user_ids, t.item_ids, rows_at_start,
+                                  ev_u, ev_i, u_slot, i_slot, hyper.u_cap,
+                                  hyper.i_cap)
+    del rows_at_start
+    work = {}
+
+    def run(fn, name):
+        s = work[name]
+        fn(s.co, s.item_cnt, s.rated, tuple(s.tables), events)
+
+    results = {}
+    for name, fn in (("kernel", ops.dics_update), ("plain", ref.dics_apply)):
+        work[name] = _clone(states)
+        run(fn, name)
+        torch.cuda.synchronize()
+        results[name] = work.pop(name)
+    got, want = results["kernel"], results["plain"]
+    for a, b, what in zip(got, want, type(got)._fields):
+        pairs = zip(a, b) if what == "tables" else [(a, b)]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            fail(f"dics_update: {what} differs from the plain version")
+    evicted = int(((t.item_ids.gather(1, i_slot.long()) != ev_i)
+                   & (t.item_ids.gather(1, i_slot.long()) >= 0)).sum())
+    del got, want, results
+
+    def fresh(name):
+        def setup():
+            work[name] = _clone(states)
+        return setup
+
+    ms = _time_ms(torch, lambda: run(ops.dics_update, "kernel"), reps=5,
+                  setup=fresh("kernel"))
+    plain_ms = _time_ms(torch, lambda: run(ref.dics_apply, "plain"), reps=2,
+                        setup=fresh("plain"))
+    work.clear()
+    n_valid = int((ev_u >= 0).sum())
+    bound, by = _bound_ms(n_bytes, 2 * hyper.i_cap * n_valid)
+    rows.append(dict(
+        name="dics_update", route="cuda", matched=True,
+        source="src/repro_torch/kernels/csrc/dics_update.cu",
+        replaces="src/repro/kernels/dics_update.py:33",
+        launches=path_counts["dics_update"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        library="none: no single PyTorch call applies a sequential chain "
+                "of evicting co-count updates",
+        shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap}",
+        valid_events=n_valid, evicting_events=evicted, bytes=n_bytes))
+
+    # The bucket-start scoring of the same micro-batch (PyTorch, not a
+    # kernel): its share of a DICS step.
+    score_ms = _time_ms(torch, lambda: dics.bucket_start_scores(
+        states, ev_u, hyper), reps=5)
+
+    # K5 dics_topn on the inputs of one serve call.
+    g, n_i = cfg.grid.g, cfg.grid.n_i
+    col = torch.where(serve_q >= 0, serve_q % g, g)
+    buckets, _, _ = routing.bucket_dispatch(col, g, qcap)
+    qu = torch.where(buckets >= 0, serve_q[buckets.clamp(min=0).long()], -1)
+    qu = qu.repeat(n_i, 1)
+    slots = state_lib.slot_of(qu, g, hyper.u_cap).long()
+    known = t.user_ids.gather(1, slots) == qu
+    hist = states.rated[w, slots] & known[..., None]
+    args = (states.co, states.item_cnt, hist, known, t.item_ids)
+    kw = dict(top_n=hyper.top_n, k_nn=hyper.k_nn)
+    got_ids, got_sc = ops.dics_topn(*args, **kw)
+    want_ids, want_sc = ref.dics_topn(*args, **kw)
+    if not (torch.equal(got_ids, want_ids) and torch.equal(got_sc, want_sc)):
+        bad = int((got_ids != want_ids).sum() + (got_sc != want_sc).sum())
+        fail(f"dics_topn: {bad} entries differ from the plain version")
+    ms = _time_ms(torch, lambda: ops.dics_topn(*args, **kw))
+    plain_ms = _time_ms(torch, lambda: ref.dics_topn(*args, **kw), reps=5)
+    b, i = hist.shape[1], hist.shape[2]
+    h_len = hist.sum(-1)                                    # [W, B]
+    cols = hist.any(1).sum(-1)                              # [W] distinct q
+    cand = ((t.item_ids >= 0)[:, None, :] & ~hist).sum(-1)  # [W, B]
+    k5_bytes = (n_w * b * i + n_w * b + 4 * int(cols.sum()) * i
+                + 8 * n_w * i + 8 * n_w * b * hyper.top_n)
+    k5_ops = 4 * int((cand * h_len).sum())   # mul, sqrt, divide, compare
+    bound, by = _bound_ms(k5_bytes, k5_ops)
+    rows.append(dict(
+        name="dics_topn", route="cuda", matched=True,
+        source="src/repro_torch/kernels/csrc/dics_topn.cu",
+        replaces="src/repro/kernels/topn.py:144",
+        launches=serve_counts["dics_topn"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        library="none: no single PyTorch call computes the Eq. 7 "
+                "neighbour mass and a top-N",
+        shape=f"W={n_w} B={b} I={i} k_nn={hyper.k_nn} N={hyper.top_n}",
+        mean_history=float(h_len[known].float().mean()),
+        max_history=int(h_len.max())))
+    emit("dics_kernels_vs_plain", matched=[r["name"] for r in rows],
+         tolerance="exact", bucket_start_scores_ms=score_ms,
+         bucket_start_shape=f"W={n_w} E={cap} I={hyper.i_cap} "
+                            f"k_nn={hyper.k_nn}")
+    return rows
+
+
+def _dics_backends_agree(torch, np, rt):
+    from repro_torch.core import convert
+    from repro_torch.data.stream import NETFLIX, scaled, synth_stream
+
+    users, items, _ = synth_stream(scaled(NETFLIX, 0.0015, n_items=128),
+                                   seed=0)
+    # 64 items per split over 32 slots: item slots collide.
+    hyper = rt.DicsHyper(u_cap=128, i_cap=32)
+    cfg = rt.StreamConfig(algorithm="dics", grid=rt.GridSpec(2),
+                          micro_batch=256, hyper=hyper, backend="cuda",
+                          device=DEVICE)
+    a = rt.run_stream(users, items, cfg)
+    b = rt.run_stream(users, items, dataclasses.replace(cfg, backend="scan"))
+    # The same kernel worker on CPU tensors (the plain versions), which the
+    # CPU tests hold to the JAX package bit for bit: the card's bucket-start
+    # scoring and hit bits must equal it.
+    c = rt.run_stream(users, items, dataclasses.replace(cfg, device="cpu"))
+    for r, what in ((b, "scan"), (c, "cpu")):
+        if (a.events_processed, a.dropped) != (r.events_processed, r.dropped):
+            fail(f"dics: cuda and {what} processed / dropped different counts")
+    sa, sb, sc = (convert.states_to_numpy(r.final_states) for r in (a, b, c))
+    for name in sa:
+        if not np.array_equal(sa[name], sb[name]):
+            fail(f"dics backends: {name} differs")
+        if not np.array_equal(sa[name], sc[name]):
+            fail(f"dics cuda on the card and on the cpu: {name} differs")
+    if not np.array_equal(a.recall.bits(), c.recall.bits(), equal_nan=True):
+        fail("dics cuda on the card and on the cpu: recall bits differ")
+    emit("dics_backends_agree",
+         stream="synth_stream(scaled(NETFLIX, 0.0015, n_items=128))",
+         events=int(users.size), u_cap=hyper.u_cap, i_cap=hyper.i_cap,
+         tolerance="exact", cuda_wall_s=a.wall_seconds,
+         scan_wall_s=b.wall_seconds, cpu_wall_s=c.wall_seconds,
+         recall_bits_equal_cpu=True, recall_cuda=a.recall.mean(),
+         recall_scan=b.recall.mean(), recall_cpu=c.recall.mean())
 
 
 if __name__ == "__main__":

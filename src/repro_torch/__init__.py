@@ -5,10 +5,12 @@ and numpy, never jax and nothing of ``repro``. Its hot path runs on an
 NVIDIA H100 through hand-written kernels (``repro_torch/kernels``); CPU
 tensors take the plain PyTorch versions of those kernels.
 
-This slice: DISGD trained prequentially over the Splitting & Replication
-grid (``run_stream``) and grid top-N serving (``grid_topn``).
+Ported so far: DISGD (Alg. 2) and DICS (Alg. 3) trained prequentially
+over the Splitting & Replication grid (``run_stream``, ``algorithm=
+"disgd"`` or ``"dics"``) and grid top-N serving (``grid_topn``).
 """
 
+from repro_torch.core.dics import DicsHyper
 from repro_torch.core.disgd import DisgdHyper
 from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
 from repro_torch.core.routing import GridSpec
@@ -16,4 +18,4 @@ from repro_torch.core.serve import recommend_topn
 from repro_torch.serve.plane import grid_topn
 
 __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
-           "DisgdHyper", "grid_topn", "recommend_topn"]
+           "DisgdHyper", "DicsHyper", "grid_topn", "recommend_topn"]

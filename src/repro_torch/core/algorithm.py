@@ -1,9 +1,10 @@
-"""Registry of streaming-recommender algorithms (DISGD only, so far).
+"""Registry of streaming-recommender algorithms: DISGD and DICS.
 
 Port of the registry in ``repro/core/algorithm.py``, modelled on
-``DisgdAlgorithm`` (:242-274). The engine, the pipeline and the serving
-plane look an algorithm up by its ``StreamConfig.algorithm`` key here and
-call its hooks; nothing outside this module compares algorithm names.
+``DisgdAlgorithm`` / ``DicsAlgorithm`` (:242-308). The engine, the
+pipeline and the serving plane look an algorithm up by its
+``StreamConfig.algorithm`` key here and call its hooks; nothing outside
+this module compares algorithm names.
 """
 
 from __future__ import annotations
@@ -12,11 +13,12 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import dics as dics_lib
 from repro_torch.core import disgd as disgd_lib
 from repro_torch.core import serve as serve_lib
 from repro_torch.core import state as state_lib
 
-__all__ = ["DisgdAlgorithm", "get_algorithm"]
+__all__ = ["DisgdAlgorithm", "DicsAlgorithm", "get_algorithm"]
 
 
 class DisgdAlgorithm:
@@ -43,10 +45,13 @@ class DisgdAlgorithm:
         """The kernel worker (``backend="cuda"``)."""
         return disgd_lib.make_cuda_worker(hyper, key)
 
-    def make_serve_leaf(self, *, top_n: int, g: int, u_cap: int,
+    def make_serve_leaf(self, *, top_n: int, g: int, u_cap: int, k_nn: int,
                         use_kernel: bool) -> Callable:
         """``leaf(states, user_ids[W, B]) -> (ids, scores, known)``: every
-        worker's partial top-N over its own item split."""
+        worker's partial top-N over its own item split. ``k_nn`` is a DICS
+        knob and is ignored."""
+        del k_nn
+
         def leaf(states, user_ids):
             return serve_lib.partial_topn(states, user_ids, top_n=top_n, g=g,
                                           u_cap=u_cap, use_kernel=use_kernel)
@@ -54,7 +59,47 @@ class DisgdAlgorithm:
         return leaf
 
 
-_REGISTRY = {algo.name: algo for algo in (DisgdAlgorithm(),)}
+class DicsAlgorithm:
+    """DICS — distributed incremental item-based cosine CF (Alg. 3)."""
+
+    name = "dics"
+
+    def default_hyper(self) -> dics_lib.DicsHyper:
+        return dics_lib.DicsHyper()
+
+    def init_state(self, hyper, *, batch: tuple = (), device="cuda"):
+        """Zero state of ``batch`` workers."""
+        return state_lib.init_dics_state(hyper.u_cap, hyper.i_cap,
+                                         batch=batch, device=device)
+
+    def make_worker_step(self, hyper, key: torch.Tensor) -> Callable:
+        """The eager reference worker (``backend="scan"``). DICS draws no
+        random numbers: ``key`` is unused."""
+        del key
+
+        def step(state, events):
+            return dics_lib.dics_worker_step(state, events, hyper)
+
+        return step
+
+    def make_cuda_worker_step(self, hyper, key: torch.Tensor) -> Callable:
+        """The kernel worker (``backend="cuda"``)."""
+        del key
+        return dics_lib.make_cuda_worker(hyper)
+
+    def make_serve_leaf(self, *, top_n: int, g: int, u_cap: int, k_nn: int,
+                        use_kernel: bool) -> Callable:
+        """``leaf(states, user_ids[W, B]) -> (ids, scores, known)``: the
+        Eq. 6/7 partial top-N of every worker's item split."""
+        def leaf(states, user_ids):
+            return dics_lib.dics_partial_topn(
+                states, user_ids, top_n=top_n, k_nn=k_nn, g=g, u_cap=u_cap,
+                use_kernel=use_kernel)
+
+        return leaf
+
+
+_REGISTRY = {algo.name: algo for algo in (DisgdAlgorithm(), DicsAlgorithm())}
 
 
 def get_algorithm(name: str):
@@ -62,6 +107,6 @@ def get_algorithm(name: str):
     algo = _REGISTRY.get(name)
     if algo is None:
         raise KeyError(f"no registered algorithm {name!r}; registered: "
-                       f"{sorted(_REGISTRY)} (BPR and DICS come in later "
-                       "slices of the port)")
+                       f"{sorted(_REGISTRY)} (BPR comes in a later slice of "
+                       "the port)")
     return algo

@@ -59,9 +59,9 @@ def _make_batch_step(cfg, worker_fn):
 
     def batch_step(carry, fu, fi):
         # Runs on every step, also where the JAX engine's lax.cond takes
-        # its "dead" branch: a step without valid events changes no state
-        # (padding touches nothing) and yields NaN bits, zero loads and
-        # zero kept — what the dead branch returns.
+        # its "dead" branch: a step without valid events yields NaN bits,
+        # zero loads and zero kept — what the dead branch returns — and
+        # hands the worker only padding, which changes no state.
         states, cu, ci, processed, dropped = carry
         bu = torch.cat([cu, fu])
         bi = torch.cat([ci, fi])

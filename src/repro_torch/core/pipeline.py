@@ -3,17 +3,22 @@
 Port of ``repro/core/pipeline.py``: ``StreamConfig`` (:49) with the same
 fields and ``bucket_capacity`` plus a ``device``, ``StreamResult`` (:88),
 ``init_states`` (:178) and ``run_stream`` (:188). ``run_stream`` runs
-the device loop of ``core/engine.py`` with one of two workers:
+the device loop of ``core/engine.py`` for a registered algorithm
+(``"disgd"`` or ``"dics"``, ``core/algorithm.py``) with one of two
+workers:
 
   * ``backend="cuda"`` (alias ``"pallas"``, the JAX package's name) —
-    the kernel worker, ``disgd.make_cuda_worker``;
-  * ``backend="scan"`` — the eager reference worker,
-    ``disgd.disgd_worker_step``, inside the same loop.
+    the kernel worker (``disgd.make_cuda_worker``,
+    ``dics.make_cuda_worker``);
+  * ``backend="scan"`` — the eager reference worker
+    (``disgd.disgd_worker_step``, ``dics.dics_worker_step``), inside the
+    same loop.
 
 What later slices of the port bring raises ``ValueError`` naming the
 slice: the ``host`` and ``shard_map`` backends, forgetting policies,
-drift control and storage policies. ``telemetry`` is accepted; the
-result's ``telemetry`` is ``None`` until the observability slice.
+drift control and storage policies; BPR is not registered yet.
+``telemetry`` is accepted; the result's ``telemetry`` is ``None`` until
+the observability slice.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ class StreamConfig:
     micro_batch: int = 2048
     capacity_factor: float = 2.0             # bucket capacity vs fair share
     forgetting: Any = None                   # None / policy "none" only
-    hyper: Any = None                        # DisgdHyper (caps etc.)
+    hyper: Any = None                        # DisgdHyper / DicsHyper (caps etc.)
     seed: int = 0
     record_every: int = 4                    # occupancy snapshot cadence
     backend: str = "cuda"                    # "cuda" (= "pallas") | "scan"

@@ -1,8 +1,9 @@
 """Per-worker slot-mapped state for the S&R recommenders, as tensors.
 
 Port of ``repro/core/state.py``: ``slot_of`` (:43), ``user_slot`` /
-``item_slot``, ``Tables`` (:64), ``DisgdState`` (:76),
-``init_disgd_state`` (:120) and ``occupancy`` (:151). Each worker holds
+``item_slot``, ``Tables`` (:64), ``DisgdState`` (:76), ``DicsState``
+(:85), ``init_disgd_state`` (:120), ``init_dics_state`` (:131),
+``occupancy`` (:151) and ``item_stats`` (:159). Each worker holds
 fixed-capacity id-slotted tables, ``slot(id) = (id // n_splits) %
 capacity``; empty slots carry id ``-1``. Ids and bookkeeping are int32
 as in JAX (indexing casts to int64); ``rated`` is ``torch.bool`` and a
@@ -19,8 +20,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Tables", "DisgdState", "init_disgd_state", "slot_of",
-           "user_slot", "item_slot", "occupancy"]
+__all__ = ["Tables", "DisgdState", "DicsState", "init_disgd_state",
+           "init_dics_state", "slot_of", "user_slot", "item_slot",
+           "occupancy", "item_stats"]
 
 
 def slot_of(ids: torch.Tensor, n_splits: int, capacity: int) -> torch.Tensor:
@@ -59,25 +61,62 @@ class DisgdState(NamedTuple):
     rated: torch.Tensor      # bool[..., U_cap, I_cap]
 
 
-def init_disgd_state(u_cap: int, i_cap: int, k: int, *, batch: tuple = (),
-                     device="cuda") -> DisgdState:
-    """Zero state of ``batch`` workers (``()`` = one worker)."""
+class DicsState(NamedTuple):
+    """DICS worker state: co-rating counts for the incremental cosine.
+
+    With positive-only boolean feedback, ``co[p, q]`` counts the users who
+    rated both p and q and ``item_cnt[p]`` those who rated p, so Eq. 6 is
+    ``co[p, q] / sqrt(item_cnt[p] * item_cnt[q])``. Both hold integer
+    values in f32. The JAX state's ``co_scale`` (storage policies) has no
+    counterpart until the storage slice.
+    """
+
+    tables: Tables
+    co: torch.Tensor         # f32[..., I_cap, I_cap]
+    item_cnt: torch.Tensor   # f32[..., I_cap]
+    rated: torch.Tensor      # bool[..., U_cap, I_cap]
+
+
+def _tables(full, u_cap: int, i_cap: int) -> Tables:
+    i32 = torch.int32
+    return Tables(
+        user_ids=full((u_cap,), -1, i32),
+        item_ids=full((i_cap,), -1, i32),
+        user_freq=full((u_cap,), 0, i32),
+        item_freq=full((i_cap,), 0, i32),
+        user_ts=full((u_cap,), 0, i32),
+        item_ts=full((i_cap,), 0, i32),
+        clock=full((), 0, i32),
+    )
+
+
+def _filler(batch: tuple, device):
     def full(shape, value, dtype):
         return torch.full(batch + shape, value, dtype=dtype, device=device)
 
-    i32 = torch.int32
+    return full
+
+
+def init_disgd_state(u_cap: int, i_cap: int, k: int, *, batch: tuple = (),
+                     device="cuda") -> DisgdState:
+    """Zero state of ``batch`` workers (``()`` = one worker)."""
+    full = _filler(batch, device)
     return DisgdState(
-        tables=Tables(
-            user_ids=full((u_cap,), -1, i32),
-            item_ids=full((i_cap,), -1, i32),
-            user_freq=full((u_cap,), 0, i32),
-            item_freq=full((i_cap,), 0, i32),
-            user_ts=full((u_cap,), 0, i32),
-            item_ts=full((i_cap,), 0, i32),
-            clock=full((), 0, i32),
-        ),
+        tables=_tables(full, u_cap, i_cap),
         user_vecs=full((u_cap, k), 0.0, torch.float32),
         item_vecs=full((i_cap, k), 0.0, torch.float32),
+        rated=full((u_cap, i_cap), False, torch.bool),
+    )
+
+
+def init_dics_state(u_cap: int, i_cap: int, *, batch: tuple = (),
+                    device="cuda") -> DicsState:
+    """Zero DICS state of ``batch`` workers (``()`` = one worker)."""
+    full = _filler(batch, device)
+    return DicsState(
+        tables=_tables(full, u_cap, i_cap),
+        co=full((i_cap, i_cap), 0.0, torch.float32),
+        item_cnt=full((i_cap,), 0.0, torch.float32),
         rated=full((u_cap, i_cap), False, torch.bool),
     )
 
@@ -86,3 +125,14 @@ def occupancy(tables: Tables):
     """Paper's memory metric: live entries per table (per worker)."""
     return ((tables.user_ids >= 0).sum(-1, dtype=torch.int32),
             (tables.item_ids >= 0).sum(-1, dtype=torch.int32))
+
+
+def item_stats(state):
+    """Per-slot (global item id, popularity weight) for either algorithm:
+    ``item_freq`` touches for DISGD, the Eq. 6 ``item_cnt`` for DICS.
+    Shapes follow the state (one worker or a stacked grid)."""
+    if isinstance(state, DicsState):
+        return state.tables.item_ids, state.item_cnt
+    if isinstance(state, DisgdState):
+        return state.tables.item_ids, state.tables.item_freq.float()
+    raise TypeError(f"unknown state type {type(state)}")

@@ -8,8 +8,9 @@ is compiled on its own, for Hopper only::
 
 into ``build/repro_torch_kernels/`` at the root of the checkout, then
 loaded with ``ctypes``. All stale sources are compiled at once, one
-``nvcc`` each, on first use. A library is rebuilt when its source is
-newer. Nothing here runs at import time.
+``nvcc`` each, on first use. A library is rebuilt when its source or a
+shared header (``csrc/*.cuh``) is newer. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "BUILD_DIR", "BuildInfo", "build_all", "load"]
 
-KERNELS = ("factor_update", "masked_scores", "fused_topn")
+KERNELS = ("factor_update", "masked_scores", "fused_topn", "dics_update",
+           "dics_topn")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
@@ -61,8 +63,10 @@ def _library(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _library(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def build_all(force: bool = False) -> dict[str, BuildInfo]:

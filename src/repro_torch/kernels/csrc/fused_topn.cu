@@ -21,11 +21,14 @@
 // items lane, lane + 32, ... and keeps its own sorted top-N in local
 // memory, inserting only what beats its current N-th entry; at the end
 // the warp merges its 32 lists with N rounds of a shuffle arg-max over
-// (score desc, id asc, lane asc), each round popping the winner's head.
+// (score desc, id asc, lane asc), each round popping the winner's head
+// (topn_merge.cuh).
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "topn_merge.cuh"
 
 namespace {
 
@@ -33,11 +36,6 @@ constexpr int kWarps = 8;
 constexpr int kTile = 128;
 constexpr int kMaxK = 32;
 constexpr int kMaxN = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ bool better(float s, int id, float s2, int id2) {
-  return s > s2 || (s == s2 && id < id2);
-}
 
 __global__ void __launch_bounds__(kWarps * 32) fused_topn_kernel(
     const float* __restrict__ u, const float* __restrict__ items,
@@ -102,27 +100,7 @@ __global__ void __launch_bounds__(kWarps * 32) fused_topn_kernel(
   }
   if (!row_ok) return;  // after the last barrier; whole warps leave
 
-  int head = 0;
-  for (int r = 0; r < N; ++r) {
-    float s = head < N ? lsc[head] : -INFINITY;
-    int id = head < N ? lid[head] : INT_MAX;
-    int src = lane;
-    for (int o = 16; o > 0; o >>= 1) {
-      const float s2 = __shfl_xor_sync(kFull, s, o);
-      const int id2 = __shfl_xor_sync(kFull, id, o);
-      const int src2 = __shfl_xor_sync(kFull, src, o);
-      if (better(s2, id2, s, id) || (s2 == s && id2 == id && src2 < src)) {
-        s = s2;
-        id = id2;
-        src = src2;
-      }
-    }
-    if (lane == src) ++head;
-    if (lane == 0) {
-      out_sc[r] = s;
-      out_ids[r] = id;
-    }
-  }
+  warp_merge(lsc, lid, N, N, lane, out_sc, out_ids);
 }
 
 }  // namespace

@@ -22,18 +22,21 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ref import topn_select
 
-__all__ = ["masked_scores", "factor_update", "fused_topn", "topn_select",
-           "topn_merge", "launch_counts", "reset_launch_counts",
-           "MAX_K", "MAX_TOP_N"]
+__all__ = ["masked_scores", "factor_update", "fused_topn", "dics_update",
+           "dics_topn", "topn_select", "topn_merge", "launch_counts",
+           "reset_launch_counts", "MAX_K", "MAX_TOP_N", "MAX_K_NN"]
 
 MAX_K = 32       # factor width the kernels hold in a warp / a smem row
-MAX_TOP_N = 32   # running list length fused_topn keeps per lane
+MAX_TOP_N = 32   # running list length fused_topn / dics_topn keep per lane
+MAX_K_NN = 32    # neighbour list length dics_topn keeps per candidate
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "factor_update": [_P] * 17 + [_I] * 5 + [_F, _F, _I, _P],
     "masked_scores": [_P] * 4 + [_I] * 4 + [_P],
     "fused_topn": [_P] * 6 + [_I] * 5 + [_P],
+    "dics_update": [_P] * 15 + [_I] * 4 + [_P],
+    "dics_topn": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _launches = {name: 0 for name in _ARGTYPES}
@@ -194,6 +197,80 @@ def fused_topn(u_vecs, item_vecs, mask, item_ids, *, top_n: int):
             item_vecs.data_ptr(),
             _bytes(mask).data_ptr(), item_ids.data_ptr(), out_ids.data_ptr(),
             out_sc.data_ptr(), w, b, i, k, n)
+    return out_ids, out_sc
+
+
+def dics_update(co, item_cnt, rated, tabs, events, *, live=None):
+    """DICS micro-batch update of every worker (Eq. 6 statistics and
+    bookkeeping), IN PLACE.
+
+    co f32[W, I, I]; item_cnt f32[W, I]; rated bool/uint8 [W, U, I]; tabs
+    as ``factor_update``; events ``(ev_u, ev_i, u_slots, i_slots)`` i32
+    [W, E]; ``live`` an optional 0-d bool tensor on the same device:
+    when false the call changes nothing (read by the kernel, so the host
+    never waits for it). See ``ref.dics_apply`` for the contract.
+    Kernel: ``csrc/dics_update.cu``, one CTA per worker. Returns the
+    (mutated) ``(co, item_cnt, rated, tabs)``.
+    """
+    ev_u, ev_i, u_slots, i_slots = events
+    extra = () if live is None else (live,)
+    if _on_cpu(co, item_cnt, rated, ev_u, *tabs, *extra):
+        return ref.dics_apply(co, item_cnt, rated, tabs, events, live=live)
+    w, u, i = rated.shape
+    e = ev_u.shape[1]
+    _check(co, "co", (w, i, i), _F32)
+    _check(item_cnt, "item_cnt", (w, i), _F32)
+    _check(rated, "rated", (w, u, i), _MASK)
+    uid, iid, ufq, ifq, uts, its, clock = tabs
+    for name, t, n in (("user_ids", uid, u), ("item_ids", iid, i),
+                       ("user_freq", ufq, u), ("item_freq", ifq, i),
+                       ("user_ts", uts, u), ("item_ts", its, i)):
+        _check(t, name, (w, n), _I32)
+    _check(clock, "clock", (w,), _I32)
+    for name, t in (("ev_u", ev_u), ("ev_i", ev_i), ("u_slots", u_slots),
+                    ("i_slots", i_slots)):
+        _check(t, name, (w, e), _I32)
+    live_ptr = None
+    if live is not None:
+        _check(live, "live", (), (torch.bool,))
+        live_ptr = _bytes(live).data_ptr()
+    _launch("dics_update", co.device, co.data_ptr(), item_cnt.data_ptr(),
+            _bytes(rated).data_ptr(), uid.data_ptr(), iid.data_ptr(),
+            ufq.data_ptr(), ifq.data_ptr(), uts.data_ptr(), its.data_ptr(),
+            clock.data_ptr(), ev_u.data_ptr(), ev_i.data_ptr(),
+            u_slots.data_ptr(), i_slots.data_ptr(), live_ptr, w, u, i, e)
+    return co, item_cnt, rated, tabs
+
+
+def dics_topn(co, item_cnt, hist, known, item_ids, *, top_n: int, k_nn: int):
+    """DICS serve leaf for every worker: Eq. 6 similarity, Eq. 7
+    neighbour mass over each query's history, candidate rule and top-N.
+
+    co f32[W, I, I]; item_cnt f32[W, I]; hist bool/uint8 [W, B, I]
+    (known-masked rated rows); known bool [W, B]; item_ids i32[W, I].
+    Returns (ids i32[W, B, n], scores f32[W, B, n]), ``n = min(top_n,
+    I)``, equal to ``ref.dics_topn``. Kernel: ``csrc/dics_topn.cu``.
+    """
+    if _on_cpu(co, item_cnt, hist, known, item_ids):
+        return ref.dics_topn(co, item_cnt, hist.bool(), known.bool(),
+                             item_ids, top_n, k_nn)
+    w, b, i = hist.shape
+    n = min(top_n, i)
+    k = min(k_nn, i)
+    if n > MAX_TOP_N or k > MAX_K_NN or n < 1 or k < 1:
+        raise ValueError(f"dics_topn: top_n={n} (1..{MAX_TOP_N}), "
+                         f"k_nn={k} (1..{MAX_K_NN})")
+    _check(co, "co", (w, i, i), _F32)
+    _check(item_cnt, "item_cnt", (w, i), _F32)
+    _check(hist, "hist", (w, b, i), _MASK)
+    _check(known, "known", (w, b), _MASK)
+    _check(item_ids, "item_ids", (w, i), _I32)
+    out_ids = torch.empty((w, b, n), dtype=torch.int32, device=co.device)
+    out_sc = torch.empty((w, b, n), dtype=torch.float32, device=co.device)
+    _launch("dics_topn", co.device, co.data_ptr(), item_cnt.data_ptr(),
+            _bytes(hist).data_ptr(), _bytes(known).data_ptr(),
+            item_ids.data_ptr(), out_ids.data_ptr(), out_sc.data_ptr(),
+            w, b, i, n, k)
     return out_ids, out_sc
 
 

@@ -11,7 +11,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_scores", "factor_apply", "topn_select", "fused_topn"]
+__all__ = ["masked_scores", "factor_apply", "topn_select", "fused_topn",
+           "similarity_matrix", "neighbour_mass", "dics_clear", "dics_write",
+           "dics_apply", "dics_topn"]
+
+# Elements of the largest dense [rows, I, I] intermediate of
+# ``neighbour_mass`` (f32: 256 MB); rows are taken in chunks below it.
+_MASS_CHUNK = 1 << 26
 
 
 def masked_scores(u_vecs, item_vecs, mask):
@@ -128,3 +134,142 @@ def fused_topn(u_vecs, item_vecs, mask, item_ids, top_n: int):
     scores = masked_scores(u_vecs, item_vecs, mask)
     ids = item_ids[:, None, :].expand(scores.shape)
     return topn_select(scores, ids, top_n)
+
+
+# -- DICS (Eq. 6 / Eq. 7) ----------------------------------------------------
+#
+# Two numerics rules make these bit-identical to the JAX package on the CPU
+# (and to the CUDA kernels, which use IEEE sqrtf and division):
+#   * the Eq. 6 square root is taken in f64 of the f32 product and rounded
+#     once to f32 (PyTorch's vectorised f32 sqrt on the CPU is off by an ulp
+#     on some inputs; correctly rounded, it equals XLA's and CUDA's sqrtf);
+#   * the top-k_nn neighbour mass is summed left to right over the values in
+#     descending order, as XLA reduces ten values and as the kernels add
+#     them (``torch.sum`` reorders).
+
+
+def similarity_matrix(co, item_cnt):
+    """Eq. 6 cosine similarity of every local item pair, diagonal 0
+    (``repro/core/dics.py:48``): co f32[W, I, I], item_cnt f32[W, I]."""
+    prod = item_cnt[:, :, None] * item_cnt[:, None, :]
+    denom = torch.sqrt(prod.double()).float()
+    sim = torch.where(denom > 0, co / denom.clamp(min=1e-12), 0.0)
+    return sim * (1.0 - torch.eye(co.shape[-1], dtype=co.dtype,
+                                  device=co.device))
+
+
+def neighbour_mass(sim, hist, k_nn: int):
+    """Eq. 7 top-``k_nn`` neighbour mass (``repro/core/dics.py:56``).
+
+    For every history row ``h = hist[w, r]`` and candidate ``p``: the sum,
+    in descending order, of the ``min(k_nn, I)`` largest of
+    ``sim[w, p, q]`` over ``q`` in ``h`` (0 elsewhere). sim f32[W, I, I],
+    hist bool[W, R, I] -> f32[W, R, I]. The dense [W, rows, I, I]
+    restriction is taken in chunks of rows to bound memory.
+    """
+    n_w, n_r, i = hist.shape
+    k = min(k_nn, i)
+    top = torch.empty((n_w, n_r, i, k), dtype=sim.dtype, device=sim.device)
+    step = max(1, _MASS_CHUNK // max(1, n_w * i * i))
+    for r0 in range(0, n_r, step):
+        h = hist[:, r0:r0 + step, None, :]
+        top[:, r0:r0 + step] = torch.topk(
+            torch.where(h, sim[:, None], 0.0), k, dim=-1).values
+    acc = top[..., 0]
+    for j in range(1, k):
+        acc = acc + top[..., j]
+    return acc
+
+
+def dics_clear(co, item_cnt, rated, tabs, w, u_id, i_id, us, is_,
+               live=None):
+    """First half of one DICS event on every worker, IN PLACE: the
+    collision-eviction clears, from the raw slot compare and NOT gated on
+    the event's validity (``repro/kernels/ref.py:177-183``): a padding
+    event (id -1, slot ``cap - 1``) clears a live last slot. ``live``
+    (0-d bool) gates them all: False in a step without events, which the
+    JAX engine skips. Returns ``(new_u, new_i)``."""
+    uid, iid = tabs[0], tabs[1]
+    new_u = uid[w, us] != u_id
+    new_i = iid[w, is_] != i_id
+    clear_u, clear_i = new_u, new_i
+    if live is not None:
+        clear_u, clear_i = new_u & live, new_i & live
+    rated[w, us] = rated[w, us] & ~clear_u[:, None]
+    rated[w, :, is_] = rated[w, :, is_] & ~clear_i[:, None]
+    co[w, is_] = torch.where(clear_i[:, None], 0.0, co[w, is_])
+    co[w, :, is_] = torch.where(clear_i[:, None], 0.0, co[w, :, is_])
+    item_cnt[w, is_] = torch.where(clear_i, 0.0, item_cnt[w, is_])
+    return new_u, new_i
+
+
+def dics_write(co, item_cnt, rated, tabs, w, u_id, i_id, us, is_, new_u,
+               new_i):
+    """Second half of one DICS event, IN PLACE, for valid events only:
+    the user's history (read after the clears) into the ``co`` row, then
+    into the column (which reads the row-updated diagonal, so ``co[i, i]``
+    gains ``hist[i]`` twice), ``item_cnt[i] += 1``, the bookkeeping, and
+    ``rated[u, i]``."""
+    uid, iid, ufq, ifq, uts, its, clock = tabs
+    valid = u_id >= 0
+    vcol = valid[:, None]
+    hist = rated[w, us].to(co.dtype)
+    co[w, is_] = torch.where(vcol, co[w, is_] + hist, co[w, is_])
+    co[w, :, is_] = torch.where(vcol, co[w, :, is_] + hist, co[w, :, is_])
+    item_cnt[w, is_] = torch.where(valid, item_cnt[w, is_] + 1.0,
+                                   item_cnt[w, is_])
+    clock += valid.to(clock.dtype)
+    ufq[w, us] = torch.where(valid, torch.where(new_u, 1, ufq[w, us] + 1),
+                             ufq[w, us])
+    ifq[w, is_] = torch.where(valid, torch.where(new_i, 1, ifq[w, is_] + 1),
+                              ifq[w, is_])
+    uid[w, us] = torch.where(valid, u_id, uid[w, us])
+    iid[w, is_] = torch.where(valid, i_id, iid[w, is_])
+    uts[w, us] = torch.where(valid, clock, uts[w, us])
+    its[w, is_] = torch.where(valid, clock, its[w, is_])
+    rated[w, us, is_] |= valid
+
+
+def dics_apply(co, item_cnt, rated, tabs, events, live=None):
+    """Sequential DICS micro-batch update, IN PLACE
+    (``repro/kernels/ref.py:153``): per event, ``dics_clear`` then
+    ``dics_write``.
+
+    Args:
+      co / item_cnt / rated: f32[W, I, I] / f32[W, I] / bool[W, U, I].
+      tabs: as ``factor_apply``.
+      events: ``(ev_u, ev_i, u_slots, i_slots)``, i32 ``[W, E]``.
+      live: optional 0-d bool; False makes the call change nothing.
+
+    Returns the (mutated) ``(co, item_cnt, rated, tabs)``.
+    """
+    ev_u, ev_i, u_slots, i_slots = events
+    if live is not None:   # not live: every event is padding, clears gated
+        ev_u = torch.where(live, ev_u, -1)
+    w = torch.arange(ev_u.shape[0], device=ev_u.device)
+    for e in range(ev_u.shape[1]):
+        u_id, i_id = ev_u[:, e], ev_i[:, e]
+        us, is_ = u_slots[:, e].long(), i_slots[:, e].long()
+        new_u, new_i = dics_clear(co, item_cnt, rated, tabs, w, u_id, i_id,
+                                  us, is_, live)
+        dics_write(co, item_cnt, rated, tabs, w, u_id, i_id, us, is_, new_u,
+                   new_i)
+    return co, item_cnt, rated, tabs
+
+
+def dics_topn(co, item_cnt, hist, known, item_ids, top_n: int, k_nn: int):
+    """DICS serve leaf (the jnp path of ``repro/core/dics.py:120-131``):
+    Eq. 6 similarity, Eq. 7 neighbour mass over the query's history, the
+    candidate rule (live slot, unrated, known user, mass > 0), then
+    ``topn_select``. Non-candidates surface at ``-inf`` with their ids.
+
+    co f32[W, I, I]; item_cnt f32[W, I]; hist bool[W, B, I] (known-masked
+    rated rows); known bool[W, B]; item_ids i32[W, I]. Returns (ids
+    i32[W, B, n], scores f32[W, B, n]), ``n = min(top_n, I)``.
+    """
+    mass = neighbour_mass(similarity_matrix(co, item_cnt), hist, k_nn)
+    cand = ((item_ids >= 0)[:, None, :] & ~hist & known[..., None]
+            & (mass > 0))
+    scores = torch.where(cand, mass, float("-inf"))
+    return topn_select(scores, item_ids[:, None, :].expand(scores.shape),
+                       top_n)

@@ -8,8 +8,10 @@ desc, global id asc) order — independent of slot layout and of the order
 of the splits.
 
 Queries are bucketed by column (the training plane's dispatch), every
-worker scores its column's bucket in ONE ``fused_topn`` launch over all
-``n_c`` workers, and the merged lists are scattered back to request order.
+worker scores its column's bucket in ONE kernel launch over all ``n_c``
+workers (``fused_topn`` for DISGD, ``dics_topn`` for DICS, as the
+registered algorithm's serve leaf chooses), and the merged lists are
+scattered back to request order.
 """
 
 from __future__ import annotations
@@ -33,15 +35,21 @@ def query_capacity(batch_size: int, g: int, factor: float = 2.0) -> int:
 
 def grid_topn(states, user_ids, *, algorithm: str = "disgd",
               grid: routing.GridSpec = routing.GridSpec(1), top_n: int = 10,
-              u_cap: int = 1024, qcap: int = 64, use_kernel: bool = True):
+              u_cap: int = 1024, qcap: int = 64, k_nn: int = 10,
+              use_kernel: bool = True):
     """Grid-wide top-N for a batch of users, merged across item splits.
 
     Args:
       states: stacked worker states ``[n_c, ...]`` (worker key =
         row * g + col), e.g. ``StreamResult.final_states``.
       user_ids: int ``[Q]`` global user ids; ``-1`` entries are padding.
+      algorithm: registry key (``core/algorithm.py``); its serve leaf
+        scores the splits.
+      u_cap / k_nn: hyperparameters (``DisgdHyper`` / ``DicsHyper``;
+        ``k_nn`` is read by DICS only).
       qcap: per-column query bucket capacity (``query_capacity``).
-      use_kernel: serve through the ``fused_topn`` kernel.
+      use_kernel: serve through the leaf's kernel (one launch per call);
+        False runs its plain version.
 
     Returns:
       ids i32[Q, N] merged top-N global item ids, -1 padded;
@@ -61,7 +69,7 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
 
     # Worker r * g + c scores column c's bucket against its own split.
     leaf = algorithm_lib.get_algorithm(algorithm).make_serve_leaf(
-        top_n=top_n, g=g, u_cap=u_cap, use_kernel=use_kernel)
+        top_n=top_n, g=g, u_cap=u_cap, k_nn=k_nn, use_kernel=use_kernel)
     p_ids, p_scores, p_known = leaf(states, qu.repeat(n_i, 1))
     n_part = p_ids.shape[-1]
     # [n_i, g, qcap, N] -> [g, qcap, n_i, N]: merge over the split axis.

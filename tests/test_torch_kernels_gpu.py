@@ -112,6 +112,59 @@ def _score_inputs(rng, n_w, b, i, k, ties=False):
     return u, it, mask, ids.astype(np.int32)
 
 
+DICS_EV_NAMES = ("ev_u", "ev_i", "u_slots", "i_slots")
+
+
+def _dics_state(rng, n_w, u_cap, i_cap):
+    """Slot-consistent DICS worker states (numpy) with integer counts; the
+    last user and item slots are live, so padding events (id -1, which
+    alias slot ``cap - 1``) clear them."""
+    st = _worker_state(rng, n_w, u_cap, i_cap, 1)
+    del st["user_vecs"], st["item_vecs"]
+    st["user_ids"][:, -1] = 2 * u_cap - 1
+    st["item_ids"][:, -1] = 2 * i_cap - 1
+    co = rng.integers(0, 5, (n_w, i_cap, i_cap))
+    st["co"] = (co + co.transpose(0, 2, 1)).astype(np.float32)
+    st["item_cnt"] = rng.integers(0, 9, (n_w, i_cap)).astype(np.float32)
+    return st
+
+
+def _dics_events(rng, n_w, n_ev, u_cap, i_cap):
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, 1, False)
+    return {n: ev[n] for n in DICS_EV_NAMES}
+
+
+def _torch_dics_apply(st, ev, device, *, use_ops, live=None):
+    t = {n: torch.tensor(v, device=device) for n, v in st.items()}
+    e = tuple(torch.tensor(ev[n], device=device) for n in DICS_EV_NAMES)
+    tabs = tuple(t[n] for n in TABLE_NAMES)
+    if live is not None:
+        live = torch.tensor(live, device=device)
+    if use_ops:
+        ops.dics_update(t["co"], t["item_cnt"], t["rated"], tabs, e,
+                        live=live)
+    else:
+        ref.dics_apply(t["co"], t["item_cnt"], t["rated"], tabs, e,
+                       live=live)
+    return {n: v.cpu().numpy() for n, v in t.items()}
+
+
+def _dics_topn_inputs(rng, n_w, b, i, ties=False):
+    """co / item_cnt / hist / known / item_ids for the DICS serve leaf.
+    ``ties``: counts from a few small values, so many masses are equal
+    and the id order decides."""
+    hi = 3 if ties else 40
+    co = rng.integers(0, hi, (n_w, i, i))
+    co = (co + co.transpose(0, 2, 1)).astype(np.float32)
+    cnt = (rng.choice([0, 2, 4], (n_w, i)) if ties
+           else rng.integers(0, 60, (n_w, i))).astype(np.float32)
+    ids = np.where(rng.random((n_w, i)) < 0.85,
+                   rng.permutation(10 * i)[:i], -1).astype(np.int32)
+    known = rng.random((n_w, b)) < 0.8
+    known[:, 0] = False                         # an unknown user
+    hist = (rng.random((n_w, b, i)) < 0.15) & known[..., None]
+    hist[:, 1 % b, :] = False                   # a known user, no history
+    return co, cnt, hist, known, ids
 
 
 @pytest.mark.gpu
@@ -171,8 +224,110 @@ def test_fused_topn_kernel_matches_plain(cuda_device, shape, ties):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("live", [None, True, False])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 24), (4, 300, 70, 96)],
+                         ids=["tiny", "small"])
+def test_dics_update_kernel_matches_plain(cuda_device, shape, live):
+    n_w, u_cap, i_cap, n_ev = shape
+    rng = np.random.default_rng(19)
+    st = _dics_state(rng, n_w, u_cap, i_cap)
+    ev = _dics_events(rng, n_w, n_ev, u_cap, i_cap)
+    before = ops.launch_counts()["dics_update"]
+    got = _torch_dics_apply(st, ev, cuda_device, use_ops=True, live=live)
+    assert ops.launch_counts()["dics_update"] == before + 1
+    want = _torch_dics_apply(st, ev, cuda_device, use_ops=False, live=live)
+    _assert_state_equal(got, want, rtol=0, atol=0)
+    if live is False:
+        _assert_state_equal(got, st, rtol=0, atol=0)
+
+
+def _dics_main_state(device, n_w=16, u_cap=98_560, i_cap=768, n_ev=256):
+    """A DICS grid at the main path's shapes, made on the card from a
+    seed (numpy would take gigabytes of host temporaries for ``rated``):
+    ~60% live slots, ~3 rated items per user row, symmetric counts, and
+    events whose ids span twice the caps (evictions) with 20% padding."""
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def ids(cap):
+        base = torch.arange(cap, dtype=torch.int32, device=device)
+        alt = (rand(n_w, cap) < 0.5).to(torch.int32) * cap
+        return torch.where(rand(n_w, cap) < 0.6, base + alt, -1)
+
+    def counts(shape, hi):
+        return torch.floor(rand(*shape) * hi).to(torch.int32)
+
+    co = torch.floor(rand(n_w, i_cap, i_cap) * 5)
+    st = {"user_ids": ids(u_cap), "item_ids": ids(i_cap),
+          "user_freq": counts((n_w, u_cap), 5),
+          "item_freq": counts((n_w, i_cap), 5),
+          "user_ts": counts((n_w, u_cap), 50),
+          "item_ts": counts((n_w, i_cap), 50),
+          "clock": 50 + counts((n_w,), 10),
+          "co": co + co.transpose(1, 2),
+          "item_cnt": torch.floor(rand(n_w, i_cap) * 2000),
+          "rated": rand(n_w, u_cap, i_cap) < 0.004}
+    ev_u = torch.floor(rand(n_w, n_ev) * 2 * u_cap).to(torch.int32)
+    ev_i = torch.floor(rand(n_w, n_ev) * 2 * i_cap).to(torch.int32)
+    pad = rand(n_w, n_ev) < 0.2
+    ev_u[pad] = -1
+    ev_i[pad] = -1
+    events = (ev_u, ev_i, (ev_u % u_cap).to(torch.int32),
+              (ev_i % i_cap).to(torch.int32))
+    return st, events
+
+
+@pytest.mark.gpu
+def test_dics_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
+    st, events = _dics_main_state(cuda_device)
+    out = {}
+    for name, fn in (("kernel", ops.dics_update), ("plain", ref.dics_apply)):
+        t = {n: v.clone() for n, v in st.items()}
+        fn(t["co"], t["item_cnt"], t["rated"],
+           tuple(t[n] for n in TABLE_NAMES), events)
+        out[name] = t
+    for n in st:
+        assert torch.equal(out["kernel"][n], out["plain"][n]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("shape,top_n,k_nn",
+                         [((2, 9, 37), 7, 5), ((3, 40, 300), 10, 10),
+                          ((16, 512, 768), 10, 10), ((2, 8, 20), 20, 32)],
+                         ids=["tiny", "small", "main_path", "short_rows"])
+def test_dics_topn_kernel_matches_plain(cuda_device, shape, top_n, k_nn,
+                                        ties):
+    rng = np.random.default_rng(29)
+    args = [torch.tensor(x, device=cuda_device)
+            for x in _dics_topn_inputs(rng, *shape, ties=ties)]
+    before = ops.launch_counts()["dics_topn"]
+    got_ids, got_sc = ops.dics_topn(*args, top_n=top_n, k_nn=k_nn)
+    assert ops.launch_counts()["dics_topn"] == before + 1
+    want_ids, want_sc = ref.dics_topn(*args, top_n, k_nn)
+    # Same IEEE operations in the same order: scores and ids exactly.
+    np.testing.assert_array_equal(got_sc.cpu().numpy(), want_sc.cpu().numpy())
+    np.testing.assert_array_equal(got_ids.cpu().numpy(),
+                                  want_ids.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_dics_topn_refuses_lists_beyond_its_registers(cuda_device):
+    args = [torch.tensor(x, device=cuda_device) for x in
+            _dics_topn_inputs(np.random.default_rng(0), 1, 2, 64)]
+    with pytest.raises(ValueError, match="top_n"):
+        ops.dics_topn(*args, top_n=ops.MAX_TOP_N + 1, k_nn=10)
+    with pytest.raises(ValueError, match="k_nn"):
+        ops.dics_topn(*args, top_n=10, k_nn=ops.MAX_K_NN + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["disgd", "dics"])
 @pytest.mark.parametrize("backend", ["cuda", "scan"])
-def test_stream_loop_never_waits_for_the_card(cuda_device, backend):
+def test_stream_loop_never_waits_for_the_card(cuda_device, backend,
+                                              algorithm):
     """Each step of the device loop only enqueues work: under CUDA's
     sync debug mode "error", a host synchronisation (``.item()``, a
     copy from pageable host memory, ``nonzero``) raises."""
@@ -182,8 +337,10 @@ def test_stream_loop_never_waits_for_the_card(cuda_device, backend):
     from repro_torch.kernels import build
 
     users, items, _ = synth_stream(scaled(MOVIELENS_25M, 0.002), seed=0)
-    cfg = rt.StreamConfig(grid=rt.GridSpec(2), micro_batch=256,
-                          hyper=rt.DisgdHyper(u_cap=128, i_cap=32),
+    hyper = {"disgd": rt.DisgdHyper, "dics": rt.DicsHyper}[algorithm]
+    cfg = rt.StreamConfig(algorithm=algorithm, grid=rt.GridSpec(2),
+                          micro_batch=256,
+                          hyper=hyper(u_cap=128, i_cap=32),
                           backend=backend, device="cuda")
     n = 4 * cfg.micro_batch
     xs_u = torch.tensor(users[:n].reshape(4, -1), dtype=torch.int32,
