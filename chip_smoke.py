@@ -8,7 +8,7 @@ repository checkout around this file; imports no jax and nothing of the
 JAX package. Phases, each printing one JSON line:
 
   1. device and build: the card, ``nvidia-smi``'s name and power limit,
-     and the five kernels built from ``src/repro_torch/kernels/csrc``
+     and the seven kernels built from ``src/repro_torch/kernels/csrc``
      into ``build/repro_torch_kernels/`` with ptxas's registers / smem;
 
 DISGD (K1-K3):
@@ -27,7 +27,9 @@ DISGD (K1-K3):
      state (one event in ten given an unseen id, so evictions run) for
      ``factor_update`` (both modes) and ``masked_scores``; the serving
      inputs for ``fused_topn``; each timed beside its plain version and
-     a PyTorch library call, with its bound;
+     a PyTorch library call, with its bound; ``isgd_update`` (K6) on one
+     worker's tables and bucket of that micro-batch, and at
+     ``bench_kernels``' shapes (U 4,096, I 2,048, E 1,024 and 16,384);
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
      stream with slot collisions.
 
@@ -47,6 +49,27 @@ DICS (K4, K5), after the DISGD state is freed:
   9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
      colliding item slots, and the card's ``cuda`` run equals the same run
      on CPU tensors: state and recall bits.
+
+LLM serving (K7), after the DICS state is freed:
+
+ 10. ``llm_serve``: ``h2o_danube_1p8b`` at full width and depth (24
+     layers, 1.83 B parameters in f32) from a ``torch.Generator`` seeded
+     0, through ``repro_torch.launch.serve.generate``: 4 prompts of 8,192
+     tokens (two windows) from ``TokenPipeline(32000, seed=0)``, prefill,
+     then 32 greedy decode steps; counts zeroed just before, read just
+     after (24 ``swa_attention`` launches, one per layer of the prefill);
+     then one prefill and 8 decode steps again under ``torch.profiler``
+     (``llm_profile``: device busy share, kernel time by name);
+ 11. ``llm_consistency``: prefill over 8,192 tokens plus one decode step
+     against a prefill over all 8,193 (ragged for K7), last-position
+     logits held to ``tests/test_decode.py``'s contract;
+ 12. ``swa_attention`` against its plain version at the full shape, on
+     layer 0's real q / k / v of phase 10 (S 8,192) and of phase 11's
+     ragged 8,193 tokens, each row by its relative error, and on unit-
+     variance q / k / v of both lengths at the JAX test's tolerance too;
+     the same check must fail the kernel run with a wrong window; timed
+     beside its plain version and ``scaled_dot_product_attention`` with
+     a window mask.
 
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -68,10 +91,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate
-# outside the tensor cores. The kernels here do f32 FMAs on CUDA cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 rate
+# outside the tensor cores (the recommender's kernels do f32 FMAs on CUDA
+# cores) and the dense bf16 tensor-core rate (swa_attention).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989.4e12
 
 # Main-path configuration: MovieLens-25M's Table 1 statistics, the
 # README's 4 x 4 grid (16 workers), caps that fit each user column
@@ -94,6 +119,21 @@ RTOL, ATOL = 1e-5, 1e-6
 STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 # Ids are compared wherever neighbouring scores are further apart.
 SCORE_GAP = 1e-4
+# LLM serving: h2o-danube-1.8b, 4 requests of two windows each, 32 greedy
+# decode steps after the prefill's token.
+LLM_ARCH, LLM_BATCH, LLM_PROMPT, LLM_DECODE_STEPS = "h2o_danube_1p8b", 4, \
+    8192, 32
+# swa_attention against its plain version. On layer 0's real q / k / v
+# the logits are ~1e-3, the softmax is near uniform and outputs are ~1e-3,
+# so an absolute tolerance says nothing: each output row is held by its
+# relative L2 error |got - want| / |want| (the kernel rounds P to bf16
+# before P.V and both round the output to bf16: ~3e-3 of a row). On unit-
+# variance q / k / v the JAX kernel test's bf16 tolerance
+# (tests/test_kernels.py:90) holds as well. A kernel whose window is wrong
+# (none, or one 64-key tile short) must fail the check.
+SWA_ROW_RTOL = 1e-2
+SWA_RTOL = SWA_ATOL = 3e-2
+LOGIT_TOL, LOGIT_GAP = 0.15, 0.05
 
 
 def fail(msg: str):
@@ -225,6 +265,10 @@ def main():
 
     # -- 6-9. DICS -------------------------------------------------------------
     kernels += _dics_phases(torch, np, rt, dev)
+    torch.cuda.empty_cache()
+
+    # -- 10-12. LLM serving ------------------------------------------------------
+    kernels += _llm_phases(torch, np, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -243,15 +287,7 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
     n = steps * cfg.micro_batch
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = rt.run_stream(users[:n], items[:n], cfg)
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    rows, busy_ms = _device_rows(prof)
     events = int(min(n, users.size))
     total_steps = (math.ceil(events / cfg.micro_batch)
                    + math.ceil(cfg.micro_batch / cfg.bucket_capacity))
@@ -262,6 +298,20 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
          device_busy_share=busy_ms / (1e3 * res.wall_seconds),
          top=[{"kernel": k[:90], "ms": us / 1e3, "count": c}
               for us, c, k in rows[:10]])
+
+
+def _device_rows(prof):
+    """(self device us, launches, kernel name) per kernel, largest first,
+    and the summed device ms."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows) / 1e3
 
 
 def _ptxas(log: str) -> dict:
@@ -319,9 +369,9 @@ def _time_ms(torch, fn, reps=20, setup=None) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(n_bytes: float, flops: float):
+def _bound_ms(n_bytes: float, flops: float, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -533,9 +583,92 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         launches=serve_counts["fused_topn"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
         shape=f"W={n_w} B={b} I={i} k={k} N={hyper.top_n}"))
+
+    # K6 isgd_update on worker 0's tables and bucket of the same batch.
+    rows.append(_isgd_row(torch, np, states.user_vecs[0], states.item_vecs[0],
+                          u_slot[0], i_slot[0], ev_u[0] >= 0, hyper))
     emit("kernels_vs_plain", matched=[r["name"] for r in rows],
          rtol=RTOL, atol=ATOL, score_gap=SCORE_GAP)
     return rows
+
+
+def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
+               plain_reps=2):
+    """isgd_update against its plain version, each timed on fresh clones
+    of the tables and compared on its last timed run's tables: (max abs
+    error, kernel ms, plain ms, bound ms, bound by, valid events)."""
+    from repro_torch.kernels import ops, ref
+
+    events = (u_slot.contiguous(), i_slot.contiguous(), valid.contiguous())
+
+    def timed(fn, reps):
+        work = []
+
+        def setup():
+            work[:] = [user_tab.clone(), item_tab.clone()]
+
+        ms = _time_ms(torch, lambda: fn(*work, *events, eta=hyper.eta,
+                                        lam=hyper.lam), reps=reps,
+                      setup=setup)
+        return ms, work
+
+    ms, got = timed(ops.isgd_update, 10)
+    plain_ms, want = timed(ref.isgd_apply, plain_reps)
+    err = max(_close(g, w, "isgd_update") for g, w in zip(got, want))
+    k = user_tab.shape[1]
+    v = valid.bool()
+    n_valid = int(v.sum())
+    rows = int(torch.unique(u_slot[v]).numel() + torch.unique(i_slot[v])
+               .numel())
+    # Event arrays read once; every row a valid event touches read and
+    # written once; 12 k flops per valid event (dot, two updates).
+    bound, by = _bound_ms(9 * u_slot.numel() + 2 * 4 * k * rows,
+                          12 * k * n_valid)
+    return err, ms, plain_ms, bound, by, n_valid
+
+
+def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
+    """K6 on one DISGD worker's tables and bucket (its path is
+    ``ops.isgd_update`` itself: counts zeroed, one call, read), then at
+    ``benchmarks/bench_kernels.py``'s shapes with repeated slots."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    ops.isgd_update(user_tab.clone(), item_tab.clone(), u_slot.contiguous(),
+                    i_slot.contiguous(), valid.contiguous(), eta=hyper.eta,
+                    lam=hyper.lam)
+    launches = ops.launch_counts()["isgd_update"]
+    if launches != 1:
+        fail(f"isgd_update launched {launches} times for one call")
+    err, ms, plain_ms, bound, by, n_valid = _isgd_case(
+        torch, user_tab, item_tab, u_slot, i_slot, valid, hyper)
+    bench = []
+    rng = np.random.default_rng(2)
+    dev = user_tab.device
+    for e in (1024, 16384):
+        u_cap, i_cap, k = 4096, 2048, hyper.k
+        tabs = [torch.tensor(rng.normal(size=(n, k)), dtype=torch.float32,
+                             device=dev) for n in (u_cap, i_cap)]
+        slots = [torch.tensor(rng.integers(0, n, e), dtype=torch.int32,
+                              device=dev) for n in (u_cap, i_cap)]
+        b_err, b_ms, b_plain, b_bound, b_by, _ = _isgd_case(
+            torch, *tabs, *slots, torch.ones(e, dtype=torch.bool,
+                                              device=dev), hyper,
+            plain_reps=1)
+        bench.append({"shape": f"U={u_cap} I={i_cap} E={e} k={k}",
+                      "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+                      "bound_ms": b_bound, "bound_by": b_by})
+    return dict(
+        name="isgd_update", route="cuda", matched=True,
+        source="src/repro_torch/kernels/csrc/isgd_update.cu",
+        replaces="src/repro/kernels/isgd.py:31", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None,
+        library="none: no single PyTorch call runs a chain of dependent "
+                "SGD steps",
+        shape=f"U={user_tab.shape[0]} I={item_tab.shape[0]} "
+              f"E={u_slot.numel()} k={user_tab.shape[1]} (one worker)",
+        valid_events=n_valid, bench=bench)
 
 
 def _backends_agree(torch, np, rt):
@@ -857,6 +990,310 @@ def _dics_backends_agree(torch, np, rt):
          scan_wall_s=b.wall_seconds, cpu_wall_s=c.wall_seconds,
          recall_bits_equal_cpu=True, recall_cuda=a.recall.mean(),
          recall_scan=b.recall.mean(), recall_cpu=c.recall.mean())
+
+
+def _logits_agree(np, got, want, what):
+    """tests/test_decode.py's contract on [B, 1, V] logits: values within
+    LOGIT_TOL of the scale, greedy tokens equal away from near-ties."""
+    got, want = (x.float().cpu().numpy() for x in (got, want))
+    if not (np.isfinite(got).all() and np.isfinite(want).all()):
+        fail(f"{what}: logits not finite")
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max()) / scale
+    if not np.allclose(got / scale, want / scale, atol=LOGIT_TOL,
+                       rtol=LOGIT_TOL):
+        fail(f"{what}: scaled logit error {err} beyond {LOGIT_TOL}")
+    disagree = got.argmax(-1) != want.argmax(-1)
+    top2 = np.sort(want, axis=-1)
+    gap = (top2[..., -1] - top2[..., -2]) / scale
+    if np.any(disagree & (gap >= LOGIT_GAP)):
+        fail(f"{what}: greedy tokens differ on confident logits")
+    return err, int(disagree.sum())
+
+
+def _window_pairs(np, s, window, causal):
+    """(query, key) pairs the attention mask keeps for one head."""
+    r = np.arange(s, dtype=np.int64)
+    hi = r if causal else np.full(s, s - 1)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(
+        0, r - window + 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _llm_phases(torch, np, dev):
+    """h2o-danube-1.8b served at full size through the port, the prefill
+    + decode consistency check, and K7 held against its plain version.
+    Returns the K7 kernel row."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import build
+
+    # -- 10. llm_serve -----------------------------------------------------------
+    cfg = get_config(LLM_ARCH)
+    bundle = build(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    numel = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab, seed=0)
+    prompts = torch.as_tensor(pipe.sample(LLM_BATCH, LLM_PROMPT), device=dev)
+    # Warm-up on a short prompt: cuBLAS handles, the allocator.
+    serve.generate(bundle, params, prompts[:, :256], 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, t = serve.generate(bundle, params, prompts, LLM_DECODE_STEPS + 1)
+    counts = ops.launch_counts()
+    if counts["swa_attention"] != cfg.n_layers:
+        fail(f"swa_attention launched {counts['swa_attention']} times in one "
+             f"prefill of {cfg.n_layers} layers")
+    tokens = tokens.cpu()
+    if tokens.shape != (LLM_BATCH, LLM_DECODE_STEPS + 1) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        fail(f"llm_serve: generated tokens {tuple(tokens.shape)} out of range")
+    emit("llm_serve", arch=cfg.name, source=cfg.source,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, window=cfg.window,
+         param_count=cfg.param_count(), numel=numel, weights="f32 random, "
+         "torch.Generator seeded 0", init_s=init_s, batch=LLM_BATCH,
+         prompt_len=LLM_PROMPT, prompts="TokenPipeline(32000, seed=0)", **t,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=counts, first_tokens_request0=tokens[0, :8].tolist())
+    del tokens
+    _profile_llm(torch, bundle, params, prompts)
+
+    # -- 11. llm_consistency -----------------------------------------------------
+    seq = torch.as_tensor(pipe.sample(LLM_BATCH, LLM_PROMPT + 1), device=dev)
+    with torch.no_grad():
+        _, caches = bundle.prefill(params, {"tokens": seq[:, :-1]})
+        x1 = tfm.embed_tokens(params, seq[:, -1:], cfg)
+        h1, _ = tfm.decode_step(params, x1, cfg, caches)
+        got = tfm.logits_from_hidden(params, h1, cfg)[..., :cfg.vocab]
+        del caches, h1
+        ops.reset_launch_counts()
+        want, _ = bundle.prefill(params, {"tokens": seq})
+        ragged = ops.launch_counts()["swa_attention"]
+        want = want[..., :cfg.vocab]
+    if ragged != cfg.n_layers:
+        fail(f"prefill over {LLM_PROMPT + 1} tokens launched swa_attention "
+             f"{ragged} times")
+    err, disagree = _logits_agree(np, got, want, "llm_consistency")
+    emit("llm_consistency", batch=LLM_BATCH, prefill=LLM_PROMPT,
+         full=LLM_PROMPT + 1, scaled_max_abs_err=err, tol=LOGIT_TOL,
+         greedy_disagree_near_ties=disagree, near_tie_gap=LOGIT_GAP,
+         ragged_swa_launches=ragged)
+    del got, want
+    torch.cuda.empty_cache()
+
+    # -- 12. swa_attention against its plain version -----------------------------
+    row = _swa_row(torch, np, params, cfg, prompts, seq, counts)
+    del params
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def _profile_llm(torch, bundle, params, prompts, decode_steps=8):
+    """Where the serving time goes: one prefill, then ``decode_steps``
+    decode steps, each window under ``torch.profiler`` (device activity
+    only). Device busy share = summed kernel time / the window's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bundle.cfg
+    out = {}
+    state = {}
+
+    def prefill():
+        logits, state["caches"] = bundle.prefill(params, {"tokens": prompts})
+        state["tok"] = torch.argmax(logits[..., : cfg.vocab], dim=-1).to(
+            torch.int32)
+
+    def decode():
+        for _ in range(decode_steps):
+            state["tok"], state["caches"] = bundle.decode(
+                params, state["caches"], state["tok"])
+
+    for name, fn in (("prefill", prefill), ("decode", decode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows, busy_ms = _device_rows(prof)
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "device_busy_share": busy_ms / wall_ms,
+                     "launches": sum(r[1] for r in rows),
+                     "top": [{"kernel": k[:90], "ms": us / 1e3, "count": c}
+                             for us, c, k in rows[:8]]}
+    emit("llm_profile", batch=prompts.shape[0], prompt_len=prompts.shape[1],
+         decode_steps=decode_steps, **out)
+    del state
+    torch.cuda.empty_cache()
+
+
+def _layer0_qkv(torch, params, cfg, tokens):
+    """Layer 0's q / k / v (roped, bf16, contiguous) for ``tokens``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import attention as attn_lib
+    from repro_torch.models.layers.norms import rmsnorm
+
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, tokens, cfg)
+        xn = rmsnorm(params.layers[0].ln1, x, cfg.norm_eps)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return tuple(t.contiguous() for t in attn_lib._qkv(
+            params.layers[0].attn, xn, positions, cfg))
+
+
+def _swa_errors(torch, q, k, v, outs, kw, hq=8):
+    """Hold each ``outs[name]`` [B, Hq, S, D] to the plain version on q /
+    k / v, in slices of one request and ``hq`` q heads (the plain version's
+    [hq, S, S] f32 logits). Per name: the max abs error, the max over rows
+    of |got - want|_2 / |want|_2 (a row norm below 1e-3 of its slice's
+    mean counts as that floor) and whether ``allclose`` at the JAX test's
+    rtol / atol holds; and the plain output's RMS."""
+    from repro_torch.kernels import ref
+
+    g = q.shape[1] // k.shape[1]
+    errs = {n: {"max_abs_err": 0.0, "max_row_rel_err": 0.0, "allclose": True}
+            for n in outs}
+    sq = 0.0
+    for bi in range(q.shape[0]):
+        for h in range(0, q.shape[1], hq):
+            kv = slice(h // g, (h + hq) // g)
+            want = ref.swa_attention(q[bi:bi + 1, h:h + hq], k[bi:bi + 1, kv],
+                                     v[bi:bi + 1, kv], **kw).float()
+            sq += want.square().sum().item()
+            norm = want.norm(dim=-1)
+            norm = norm.clamp_min(1e-3 * norm.mean().item())
+            for name, out in outs.items():
+                got = out[bi:bi + 1, h:h + hq].float()
+                d = got - want
+                e = errs[name]
+                e["max_abs_err"] = max(e["max_abs_err"], d.abs().max().item())
+                e["max_row_rel_err"] = max(e["max_row_rel_err"], (
+                    d.norm(dim=-1) / norm).max().item())
+                e["allclose"] &= torch.allclose(got, want, rtol=SWA_RTOL,
+                                                atol=SWA_ATOL)
+    return errs, math.sqrt(sq / q.numel())
+
+
+def _swa_row(torch, np, params, cfg, prompts, seq, counts):
+    """K7 against its plain version at the main path's full shape: layer
+    0's real q / k / v of the served prompts (S 8,192) and of the ragged
+    sequence (S 8,193), and unit-variance q / k / v of both shapes. On the
+    S 8,192 inputs the kernel with a wrong window (none; one 64-key tile
+    short) must fail the same check. Returns the kernels-line row."""
+    from repro_torch.kernels import ops, ref
+
+    kw = dict(window=cfg.window, causal=cfg.causal)
+    wrong = {"window=None": dict(window=None, causal=cfg.causal),
+             f"window={cfg.window - 64}": dict(window=cfg.window - 64,
+                                                causal=cfg.causal)}
+    gen = torch.Generator(device=prompts.device).manual_seed(0)
+    q, k, v = _layer0_qkv(torch, params, cfg, prompts)
+    checks = {}
+    for what, qkv in (
+            ("real", (q, k, v)),
+            ("real_ragged", _layer0_qkv(torch, params, cfg, seq)),
+            ("unit", None), ("unit_ragged", None)):
+        if qkv is None:
+            s = prompts.shape[1] + what.endswith("ragged")
+            qkv = tuple(torch.randn(
+                (prompts.shape[0], h, s, cfg.head_dim), generator=gen,
+                device=prompts.device, dtype=torch.bfloat16)
+                for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        outs = {"kernel": ops.swa_attention(*qkv, **kw)}
+        if not what.endswith("ragged"):
+            outs.update((n, ops.swa_attention(*qkv, **w))
+                        for n, w in wrong.items())
+        errs, rms = _swa_errors(torch, *qkv, outs, kw)
+        unit = what.startswith("unit")
+        e = errs.pop("kernel")
+        if e["max_row_rel_err"] > SWA_ROW_RTOL or (unit and not e["allclose"]):
+            fail(f"swa_attention ({what}, S={qkv[0].shape[2]}): max row "
+                 f"relative error {e['max_row_rel_err']} (limit "
+                 f"{SWA_ROW_RTOL}), max abs error {e['max_abs_err']} "
+                 f"(allclose rtol=atol={SWA_RTOL}: {e['allclose']}), "
+                 f"RMS of the plain output {rms}")
+        for name, m in errs.items():
+            if m["max_row_rel_err"] <= SWA_ROW_RTOL and (
+                    not unit or m["allclose"]):
+                fail(f"swa_attention ({what}): the check passes a kernel "
+                     f"run with {name}")
+        checks[what] = dict(s=qkv[0].shape[2], rms_want=rms, **e,
+                            wrong_window_caught={
+                                n: {"max_row_rel_err": m["max_row_rel_err"],
+                                    "allclose_alone": not m["allclose"]}
+                                for n, m in errs.items()})
+        del qkv, outs
+    torch.cuda.empty_cache()
+
+    ms = _time_ms(torch, lambda: ops.swa_attention(q, k, v, **kw), reps=10)
+    b, s, d = q.shape[0], q.shape[2], q.shape[3]
+    g, hq = cfg.n_heads // cfg.n_kv_heads, 8
+
+    def plain():
+        # The plain version's [8, S, S] f32 logits fit; the full input in
+        # 16 slices of 8 q heads.
+        for bi in range(b):
+            for h in range(0, cfg.n_heads, hq):
+                ref.swa_attention(q[bi:bi + 1, h:h + hq],
+                                  k[bi:bi + 1, h // g:(h + hq) // g],
+                                  v[bi:bi + 1, h // g:(h + hq) // g], **kw)
+
+    plain_ms = _time_ms(torch, plain, reps=2)
+    lib_ms, lib_err = _sdpa_ms(torch, q, k, v, cfg)
+    pairs = _window_pairs(np, s, cfg.window, cfg.causal)
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v bf16
+    flops = 4 * pairs * d * b * cfg.n_heads
+    bound, by = _bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    emit("swa_vs_plain", row_rtol=SWA_ROW_RTOL, rtol=SWA_RTOL, atol=SWA_ATOL,
+         shape=f"B={b} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={d}",
+         checks=checks, library_vs_kernel_max_abs_err=lib_err)
+    return dict(
+        name="swa_attention", route="cuda", matched=True,
+        source="src/repro_torch/kernels/csrc/swa_attention.cu",
+        replaces="src/repro/kernels/swa_attention.py:35",
+        launches=counts["swa_attention"],
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        max_row_rel_err=max(c["max_row_rel_err"] for c in checks.values()),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms,
+        library="scaled_dot_product_attention(attn_mask=window, "
+                "enable_gqa=True)",
+        bytes=n_bytes, flops=flops, window_pairs=pairs,
+        shape=f"B={b} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={s} D={d} "
+              f"window={cfg.window} bf16")
+
+
+def _sdpa_ms(torch, q, k, v, cfg):
+    """The library yardstick: one ``scaled_dot_product_attention`` call
+    with a bool window mask and ``enable_gqa``, on a fused backend (the
+    math backend would materialise [B, Hq, S, S] in f32). Returns its ms
+    and its max abs difference from the kernel's output."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ops
+
+    r = torch.arange(q.shape[2], device=q.device)
+    mask = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - cfg.window)
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+    err = (call().float() - ops.swa_attention(
+        q, k, v, window=cfg.window, causal=cfg.causal).float()
+           ).abs().max().item()
+    return _time_ms(torch, call, reps=5), err
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ tensors take the plain PyTorch versions of those kernels.
 
 Ported so far: DISGD (Alg. 2) and DICS (Alg. 3) trained prequentially
 over the Splitting & Replication grid (``run_stream``, ``algorithm=
-"disgd"`` or ``"dics"``) and grid top-N serving (``grid_topn``).
+"disgd"`` or ``"dics"``) and grid top-N serving (``grid_topn``); and the
+LLM zoo's serving path for h2o-danube-1.8b (``repro_torch.launch.serve``,
+``repro_torch.models.factory.build``).
 """
 
 from repro_torch.core.dics import DicsHyper

@@ -27,7 +27,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "BUILD_DIR", "BuildInfo", "build_all", "load"]
 
 KERNELS = ("factor_update", "masked_scores", "fused_topn", "dics_update",
-           "dics_topn")
+           "dics_topn", "isgd_update", "swa_attention")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 

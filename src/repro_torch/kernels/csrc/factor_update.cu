@@ -21,21 +21,18 @@
 // and keeps the events sequential inside the CTA. The k-wide vectors and
 // the dot products live in warp 0 (one lane per feature, shuffle reduce);
 // the column clear and the row clear are spread over the whole block.
+// The ISGD step is csrc/sgd_step.cuh's, shared with isgd_update.cu.
 // __syncthreads() separates the column clear, the row clear and the
 // writes, and ends every event, so each write is visible to the next
 // event; nothing is cached in registers across events.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sgd_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads) factor_update_kernel(
     float* uv, float* iv, uint8_t* rated, int* uid, int* iid, int* ufq,
@@ -109,9 +106,7 @@ __global__ void __launch_bounds__(kThreads) factor_update_kernel(
           i_new = it;
         }
       } else {
-        const float err = 1.f - warp_sum(u * it);
-        u_new = u + eta * (err * it - lam * u);
-        i_new = it + eta * (err * u - lam * it);
+        isgd_step(u, it, eta, lam, u_new, i_new);
       }
       if (in_k) {
         uv[us * K + tid] = u_new;

@@ -22,13 +22,15 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ref import topn_select
 
-__all__ = ["masked_scores", "factor_update", "fused_topn", "dics_update",
-           "dics_topn", "topn_select", "topn_merge", "launch_counts",
-           "reset_launch_counts", "MAX_K", "MAX_TOP_N", "MAX_K_NN"]
+__all__ = ["masked_scores", "isgd_update", "factor_update", "fused_topn",
+           "dics_update", "dics_topn", "swa_attention", "topn_select",
+           "topn_merge", "launch_counts", "reset_launch_counts", "MAX_K",
+           "MAX_TOP_N", "MAX_K_NN", "SWA_HEAD_DIMS"]
 
 MAX_K = 32       # factor width the kernels hold in a warp / a smem row
 MAX_TOP_N = 32   # running list length fused_topn / dics_topn keep per lane
 MAX_K_NN = 32    # neighbour list length dics_topn keeps per candidate
+SWA_HEAD_DIMS = (32, 64, 80, 128)   # head widths swa_attention is built for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -37,6 +39,8 @@ _ARGTYPES = {
     "fused_topn": [_P] * 6 + [_I] * 5 + [_P],
     "dics_update": [_P] * 15 + [_I] * 4 + [_P],
     "dics_topn": [_P] * 7 + [_I] * 5 + [_P],
+    "isgd_update": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
+    "swa_attention": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _launches = {name: 0 for name in _ARGTYPES}
@@ -122,6 +126,39 @@ def masked_scores(u_vecs, item_vecs, mask):
             item_vecs.data_ptr(), _bytes(mask).data_ptr(), out.data_ptr(),
             w, b, i, k)
     return out
+
+
+def isgd_update(user_tab, item_tab, u_slots, i_slots, valid, *, eta: float,
+                lam: float):
+    """Factors-only sequential ISGD micro-batch, IN PLACE
+    (``repro/kernels/ops.py:71``): per event, in order and only where
+    ``valid``, ``err = 1 - u.i`` and the rank-1 update of both rows.
+
+    user_tab f32[U, k]; item_tab f32[I, k] (``k <= MAX_K``, taken as it
+    is: no lane padding); u_slots / i_slots i32[E]; valid bool/uint8 [E].
+    An event whose slot lies outside its table changes nothing, on either
+    version. Kernel: ``csrc/isgd_update.cu``, one warp running the events
+    in order. Returns the (mutated) ``(user_tab, item_tab)``.
+    """
+    if _on_cpu(user_tab, item_tab, u_slots, i_slots, valid):
+        return ref.isgd_apply(user_tab, item_tab, u_slots, i_slots, valid,
+                              eta=eta, lam=lam)
+    u, k = user_tab.shape
+    i = item_tab.shape[0]
+    e = u_slots.shape[0]
+    if k > MAX_K:
+        raise ValueError(f"isgd_update: k={k} > {MAX_K}")
+    _check(user_tab, "user_tab", (u, k), _F32)
+    _check(item_tab, "item_tab", (i, k), _F32)
+    _check(u_slots, "u_slots", (e,), _I32)
+    _check(i_slots, "i_slots", (e,), _I32)
+    _check(valid, "valid", (e,), _MASK)
+    if e == 0:
+        return user_tab, item_tab
+    _launch("isgd_update", user_tab.device, user_tab.data_ptr(),
+            item_tab.data_ptr(), u_slots.data_ptr(), i_slots.data_ptr(),
+            _bytes(valid).data_ptr(), u, i, k, e, float(eta), float(lam))
+    return user_tab, item_tab
 
 
 def factor_update(user_vecs, item_vecs, rated, tabs, events, *, eta: float,
@@ -272,6 +309,50 @@ def dics_topn(co, item_cnt, hist, known, item_ids, *, top_n: int, k_nn: int):
             item_ids.data_ptr(), out_ids.data_ptr(), out_sc.data_ptr(),
             w, b, i, n, k)
     return out_ids, out_sc
+
+
+_SWA_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def swa_attention(q, k, v, *, window: int | None = None, causal: bool = True):
+    """Flash sliding-window attention with GQA (``repro/kernels/ops.py:272``).
+
+    q [B, Hq, S, D]; k, v [B, Hkv, S, D]; one type, f32 or bf16; ``D`` in
+    ``SWA_HEAD_DIMS``; any ``S`` (the kernel masks a ragged tail itself).
+    Returns [B, Hq, S, D] in q's type; see ``ref.swa_attention`` for the
+    contract. Kernel: ``csrc/swa_attention.cu`` (bf16 on the tensor cores,
+    f32 on FMA units); plain version ``ref.swa_attention``.
+    """
+    if _on_cpu(q, k, v):
+        return ref.swa_attention(q, k, v, window=window, causal=causal)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if d not in SWA_HEAD_DIMS:
+        raise ValueError(f"swa_attention: head_dim {d}, expected one of "
+                         f"{SWA_HEAD_DIMS}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"swa_attention: {hq} q heads over {hkv} kv heads")
+    if window is not None and not 0 <= window < 2**31:
+        raise ValueError(f"swa_attention: window {window}")
+    if q.dtype not in _SWA_TYPES:
+        raise ValueError(f"swa_attention: dtype {q.dtype}, expected one of "
+                         f"{tuple(_SWA_TYPES)}")
+    if s > 65535 * 16:
+        raise ValueError(f"swa_attention: S={s} beyond the launch grid")
+    _check(q, "q", (b, hq, s, d), (q.dtype,))
+    _check(k, "k", (b, hkv, s, d), (q.dtype,))
+    _check(v, "v", (b, hkv, s, d), (q.dtype,))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"swa_attention: {name} not 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _launch("swa_attention", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
+            -1 if window is None else int(window), int(causal),
+            _SWA_TYPES[q.dtype])
+    return out
 
 
 def topn_merge(ids, scores, top_n: int):

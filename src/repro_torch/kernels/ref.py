@@ -3,17 +3,19 @@
 Each function is the semantic ground truth of one CUDA kernel in
 ``csrc/`` and the port of one oracle in ``repro/kernels/ref.py`` /
 ``repro/kernels/ops.py``. ``ops.py`` routes CPU tensors here; on the card
-``chip_smoke.py`` holds each kernel against these. All take a leading
-worker axis ``[n_c, ...]``: the kernels run every worker in one launch.
+``chip_smoke.py`` holds each kernel against these. The recommender's
+functions take a leading worker axis ``[n_c, ...]``: their kernels run
+every worker in one launch. ``isgd_apply`` (one table pair, no worker
+axis) and ``swa_attention`` keep the JAX signatures.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_scores", "factor_apply", "topn_select", "fused_topn",
-           "similarity_matrix", "neighbour_mass", "dics_clear", "dics_write",
-           "dics_apply", "dics_topn"]
+__all__ = ["masked_scores", "isgd_apply", "factor_apply", "topn_select",
+           "fused_topn", "similarity_matrix", "neighbour_mass", "dics_clear",
+           "dics_write", "dics_apply", "dics_topn", "swa_attention"]
 
 # Elements of the largest dense [rows, I, I] intermediate of
 # ``neighbour_mass`` (f32: 256 MB); rows are taken in chunks below it.
@@ -32,6 +34,34 @@ def masked_scores(u_vecs, item_vecs, mask):
     """
     scores = torch.bmm(u_vecs.float(), item_vecs.float().transpose(1, 2))
     return scores.masked_fill(~mask.bool(), float("-inf"))
+
+
+def isgd_apply(user_tab, item_tab, u_slots, i_slots, valid, *, eta: float,
+               lam: float):
+    """Sequential factors-only ISGD micro-batch, IN PLACE
+    (``repro/kernels/ref.py:34``; paper Eqs. 3/4, ``err = 1 - u.i``).
+
+    user_tab f32[U, k]; item_tab f32[I, k]; u_slots / i_slots i32[E];
+    valid bool[E]. Events run in order, each reading the rows the previous
+    ones wrote; an invalid event changes nothing, nor does one whose slot
+    lies outside its table. Returns the (mutated) ``(user_tab, item_tab)``.
+    """
+    u_slots, i_slots = u_slots.long(), i_slots.long()
+    inside = ((u_slots >= 0) & (u_slots < user_tab.shape[0])
+              & (i_slots >= 0) & (i_slots < item_tab.shape[0]))
+    valid = valid.bool() & inside
+    u_slots = torch.where(inside, u_slots, 0)
+    i_slots = torch.where(inside, i_slots, 0)
+    for e in range(u_slots.shape[0]):
+        us, is_ = u_slots[e:e + 1], i_slots[e:e + 1]
+        v = valid[e:e + 1, None]
+        u, i = user_tab[us], item_tab[is_]
+        err = 1.0 - (u * i).sum(-1, keepdim=True)
+        u_new = u + eta * (err * i - lam * u)
+        i_new = i + eta * (err * u - lam * i)
+        user_tab[us] = torch.where(v, u_new, u)
+        item_tab[is_] = torch.where(v, i_new, i)
+    return user_tab, item_tab
 
 
 def factor_apply(user_vecs, item_vecs, rated, tabs, events, *, eta: float,
@@ -273,3 +303,34 @@ def dics_topn(co, item_cnt, hist, known, item_ids, top_n: int, k_nn: int):
     scores = torch.where(cand, mass, float("-inf"))
     return topn_select(scores, item_ids[:, None, :].expand(scores.shape),
                        top_n)
+
+
+# -- LM zoo --------------------------------------------------------------------
+
+
+def swa_attention(q, k, v, *, window: int | None, causal: bool = True):
+    """Sliding-window (or full causal) attention (``repro/kernels/ref.py:207``).
+
+    q [B, Hq, S, D]; k, v [B, Hkv, S, D] with ``Hq % Hkv == 0`` (GQA: q
+    head ``h`` reads kv head ``h // (Hq / Hkv)``); ``window``: attend to
+    keys in ``(pos - window, pos]``, None = unbounded; ``causal=False``
+    drops the upper bound. Logits, softmax and ``p @ v`` in f32, scaled by
+    ``1 / sqrt(D)``; the result in q's type. A row with no visible key
+    gives 0, as the flash kernels give it (the JAX oracle gives NaN).
+    """
+    _, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) \
+        / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    m = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= ki > qi - window
+    p = torch.softmax(logits.masked_fill_(~m, float("-inf")), dim=-1)
+    p = torch.where(m.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)

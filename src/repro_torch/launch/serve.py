@@ -1,0 +1,104 @@
+"""LLM serving entry point: batched prefill + greedy decode.
+
+Port of ``repro/launch/serve.py`` (:26). This drives the transformer model
+zoo (``repro_torch.models``), not the recommender's serving plane
+(``repro_torch.serve``). Weights are random, from a ``torch.Generator``
+seeded 0; prompts come from ``TokenPipeline(vocab, seed=0)``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch h2o_danube_1p8b --batch 4 --prompt-len 8192 --gen 33
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch h2o_danube_1p8b --smoke --device cpu
+
+The greedy tokens stay on the device through the decode loop; the host
+reads them once, at the end (the JAX version reads one per step).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.models.factory import build
+
+__all__ = ["generate", "main"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(bundle, params, prompts: torch.Tensor, gen: int):
+    """Prefill ``prompts`` [B, S] (on the bundle's device), then greedy
+    decode until ``gen`` tokens per request (the first from the prefill,
+    so ``gen - 1`` decode steps). Returns (tokens [B, gen] i32 on the
+    device, timings): prefill ms and prompt tokens/s, decode ms per step
+    and generated tokens/s (over the decode steps)."""
+    cfg, device = bundle.cfg, bundle.device
+    b, s = prompts.shape
+    out = torch.empty((b, gen), dtype=torch.int32, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches = bundle.prefill(params, {"tokens": prompts})
+    tok = torch.argmax(logits[..., : cfg.vocab], dim=-1).to(torch.int32)
+    out[:, :1] = tok
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for t in range(1, gen):
+        tok, caches = bundle.decode(params, caches, tok)
+        out[:, t:t + 1] = tok
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    steps = gen - 1
+    return out, {
+        "prefill_ms": 1e3 * t_prefill,
+        "prefill_tokens_per_s": b * s / t_prefill,
+        "decode_steps": steps,
+        "decode_ms_per_step": 1e3 * t_decode / steps if steps else None,
+        "decode_tokens_per_s": b * steps / t_decode if steps else None,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.decoder:
+        raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
+    bundle = build(cfg, device=args.device)
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    params = bundle.init(gen)
+    pipe = TokenPipeline(cfg.vocab, seed=0)
+    prompts = torch.as_tensor(pipe.sample(args.batch, args.prompt_len),
+                              device=bundle.device)
+
+    tokens, t = generate(bundle, params, prompts, args.gen)
+    tokens = tokens.cpu().numpy()
+    decode = ("" if t["decode_ms_per_step"] is None else
+              f"; decode {t['decode_steps']} steps "
+              f"{t['decode_ms_per_step']:.2f} ms/step "
+              f"({t['decode_tokens_per_s']:.1f} tok/s)")
+    print(f"[serve] {cfg.name} on {bundle.device}: prefill "
+          f"({args.batch}x{args.prompt_len}) {t['prefill_ms']:.1f} ms "
+          f"({t['prefill_tokens_per_s']:.1f} tok/s){decode}")
+    print(f"[serve] sample generation (batch 0): {tokens[0][:16]}...")
+    return tokens
+
+
+if __name__ == "__main__":
+    main()

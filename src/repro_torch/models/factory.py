@@ -1,0 +1,116 @@
+"""Model factory: ``build(cfg, device)`` -> a ``ModelBundle``.
+
+Port of ``repro/models/factory.py`` for serving: ``init`` (parameters
+from an explicit ``torch.Generator``), ``prefill`` (full-sequence forward
+-> last-position logits + decode caches, ``:158``), ``decode`` (one token
+-> greedy next token + caches, ``:211``) and ``cache_len``. The decode
+caches are one ``KVCache`` whose leaves are stacked over layers
+(``k``/``v`` [L, B, Hkv, C, Dh] bf16, ``pos`` [L, B, C], ``length`` [L, B]),
+the JAX package's layout; ``decode`` updates them IN PLACE.
+
+``loss_fn`` and ``train_step`` come with the training slice (ROADMAP
+Queue 1 item 16). Everything runs on ``device`` ("cuda" unless the
+caller asks for the CPU, as the tests do); without a card a CUDA bundle
+raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import module as mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers.attention import KVCache
+
+__all__ = ["ModelBundle", "build"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    device: torch.device
+    decls: dict
+    init: Callable            # generator -> Transformer
+    prefill: Callable         # (params, batch) -> (logits_last, caches)
+    decode: Callable          # (params, caches, tokens) -> (next, caches)
+    cache_len: Callable       # context_len -> decode cache slots
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: build(cfg, device='cpu') to run "
+                           "on the CPU")
+    return device
+
+
+def _init(generator: torch.Generator, *, decls, cfg, device):
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, model on {device}")
+    return tfm.Transformer(mod.init_params(decls, generator, device), cfg)
+
+
+@torch.no_grad()
+def _prefill(params, batch, cfg):
+    """Full-context forward; returns (last-position logits [B, 1, V] bf16,
+    decode caches)."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
+    x = tfm.embed_tokens(params, tokens, cfg)
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=x.device)
+    h, entries = tfm.forward_full(params, x, positions, cfg,
+                                  collect_cache=True)
+    logits = tfm.logits_from_hidden(params, h[:, -1:], cfg)
+    return logits, _to_decode_cache(entries, cfg, s)
+
+
+def _to_decode_cache(entries, cfg, s: int) -> KVCache:
+    """Prefill K/V of every layer -> the stacked decode cache
+    (``factory.py:176``). With a window shorter than the prompt the cache
+    is a rolling buffer: keep the last ``window`` positions, then roll so
+    that position ``p`` sits in slot ``p % window``, as decode writes."""
+    clen = tfm._attn_cache_len(cfg, s)
+    start = s - clen
+    k = torch.stack([e["k"][:, :, start:] for e in entries])  # [L,B,Hkv,C,Dh]
+    v = torch.stack([e["v"][:, :, start:] for e in entries])
+    pos_lin = torch.arange(start, s, dtype=torch.int32, device=k.device)
+    if clen < s:
+        roll = (-(start % clen)) % clen
+        k = torch.roll(k, roll, dims=3)
+        v = torch.roll(v, roll, dims=3)
+        pos_lin = torch.roll(pos_lin, roll)
+    n_layers, b = k.shape[0], k.shape[1]
+    return KVCache(
+        k=k.to(torch.bfloat16).contiguous(),
+        v=v.to(torch.bfloat16).contiguous(),
+        pos=pos_lin.expand(n_layers, b, clen).contiguous(),
+        length=torch.full((n_layers, b), s, dtype=torch.int32,
+                          device=k.device))
+
+
+@torch.no_grad()
+def _decode(params, caches, tokens, cfg):
+    """tokens [B, 1] -> (next token [B, 1] i32, caches updated in place)."""
+    x = tfm.embed_tokens(params, tokens, cfg)
+    h, caches = tfm.decode_step(params, x, cfg, caches)
+    logits = tfm.logits_from_hidden(params, h, cfg)[..., : cfg.vocab]
+    return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+
+def build(cfg: ArchConfig, device="cuda") -> ModelBundle:
+    decls = tfm.model_decl(cfg)   # raises for a family not ported yet
+    device = _device(device)
+    return ModelBundle(
+        cfg=cfg,
+        device=device,
+        decls=decls,
+        init=partial(_init, decls=decls, cfg=cfg, device=device),
+        prefill=partial(_prefill, cfg=cfg),
+        decode=partial(_decode, cfg=cfg),
+        cache_len=partial(tfm._attn_cache_len, cfg),
+    )

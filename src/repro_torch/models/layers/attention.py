@@ -1,0 +1,135 @@
+"""Attention: GQA with sliding windows, prefill through the flash kernel.
+
+Port of ``repro/models/layers/attention.py`` (:35-200). The full-sequence
+attention of training and prefill goes through ``ops.swa_attention``
+(kernel K7, ``kernels/csrc/swa_attention.cu``): the JAX module computes
+the same function in chunked jnp (``_sdpa`` over q blocks, :88) and
+names the Pallas kernel as the TPU form of that schedule. Decode has no
+kernel in JAX and stays plain PyTorch here: one new token against a
+rolling buffer of ``window`` slots (SWA) or the full context, with slot
+positions tracked explicitly so the mask is exact across wraparound.
+
+The decode cache is updated IN PLACE (``decode_attention`` writes the new
+slot, its position and the length into the tensors it is given).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.module import ParamDecl
+
+__all__ = ["attn_decl", "attention", "decode_attention", "KVCache",
+           "init_cache"]
+
+NEG_INF = -1e30
+
+
+def attn_decl(cfg) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamDecl((d, h, dh)),
+        "wk": ParamDecl((d, kv, dh)),
+        "wv": ParamDecl((d, kv, dh)),
+        "wo": ParamDecl((h, dh, d)),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [..., B, Hkv, C, Dh] bf16 (roped)
+    v: torch.Tensor        # [..., B, Hkv, C, Dh]
+    pos: torch.Tensor      # [..., B, C] i32 absolute position per slot, -1 empty
+    length: torch.Tensor   # [..., B] i32 next absolute position
+
+
+def init_cache(cfg, batch: int, cache_len: int, device=None) -> KVCache:
+    """An empty one-layer cache: every slot at position -1 (masked)."""
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    shape = (batch, kv, cache_len, dh)
+    return KVCache(
+        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        pos=torch.full((batch, cache_len), -1, dtype=torch.int32,
+                       device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _qkv(params, x, positions, cfg):
+    """Projections in x's type (bf16; f32 weights cast at use), then rope
+    on q and k. x [B, S, D] -> q [B, H, S, Dh], k / v [B, Hkv, S, Dh]."""
+    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bhsk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", x, params["wv"].to(x.dtype))
+    q = apply_rope(q, positions, theta=cfg.rope_theta, rope_pct=cfg.rope_pct)
+    k = apply_rope(k, positions, theta=cfg.rope_theta, rope_pct=cfg.rope_pct)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, scale):
+    """Plain decode attention (``attention.py:88``) in f32.
+    q [B, G, Hkv, qc, Dh]; k / v [B, Hkv, C, Dh]; mask [B, 1, 1, qc, C]."""
+    logits = torch.einsum("bghsk,bhtk->bghst", q.float(), k.float()) * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bghst,bhtk->bghsk", p, v.float())
+
+
+def attention(params, x, positions, cfg, *, window=None, causal=None):
+    """Full-sequence attention (prefill), ``attention.py:100``.
+
+    x [B, S, D] -> (y [B, S, D], (k, v)); k (roped) and v [B, Hkv, S, Dh]
+    are returned for the decode cache. One ``ops.swa_attention`` launch.
+    """
+    window = cfg.window if window is None else window
+    causal = cfg.causal if causal is None else causal
+    q, k, v = _qkv(params, x, positions, cfg)
+    out = ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            window=window, causal=causal)
+    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype),
+                     params["wo"].to(x.dtype))
+    return y, (k, v)
+
+
+def decode_attention(params, x, cache: KVCache, cfg):
+    """Single-token decode step (``attention.py:166``), IN PLACE on
+    ``cache``. x [B, 1, D] -> y [B, 1, D].
+
+    The cache stores roped keys. Slot ``length % cache_len`` takes the new
+    key, value and position (a rolling buffer when the cache holds the
+    last ``window`` positions); keys count when ``pos >= 0``, within the
+    window, and not after the query.
+    """
+    b = x.shape[0]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hkv
+    scale = dh ** -0.5
+    cache_len = cache.k.shape[2]
+
+    positions = cache.length[:, None]  # [B, 1]
+    q, k_new, v_new = _qkv(params, x, positions, cfg)
+
+    slot = (cache.length % cache_len).long()
+    bidx = torch.arange(b, device=x.device)
+    cache.k[bidx, :, slot] = k_new[:, :, 0].to(cache.k.dtype)
+    cache.v[bidx, :, slot] = v_new[:, :, 0].to(cache.v.dtype)
+    cache.pos[bidx, slot] = cache.length
+
+    length = cache.length[:, None]
+    valid = cache.pos >= 0  # [B, C]
+    if cfg.window is not None:
+        valid &= cache.pos > (length - cfg.window)
+    valid &= cache.pos <= length
+
+    qg = q.reshape(b, hkv, g, 1, dh).transpose(1, 2)
+    out = _sdpa(qg, cache.k, cache.v, valid[:, None, None, None, :], scale)
+    out = out.transpose(1, 2).reshape(b, h, 1, dh)
+    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype),
+                     params["wo"].to(x.dtype))
+    cache.length.add_(1)
+    return y

@@ -1,0 +1,86 @@
+"""Parameter declarations and their initialisation.
+
+Port of ``repro/models/module.py``. A model declares its parameters once
+as a nested dict of ``ParamDecl`` (shape, init rule, scale);
+``init_params`` materialises the tree from an explicit
+``torch.Generator``. The draws cannot equal JAX's threefry draws, but
+each tensor's standard deviation is ``_materialize``'s
+(``repro/models/module.py:58``): ``fan_in`` rules divide by the square
+root of the product of every dimension but the last, and for stacked
+layer parameters that product includes the stacking dimension (e.g.
+``layers/attn/wq`` ``[24, 2560, 32, 80]`` has fan_in 24 * 2560 * 32).
+That keeps activations at the JAX model's scale.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = ["ParamDecl", "map_decls", "stacked", "init_std", "init_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    """One f32 parameter: its shape and init rule ("fan_in" or "ones";
+    the JAX package's "zeros" and "normal" come with the families that
+    declare them)."""
+
+    shape: tuple
+    init: str = "fan_in"
+    scale: float = 1.0
+
+
+def _leaves(tree, prefix=""):
+    """(path, decl) pairs in sorted-key order, as ``jax.tree`` flattens."""
+    for key in sorted(tree):
+        value = tree[key]
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            yield from _leaves(value, path + "/")
+        else:
+            yield path, value
+
+
+def map_decls(fn, tree):
+    return {k: map_decls(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def stacked(decl_tree, n: int):
+    """Prepend a stacking dim of ``n`` layers to every declaration."""
+    return map_decls(
+        lambda d: dataclasses.replace(d, shape=(n,) + tuple(d.shape)),
+        decl_tree)
+
+
+def init_std(d: ParamDecl) -> float:
+    """Standard deviation of a "fan_in" init (``module.py:69``)."""
+    if d.init != "fan_in":
+        raise ValueError(f"no random init: {d.init}")
+    fan_in = math.prod(d.shape[:-1]) if len(d.shape) > 1 else d.shape[0]
+    return d.scale / math.sqrt(max(fan_in, 1))
+
+
+def _materialize(d: ParamDecl, generator: torch.Generator, device):
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=torch.float32, device=device)
+    t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return t.mul_(init_std(d))
+
+
+def init_params(decl_tree, generator: torch.Generator, device=None):
+    """Materialise a declaration tree (nested dicts of tensors, same keys),
+    drawing leaves in sorted-key order from ``generator`` on its device."""
+    device = generator.device if device is None else torch.device(device)
+    out: dict = {}
+    for path, decl in _leaves(decl_tree):
+        *parents, name = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = _materialize(decl, generator, device)
+    return out

@@ -17,10 +17,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from tests.test_torch_kernels_gpu import (  # noqa: E402
-    ATOL, RTOL, TABLE_NAMES, _EV_NAMES, _assert_state_equal, _events,
-    _score_inputs, _torch_factor_apply, _worker_state)
+    ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
+    _assert_state_equal, _events, _isgd_inputs, _score_inputs, _swa_inputs,
+    _torch_factor_apply, _worker_state)
 
 
 # -- CPU parity against the JAX kernels (interpret mode) ------------------
@@ -98,3 +100,132 @@ def test_wrappers_refuse_mixed_devices_and_bad_shapes():
     with pytest.raises(ValueError):
         ops.masked_scores(u, torch.zeros(1, 4, 3, device="meta"),
                           torch.zeros(1, 2, 4, dtype=torch.bool))
+
+
+# -- K6 isgd_update and K7 swa_attention ------------------------------------
+
+
+@pytest.mark.parametrize("u_cap,i_cap,k,e", [(16, 16, 4, 10), (64, 48, 10, 100),
+                                             (128, 64, 32, 257)])
+def test_isgd_apply_matches_jax_kernel(u_cap, i_cap, k, e):
+    """Repeated slots and invalid events, against the Pallas body
+    (interpret mode) and the JAX oracle, at the JAX test's rtol 1e-5 /
+    atol 1e-6."""
+    inp = _isgd_inputs(np.random.default_rng(u_cap + e), u_cap, i_cap, k, e)
+    args = [torch.tensor(inp[n]) for n in ISGD_NAMES]
+    before = ops.launch_counts()["isgd_update"]
+    got_u, got_i = ops.isgd_update(*args, eta=0.05, lam=0.01)
+    assert ops.launch_counts()["isgd_update"] == before  # CPU: plain version
+    jargs = [jnp.asarray(inp[n]) for n in ISGD_NAMES]
+    for want_u, want_i in (
+            jops.isgd_update(*jargs, eta=0.05, lam=0.01, interpret=True),
+            jref.isgd_apply(*jargs, eta=0.05, lam=0.01)):
+        np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_isgd_chain_through_one_slot_matches_jax_kernel():
+    """Eight events on the same user and item rows: each reads the rows
+    the previous one wrote (``tests/test_kernels.py:50``)."""
+    k = 4
+    ut = np.full((4, k), 0.3, np.float32)
+    it = np.full((4, k), 0.3, np.float32)
+    zeros, ones = np.zeros(8, np.int32), np.ones(8, bool)
+    got_u, got_i = ops.isgd_update(
+        *(torch.tensor(x) for x in (ut, it, zeros, zeros, ones)),
+        eta=0.1, lam=0.0)
+    want_u, want_i = jops.isgd_update(
+        *(jnp.asarray(x) for x in (ut, it, zeros, zeros, ones)),
+        eta=0.1, lam=0.0, interpret=True)
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u), rtol=1e-5)
+    np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), rtol=1e-5)
+    assert not np.allclose(got_u.numpy()[0], ut[0])   # the chain moved it
+
+
+def test_isgd_apply_skips_slots_outside_the_tables():
+    """An event whose user or item slot lies outside its table changes
+    nothing, as in the kernel: the same as marking it invalid (exact)."""
+    inp = _isgd_inputs(np.random.default_rng(35), 64, 48, 10, 100)
+    u_bad, i_bad = inp["u_slots"].copy(), inp["i_slots"].copy()
+    u_bad[::7], u_bad[3::7], i_bad[5::11] = 64, -1, 48
+    inside = (u_bad >= 0) & (u_bad < 64) & (i_bad < 48)
+    runs = []
+    for u_s, i_s, valid in ((u_bad, i_bad, inp["valid"]),
+                            (np.where(inside, u_bad, 0),
+                             np.where(inside, i_bad, 0), inp["valid"] & inside)):
+        args = [torch.tensor(inp[n]) for n in ISGD_NAMES]
+        args[2:] = [torch.tensor(x) for x in (u_s, i_s, valid)]
+        runs.append([a.numpy() for a in ops.isgd_update(*args, eta=0.05,
+                                                        lam=0.01)])
+    for got, want in zip(*runs):
+        np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(runs[0][0], inp["user_tab"])
+
+
+def _swa_check(q, k, v, dtype, *, window, causal=True, pallas=True):
+    """ops.swa_attention on CPU tensors (the plain version) against the
+    JAX oracle and, where S is a multiple of 64, the Pallas body."""
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = getattr(torch, dtype)
+    got = ops.swa_attention(*(torch.tensor(x).to(tdt) for x in (q, k, v)),
+                            window=window, causal=causal)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    wants = [jref.swa_attention(jq, jk, jv, window=window, causal=causal)]
+    if pallas:
+        wants.append(jops.swa_attention(jq, jk, jv, window=window,
+                                        causal=causal, block_q=64,
+                                        block_k=64, interpret=True))
+    for want in wants:
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   **SWA_TOL[dtype])
+    return got
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("window", [None, 32, 128])
+def test_swa_attention_matches_jax_kernel(hq, hkv, window):
+    """``tests/test_kernels.py:69``'s sweep: GQA groups 1, 2 and 8."""
+    q, k, v = _swa_inputs(np.random.default_rng(hq * 7 + hkv), 2, hq, hkv,
+                          256, 32)
+    _swa_check(q, k, v, "float32", window=window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 80])
+def test_swa_attention_head_dims_and_dtypes_match_jax_kernel(d, dtype):
+    """danube's head_dim 80 (no power of two) and 32, in f32 and bf16."""
+    q, k, v = _swa_inputs(np.random.default_rng(d), 1, 4, 2, 128, d)
+    _swa_check(q, k, v, dtype, window=64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_attention_ragged_matches_jax_oracle(dtype):
+    """S = 200: no multiple of a block; the Pallas kernel refuses it (the
+    JAX wrapper takes the oracle), the port's kernel masks the tail."""
+    q, k, v = _swa_inputs(np.random.default_rng(5), 1, 4, 2, 200, 80)
+    _swa_check(q, k, v, dtype, window=48, pallas=False)
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_swa_attention_non_causal_matches_jax_kernel(window):
+    q, k, v = _swa_inputs(np.random.default_rng(6), 1, 4, 2, 128, 32)
+    _swa_check(q, k, v, "float32", window=window, causal=False)
+
+
+def test_swa_attention_rows_without_keys_give_zero():
+    """causal=False, window 0: row r sees keys (r, S), so the last row
+    sees none. The Pallas body gives 0 there (p zeroed while m is still
+    -1e30, l == 0 -> 0); so does the port (the JAX oracle gives NaN)."""
+    q, k, v = _swa_inputs(np.random.default_rng(7), 1, 2, 1, 128, 32)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want = np.asarray(jops.swa_attention(jq, jk, jv, window=0, causal=False,
+                                         block_q=64, block_k=64,
+                                         interpret=True))
+    got = ops.swa_attention(*(torch.tensor(x) for x in (q, k, v)), window=0,
+                            causal=False).numpy()
+    assert np.all(want[:, :, -1] == 0) and np.all(got[:, :, -1] == 0)
+    np.testing.assert_allclose(got, want, **SWA_TOL["float32"])

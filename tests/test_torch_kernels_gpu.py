@@ -167,6 +167,34 @@ def _dics_topn_inputs(rng, n_w, b, i, ties=False):
     return co, cnt, hist, known, ids
 
 
+def _isgd_inputs(rng, u_cap, i_cap, k, n_ev):
+    """Tables, slots drawn with repeats (a chain through the same rows)
+    and ~15% invalid events, as ``tests/test_kernels.py``'s sweep."""
+    return {
+        "user_tab": (rng.normal(size=(u_cap, k)) * 0.1).astype(np.float32),
+        "item_tab": (rng.normal(size=(i_cap, k)) * 0.1).astype(np.float32),
+        "u_slots": rng.integers(0, u_cap, n_ev).astype(np.int32),
+        "i_slots": rng.integers(0, i_cap, n_ev).astype(np.int32),
+        "valid": rng.random(n_ev) > 0.15,
+    }
+
+
+ISGD_NAMES = ("user_tab", "item_tab", "u_slots", "i_slots", "valid")
+
+# swa_attention tolerances against the plain version, the JAX kernel
+# tests' own (tests/test_kernels.py:78 and :90): f32 sums in other orders;
+# bf16 rounds P to bf16 before P.V in the kernels, not in the plain one.
+SWA_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+           "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def _swa_inputs(rng, b, hq, hkv, s, d):
+    """q [B, Hq, S, D], k / v [B, Hkv, S, D], standard normal (f32)."""
+    return (rng.normal(size=(b, hq, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pairwise", [False, True], ids=["isgd", "bpr"])
 @pytest.mark.parametrize("shape", [(2, 16, 8, 6, 24), (4, 300, 70, 10, 64)],
@@ -362,3 +390,146 @@ def test_stream_loop_never_waits_for_the_card(cuda_device, backend,
     processed, requeued, dropped = (int(carry[3]), int((carry[1] >= 0).sum()),
                                     int(carry[4]))
     assert processed + requeued + dropped == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 16, 4, 10), (64, 48, 10, 100),
+                                   (4096, 2048, 10, 16384),
+                                   (38_912, 6_784, 10, 256)],
+                         ids=["tiny", "small", "bench", "worker"])
+def test_isgd_update_kernel_matches_plain(cuda_device, shape):
+    inp = _isgd_inputs(np.random.default_rng(31), *shape)
+    out = {}
+    for name, fn in (("kernel", ops.isgd_update), ("plain", ref.isgd_apply)):
+        args = [torch.tensor(inp[n], device=cuda_device) for n in ISGD_NAMES]
+        before = ops.launch_counts()["isgd_update"]
+        fn(*args, eta=0.05, lam=0.01)
+        assert ops.launch_counts()["isgd_update"] == before + (
+            name == "kernel")
+        out[name] = [a.cpu().numpy() for a in args[:2]]
+    for got, want in zip(out["kernel"], out["plain"]):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_isgd_update_kernel_skips_slots_outside_the_tables(cuda_device):
+    """Both versions skip an event whose slot lies outside its table: the
+    kernel equals the plain version on the same slots, and both equal the
+    plain version with those events marked invalid."""
+    inp = _isgd_inputs(np.random.default_rng(33), 64, 48, 10, 100)
+    bad = inp["u_slots"].copy()
+    bad[::7] = 64                     # one past the user table
+    bad[3::7] = -1
+    inside = (bad >= 0) & (bad < 64)
+    runs = {}
+    for name, fn, slots, valid in (
+            ("kernel", ops.isgd_update, bad, inp["valid"]),
+            ("plain", ref.isgd_apply, bad, inp["valid"]),
+            ("masked", ref.isgd_apply, np.where(inside, bad, 0),
+             inp["valid"] & inside)):
+        args = [torch.tensor(inp[n], device=cuda_device) for n in ISGD_NAMES]
+        args[2] = torch.tensor(slots.astype(np.int32), device=cuda_device)
+        args[4] = torch.tensor(valid, device=cuda_device)
+        runs[name] = [a.cpu().numpy() for a in fn(*args, eta=0.05, lam=0.01)]
+    for name in ("plain", "masked"):
+        for g, w in zip(runs["kernel"], runs[name]):
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+# (B, Hq, Hkv, S, D, window, causal, dtype)
+SWA_CASES = {
+    "danube_ragged": (1, 8, 2, 1000, 80, 256, True, "bfloat16"),
+    "danube_two_windows": (1, 4, 1, 2049, 80, 1024, True, "bfloat16"),
+    "gqa8_full_causal": (2, 8, 1, 513, 128, None, True, "bfloat16"),
+    "d64_non_causal": (1, 4, 2, 257, 64, 48, False, "bfloat16"),
+    "d32_short": (2, 2, 2, 5, 32, 3, True, "bfloat16"),
+    "f32_d80_ragged": (1, 4, 2, 130, 80, 32, True, "float32"),
+    "f32_d32_gqa": (2, 4, 1, 300, 32, 64, True, "float32"),
+    "f32_d128": (1, 2, 2, 96, 128, None, True, "float32"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWA_CASES))
+def test_swa_attention_kernel_matches_plain(cuda_device, case):
+    b, hq, hkv, s, d, window, causal, dtype = SWA_CASES[case]
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(x, device=cuda_device).to(tdt) for x in
+               _swa_inputs(np.random.default_rng(37), b, hq, hkv, s, d))
+    before = ops.launch_counts()["swa_attention"]
+    got = ops.swa_attention(q, k, v, window=window, causal=causal)
+    assert ops.launch_counts()["swa_attention"] == before + 1
+    want = ref.swa_attention(q, k, v, window=window, causal=causal)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SWA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_attention_rows_without_keys_give_zero_on_the_card(cuda_device,
+                                                               dtype):
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(x, device=cuda_device).to(tdt) for x in
+               _swa_inputs(np.random.default_rng(41), 1, 2, 1, 100, 80))
+    got = ops.swa_attention(q, k, v, window=0, causal=False)
+    want = ref.swa_attention(q, k, v, window=0, causal=False)
+    assert torch.all(got[:, :, -1] == 0)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SWA_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_swa_attention_refuses_what_it_was_not_built_for(cuda_device):
+    def qkv(d, dtype=torch.bfloat16, hkv=2):
+        return (torch.zeros(1, 4, 8, d, dtype=dtype, device=cuda_device),
+                torch.zeros(1, hkv, 8, d, dtype=dtype, device=cuda_device),
+                torch.zeros(1, hkv, 8, d, dtype=dtype, device=cuda_device))
+
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.swa_attention(*qkv(48), window=4)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.swa_attention(*qkv(32, torch.float16), window=4)
+    with pytest.raises(ValueError, match="kv heads"):
+        ops.swa_attention(*qkv(32, hkv=3), window=4)
+
+
+@pytest.mark.gpu
+def test_forward_full_launches_swa_attention_once_per_layer(cuda_device):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import build
+
+    cfg = get_smoke_config("h2o_danube_1p8b")
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.tensor(make_batch(cfg, 2, 97, seed=0)["tokens"],
+                        device=cuda_device)
+    before = ops.launch_counts()["swa_attention"]
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, toks, cfg)
+        h, _ = tfm.forward_full(params, x, torch.arange(97, device="cuda"),
+                                cfg)
+    assert ops.launch_counts()["swa_attention"] == before + cfg.n_layers
+    logits, caches = bundle.prefill(params, {"tokens": toks[:, :-1]})
+    assert ops.launch_counts()["swa_attention"] == before + 2 * cfg.n_layers
+    nxt, _ = bundle.decode(params, caches, toks[:, -1:])
+    assert ops.launch_counts()["swa_attention"] == before + 2 * cfg.n_layers
+    assert torch.isfinite(h.float()).all() and nxt.shape == (2, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_calls_never_reach_the_plain_versions(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "swa_attention", refuse)
+    monkeypatch.setattr(ref, "isgd_apply", refuse)
+    q, k, v = (torch.tensor(x, device=cuda_device).to(torch.bfloat16) for x in
+               _swa_inputs(np.random.default_rng(43), 1, 4, 2, 77, 80))
+    ops.swa_attention(q, k, v, window=16)      # ragged S included
+    inp = _isgd_inputs(np.random.default_rng(47), 32, 16, 10, 50)
+    ops.isgd_update(*(torch.tensor(inp[n], device=cuda_device)
+                      for n in ISGD_NAMES), eta=0.05, lam=0.01)
+    torch.cuda.synchronize()
