@@ -25,7 +25,11 @@ DISGD (K1-K3):
   4. kernels against their plain versions on the main path's shapes: a
      real micro-batch from the middle of the stream on the trained
      state (one event in ten given an unseen id, so evictions run) for
-     ``factor_update`` (both modes) and ``masked_scores``; the serving
+     ``factor_update`` (both modes) and ``masked_scores``, and ISGD
+     also on the same micro-batch without the fresh ids (the stream's own
+     evictions); the staged kernels' card time alone (``device_ms``),
+     CTAs per worker, staged chunk, dynamic shared memory and ptxas
+     registers beside them; the serving
      inputs for ``fused_topn``; each timed beside its plain version and
      a PyTorch library call, with its bound; ``isgd_update`` (K6) on one
      worker's tables and bucket of that micro-batch, and at
@@ -43,9 +47,10 @@ DICS (K4, K5), after the DISGD state is freed:
   7. ``dics_serve``: ``grid_topn(algorithm="dics", k_nn=10)`` for 8,192
      stream users in calls of 1,024, equal to the plain path;
   8. ``dics_update`` on a mid-stream micro-batch of the trained state (one
-     event in ten given an unseen id) and ``dics_topn`` on one serve
-     call's inputs, each equal to its plain version, timed beside it with
-     its bound; the bucket-start scoring of the same micro-batch timed;
+     event in ten given an unseen id, and again without them) and
+     ``dics_topn`` on one serve call's inputs, each equal to its plain
+     version, timed beside it with its bound; the bucket-start scoring of
+     the same micro-batch timed;
   9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
      colliding item slots, and the card's ``cuda`` run equals the same run
      on CPU tensors: state and recall bits.
@@ -111,6 +116,9 @@ MICRO_BATCH = 2048
 SERVE_USERS, SERVE_BATCH = 8192, 1024
 DEVICE = "cuda"
 
+# Card cycles of the busy wait that _time_ms(cover_enqueue=True) queues
+# ahead of its start event (~2 ms at the H100's 1.98 GHz boost clock).
+ENQUEUE_COVER_CYCLES = 4_000_000
 # Tolerances. Kernels and plain versions sum the k = 10 products in other
 # orders (nvcc contracts to FMAs): a few f32 ulp per score or update.
 RTOL, ATOL = 1e-5, 1e-6
@@ -139,6 +147,25 @@ LOGIT_TOL, LOGIT_GAP = 0.15, 0.05
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def disgd_config(rt):
+    """The DISGD main path's ``StreamConfig`` (MovieLens-25M caps)."""
+    return rt.StreamConfig(
+        grid=rt.GridSpec(n_i=N_I), micro_batch=MICRO_BATCH,
+        capacity_factor=2.0,
+        hyper=rt.DisgdHyper(k=10, u_cap=U_CAP, i_cap=I_CAP, top_n=10),
+        backend="cuda", device=DEVICE)
+
+
+def dics_config(rt):
+    """The DICS path's ``StreamConfig`` (Netflix caps)."""
+    return rt.StreamConfig(
+        algorithm="dics", grid=rt.GridSpec(n_i=N_I), micro_batch=MICRO_BATCH,
+        capacity_factor=2.0,
+        hyper=rt.DicsHyper(k_nn=K_NN, top_n=10, u_cap=DICS_U_CAP,
+                           i_cap=DICS_I_CAP),
+        backend="cuda", device=DEVICE)
 
 
 def emit(phase: str, **fields):
@@ -170,7 +197,8 @@ def main():
     infos = build.build_all(force=True)
     build_s = time.perf_counter() - t0
     emit("build", **card, seconds=round(build_s, 3), kernels={
-        n: {"nvcc_s": round(b.seconds, 3), **_ptxas(b.ptxas)}
+        n: {"nvcc_s": round(b.seconds, 3), **_ptxas(b.ptxas),
+            "entries": _ptxas_entries(b.ptxas)}
         for n, b in infos.items()})
 
     # -- 2. main path at deployment size ------------------------------------
@@ -183,11 +211,8 @@ def main():
     users, items, _ = synth_stream(MOVIELENS_25M, seed=0)
     gen_s = time.perf_counter() - t0
     n = int(users.size)
-    hyper = rt.DisgdHyper(k=10, u_cap=U_CAP, i_cap=I_CAP, top_n=10)
-    grid = rt.GridSpec(n_i=N_I)
-    cfg = rt.StreamConfig(grid=grid, micro_batch=MICRO_BATCH,
-                          capacity_factor=2.0, hyper=hyper, backend="cuda",
-                          device=DEVICE)
+    cfg = disgd_config(rt)
+    hyper, grid = cfg.hyper, cfg.grid
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = rt.run_stream(users, items, cfg)
@@ -256,7 +281,8 @@ def main():
 
     # -- 4. kernels against their plain versions -----------------------------
     kernels = _kernel_checks(torch, np, rt, users, items, states, cfg,
-                             batches[0], qcap, main_counts, serve_counts)
+                             batches[0], qcap, main_counts, serve_counts,
+                             infos)
     del states, res, outs, batches
 
     # -- 5. backends agree on the card ---------------------------------------
@@ -264,7 +290,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6-9. DICS -------------------------------------------------------------
-    kernels += _dics_phases(torch, np, rt, dev)
+    kernels += _dics_phases(torch, np, rt, dev, infos)
     torch.cuda.empty_cache()
 
     # -- 10-12. LLM serving ------------------------------------------------------
@@ -314,6 +340,41 @@ def _device_rows(prof):
     return rows, sum(r[0] for r in rows) / 1e3
 
 
+def _ptxas_entries(log: str) -> dict:
+    """ptxas's report per entry function of one library: registers,
+    static shared memory and stack, by the kernel's name."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        name = re.search(r"\d([a-z][a-z_]*_kernel)", block.split("'", 1)[0])
+        if name:
+            out.setdefault(name.group(1), _ptxas(block))
+    return out
+
+
+def _staged_layout(name: str, events: int, width: int, log: str,
+                   entry: str) -> dict:
+    """A staged kernel's launch (``csrc/bucket_stage.cuh``) for a bucket
+    of ``events``: CTAs per worker, events per staged chunk, dynamic
+    shared memory per CTA (``width``: I for dics_update, k for
+    factor_update), and ptxas's registers / static shared memory."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = (ctypes.c_int * 3)()
+    fn = getattr(build.load(name), f"{name}_layout")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    fn(events, width, out)
+    ptxas = _ptxas_entries(log).get(entry)
+    if ptxas is None:
+        fail(f"{name}: no ptxas report for {entry}")
+    return {"ctas_per_worker": out[0], "chunk_events": out[1],
+            "smem_dynamic_bytes": out[2], "registers": ptxas["registers"],
+            "smem_static_bytes": ptxas["smem_bytes"],
+            "stack_bytes": ptxas["stack_bytes"]}
+
+
 def _ptxas(log: str) -> dict:
     regs = re.search(r"Used (\d+) registers", log)
     smem = re.search(r"(\d+) bytes smem", log)
@@ -350,9 +411,13 @@ def _ids_mismatch(ids, want_ids, want_sc) -> int:
     return int((ids != want_ids)[sep].sum())
 
 
-def _time_ms(torch, fn, reps=20, setup=None) -> float:
+def _time_ms(torch, fn, reps=20, setup=None, cover_enqueue=False) -> float:
     """Median ms of ``fn`` by CUDA events, after one warm-up call;
-    ``setup`` runs outside the timed region before every call."""
+    ``setup`` runs outside the timed region before every call. The time
+    holds the host's enqueue of ``fn`` where the card waits for it. With
+    ``cover_enqueue``, a ~2 ms busy wait queued ahead of the start event
+    hides that enqueue, so a sub-millisecond kernel is timed on the card
+    alone (the ``device_ms`` fields)."""
     times = []
     for r in range(reps + 1):
         if setup is not None:
@@ -360,6 +425,8 @@ def _time_ms(torch, fn, reps=20, setup=None) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if cover_enqueue:
+            torch.cuda._sleep(ENQUEUE_COVER_CYCLES)
         start.record()
         fn()
         end.record()
@@ -375,16 +442,17 @@ def _bound_ms(n_bytes: float, flops: float, flops_per_s=F32_FLOPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _middle_batch(torch, np, users, items, cfg, rng):
+def _middle_batch(torch, np, users, items, cfg, rng, fresh_rate=0.1):
     """One micro-batch from the middle of the stream, bucketed as the
-    engine buckets it, with one event in ten given an unseen id."""
+    engine buckets it, with one event in ten (``fresh_rate``) given an
+    unseen id."""
     from repro_torch.core import routing
 
     n = users.size
     lo = (n // 2) // cfg.micro_batch * cfg.micro_batch
     bu = users[lo:lo + cfg.micro_batch].copy()
     bi = items[lo:lo + cfg.micro_batch].copy()
-    fresh = rng.random(bu.size) < 0.1
+    fresh = rng.random(bu.size) < fresh_rate
     # Unseen ids on the same worker and the same slot as the ids they
     # replace (the shift is a multiple of the grid and of slots * stride),
     # so the slots' tenants are evicted.
@@ -436,7 +504,7 @@ def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
 
 
 def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
-                   main_counts, serve_counts):
+                   main_counts, serve_counts, infos):
     from repro_torch.core import disgd, prng, serve, state as state_lib
     from repro_torch.kernels import ops, ref
 
@@ -454,16 +522,27 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     init_u, init_i = init[:, :cap].contiguous(), init[:, cap:].contiguous()
     rows = []
 
-    # K1 factor_update, both modes, on clones of the trained state.
+    # K1 factor_update, both modes, on clones of the trained state; ISGD
+    # also on the same micro-batch without the fresh ids (the stream's own
+    # evictions: none at these caps).
     n_bytes = _touched_bytes(np, (t.user_ids, t.item_ids), ev_u, ev_i, u_slot,
                              i_slot, hyper.u_cap, hyper.i_cap, k)
     n_valid = int((ev_u >= 0).sum())
     j_slot = torch.as_tensor(rng.integers(0, hyper.i_cap, (n_w, cap)),
                              dtype=torch.int32, device=ev_u.device)
+    nf_u, nf_i = _middle_batch(torch, np, users, items, cfg,
+                               np.random.default_rng(1), fresh_rate=0.0)
+    nf_init = disgd.init_vector(key, torch.cat([nf_u, nf_i], 1), k,
+                                hyper.init_scale)
+    cases = {
+        "isgd": (ev_u, ev_i, u_slot, i_slot, None, init_u, init_i),
+        "pairwise": (ev_u, ev_i, u_slot, i_slot, j_slot, init_u, init_i),
+        "isgd_no_fresh": (
+            nf_u, nf_i, state_lib.slot_of(nf_u, hyper.g, hyper.u_cap),
+            state_lib.slot_of(nf_i, hyper.n_i, hyper.i_cap), None,
+            nf_init[:, :cap].contiguous(), nf_init[:, cap:].contiguous())}
     k1 = {}
-    for pairwise in (False, True):
-        events = (ev_u, ev_i, u_slot, i_slot, j_slot if pairwise else None,
-                  init_u, init_i)
+    for case, events in cases.items():
         work = {}
 
         def run(fn, name):
@@ -482,9 +561,9 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         for a, b, what in zip(got.tables, want.tables,
                               state_lib.Tables._fields):
             if not torch.equal(a, b):
-                fail(f"factor_update (pairwise={pairwise}): {what} differs")
+                fail(f"factor_update ({case}): {what} differs")
         if not torch.equal(got.rated, want.rated):
-            fail(f"factor_update (pairwise={pairwise}): rated differs")
+            fail(f"factor_update ({case}): rated differs")
         err = max(_close(got.user_vecs, want.user_vecs, "factor_update u"),
                   _close(got.item_vecs, want.item_vecs, "factor_update i"))
         del got, want, results
@@ -496,20 +575,32 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
 
         ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"),
                       reps=5, setup=fresh("kernel"))
-        plain_ms = _time_ms(torch, lambda: run(ref.factor_apply, "plain"),
-                            reps=2, setup=fresh("plain"))
+        device_ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"),
+                             reps=5, setup=fresh("kernel"), cover_enqueue=True)
+        plain_ms = None
+        if case != "isgd_no_fresh":
+            plain_ms = _time_ms(torch, lambda: run(ref.factor_apply, "plain"),
+                                reps=2, setup=fresh("plain"))
         work.clear()
-        k1["pairwise" if pairwise else "isgd"] = (err, ms, plain_ms)
+        k1[case] = (err, ms, plain_ms, device_ms)
     bound, by = _bound_ms(n_bytes, 12 * k * n_valid)
-    err, ms, plain_ms = k1["isgd"]
-    p_err, p_ms, p_plain_ms = k1["pairwise"]
+    err, ms, plain_ms, device_ms = k1["isgd"]
+    p_err, p_ms, p_plain_ms, p_device_ms = k1["pairwise"]
+    log = infos["factor_update"].ptxas
     rows.append(dict(
         name="factor_update", route="cuda", matched=True,
         source="src/repro_torch/kernels/csrc/factor_update.cu",
         replaces="src/repro/kernels/factor_update.py:41",
         launches=main_counts["factor_update"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-        pairwise={"max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain_ms},
+        ms_no_fresh=k1["isgd_no_fresh"][1],
+        max_abs_err_no_fresh=k1["isgd_no_fresh"][0],
+        device_ms=device_ms, device_ms_no_fresh=k1["isgd_no_fresh"][3],
+        **_staged_layout("factor_update", cap, k, log,
+                         "factor_update_isgd_kernel"),
+        pairwise={"max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain_ms,
+                  "device_ms": p_device_ms,
+                  **_ptxas_entries(log)["factor_update_pairwise_kernel"]},
         shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap} k={k}",
         valid_events=n_valid))
 
@@ -703,7 +794,7 @@ def _backends_agree(torch, np, rt):
          recall_cuda=a.recall.mean(), recall_scan=b.recall.mean())
 
 
-def _dics_phases(torch, np, rt, dev):
+def _dics_phases(torch, np, rt, dev, infos):
     """DICS trained over the whole Netflix stream, served, and its two
     kernels held against their plain versions. Returns the kernel rows."""
     from repro_torch.data.stream import NETFLIX, synth_stream
@@ -715,12 +806,8 @@ def _dics_phases(torch, np, rt, dev):
     users, items, _ = synth_stream(NETFLIX, seed=0)
     gen_s = time.perf_counter() - t0
     n = int(users.size)
-    hyper = rt.DicsHyper(k_nn=K_NN, top_n=10, u_cap=DICS_U_CAP,
-                         i_cap=DICS_I_CAP)
-    grid = rt.GridSpec(n_i=N_I)
-    cfg = rt.StreamConfig(algorithm="dics", grid=grid,
-                          micro_batch=MICRO_BATCH, capacity_factor=2.0,
-                          hyper=hyper, backend="cuda", device=DEVICE)
+    cfg = dics_config(rt)
+    hyper, grid = cfg.hyper, cfg.grid
     steps = (math.ceil(n / MICRO_BATCH)
              + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
     torch.cuda.reset_peak_memory_stats()
@@ -787,7 +874,8 @@ def _dics_phases(torch, np, rt, dev):
 
     # -- 8. kernels against their plain versions ---------------------------------
     rows = _dics_kernel_checks(torch, np, users, items, states, cfg,
-                               batches[0], qcap, path_counts, serve_counts)
+                               batches[0], qcap, path_counts, serve_counts,
+                               infos)
     del states, res, outs, batches
     torch.cuda.empty_cache()
 
@@ -841,7 +929,7 @@ def _dics_touched_bytes(np, uid, iid, rows, ev_u, ev_i, u_slot, i_slot,
 
 
 def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
-                        path_counts, serve_counts):
+                        path_counts, serve_counts, infos):
     from repro_torch.core import dics, routing, state as state_lib
     from repro_torch.kernels import ops, ref
 
@@ -862,37 +950,53 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
                                   ev_u, ev_i, u_slot, i_slot, hyper.u_cap,
                                   hyper.i_cap)
     del rows_at_start
-    work = {}
+    nf_u, nf_i = _middle_batch(torch, np, users, items, cfg,
+                               np.random.default_rng(1), fresh_rate=0.0)
+    cases = {"fresh": events,
+             "no_fresh": (nf_u, nf_i,
+                          state_lib.slot_of(nf_u, hyper.g, hyper.u_cap),
+                          state_lib.slot_of(nf_i, hyper.n_i, hyper.i_cap))}
+    k4 = {}
+    for case, case_events in cases.items():
+        work = {}
 
-    def run(fn, name):
-        s = work[name]
-        fn(s.co, s.item_cnt, s.rated, tuple(s.tables), events)
+        def run(fn, name):
+            s = work[name]
+            fn(s.co, s.item_cnt, s.rated, tuple(s.tables), case_events)
 
-    results = {}
-    for name, fn in (("kernel", ops.dics_update), ("plain", ref.dics_apply)):
-        work[name] = _clone(states)
-        run(fn, name)
-        torch.cuda.synchronize()
-        results[name] = work.pop(name)
-    got, want = results["kernel"], results["plain"]
-    for a, b, what in zip(got, want, type(got)._fields):
-        pairs = zip(a, b) if what == "tables" else [(a, b)]
-        if not all(torch.equal(x, y) for x, y in pairs):
-            fail(f"dics_update: {what} differs from the plain version")
+        results = {}
+        for name, fn in (("kernel", ops.dics_update),
+                         ("plain", ref.dics_apply)):
+            work[name] = _clone(states)
+            run(fn, name)
+            torch.cuda.synchronize()
+            results[name] = work.pop(name)
+        got, want = results["kernel"], results["plain"]
+        for a, b, what in zip(got, want, type(got)._fields):
+            pairs = zip(a, b) if what == "tables" else [(a, b)]
+            if not all(torch.equal(x, y) for x, y in pairs):
+                fail(f"dics_update ({case}): {what} differs from the plain "
+                     "version")
+        del got, want, results
+
+        def fresh(name):
+            def setup():
+                work[name] = _clone(states)
+            return setup
+
+        ms = _time_ms(torch, lambda: run(ops.dics_update, "kernel"), reps=5,
+                      setup=fresh("kernel"))
+        device_ms = _time_ms(torch, lambda: run(ops.dics_update, "kernel"),
+                             reps=5, setup=fresh("kernel"), cover_enqueue=True)
+        plain_ms = None
+        if case == "fresh":
+            plain_ms = _time_ms(torch, lambda: run(ref.dics_apply, "plain"),
+                                reps=2, setup=fresh("plain"))
+        work.clear()
+        k4[case] = (ms, plain_ms, device_ms)
     evicted = int(((t.item_ids.gather(1, i_slot.long()) != ev_i)
                    & (t.item_ids.gather(1, i_slot.long()) >= 0)).sum())
-    del got, want, results
-
-    def fresh(name):
-        def setup():
-            work[name] = _clone(states)
-        return setup
-
-    ms = _time_ms(torch, lambda: run(ops.dics_update, "kernel"), reps=5,
-                  setup=fresh("kernel"))
-    plain_ms = _time_ms(torch, lambda: run(ref.dics_apply, "plain"), reps=2,
-                        setup=fresh("plain"))
-    work.clear()
+    ms, plain_ms, device_ms = k4["fresh"]
     n_valid = int((ev_u >= 0).sum())
     bound, by = _bound_ms(n_bytes, 2 * hyper.i_cap * n_valid)
     rows.append(dict(
@@ -903,6 +1007,10 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
         library="none: no single PyTorch call applies a sequential chain "
                 "of evicting co-count updates",
+        ms_no_fresh=k4["no_fresh"][0],
+        device_ms=device_ms, device_ms_no_fresh=k4["no_fresh"][2],
+        **_staged_layout("dics_update", cap, hyper.i_cap,
+                         infos["dics_update"].ptxas, "dics_update_kernel"),
         shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap}",
         valid_events=n_valid, evicting_events=evicted, bytes=n_bytes))
 

@@ -24,7 +24,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "BUILD_DIR", "BuildInfo", "build_all", "load"]
+__all__ = ["KERNELS", "BUILD_DIR", "BuildInfo", "build_all", "load",
+           "nvcc_command"]
 
 KERNELS = ("factor_update", "masked_scores", "fused_topn", "dics_update",
            "dics_topn", "isgd_update", "swa_attention")
@@ -57,6 +58,14 @@ def _nvcc() -> str:
     return str(path)
 
 
+def nvcc_command(src: Path, out: Path, nvcc: str | None = None) -> list[str]:
+    """The command that compiles the kernel source ``src`` into the
+    library ``out`` (the flags in this module's docstring)."""
+    return [nvcc or _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(src)]
+
+
 def _library(name: str) -> Path:
     return BUILD_DIR / f"{name}.so"
 
@@ -86,11 +95,9 @@ def _build_locked(force: bool) -> dict[str, BuildInfo]:
     t0 = time.perf_counter()
     for name in todo:
         tmp = BUILD_DIR / f"{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            nvcc_command(CSRC / f"{name}.cu", tmp, nvcc),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()

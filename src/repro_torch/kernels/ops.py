@@ -166,9 +166,11 @@ def factor_update(user_vecs, item_vecs, rated, tabs, events, *, eta: float,
     """Complete factor-model micro-batch update of every worker, IN PLACE
     (ISGD, or pairwise BPR when ``events`` carries ``j_slots``).
 
-    See ``ref.factor_apply`` for the contract. Kernel:
-    ``csrc/factor_update.cu``, one CTA per worker. Returns the (mutated)
-    ``(user_vecs, item_vecs, rated, tabs)``.
+    See ``ref.factor_apply`` for the contract; any bucket width ``E``.
+    Kernel: ``csrc/factor_update.cu``: ISGD stages each worker's bucket on
+    a cluster of CTAs and replays it in shared memory
+    (``csrc/bucket_stage.cuh``); pairwise runs one CTA per worker. Returns
+    the (mutated) ``(user_vecs, item_vecs, rated, tabs)``.
     """
     ev_u, ev_i, u_slots, i_slots, j_slots, init_u, init_i = events
     if _on_cpu(user_vecs, item_vecs, rated, ev_u, init_u, *tabs):
@@ -245,9 +247,11 @@ def dics_update(co, item_cnt, rated, tabs, events, *, live=None):
     as ``factor_update``; events ``(ev_u, ev_i, u_slots, i_slots)`` i32
     [W, E]; ``live`` an optional 0-d bool tensor on the same device:
     when false the call changes nothing (read by the kernel, so the host
-    never waits for it). See ``ref.dics_apply`` for the contract.
-    Kernel: ``csrc/dics_update.cu``, one CTA per worker. Returns the
-    (mutated) ``(co, item_cnt, rated, tabs)``.
+    never waits for it). See ``ref.dics_apply`` for the contract; any
+    bucket width ``E``. Kernel: ``csrc/dics_update.cu``, each worker's
+    bucket staged on a cluster of CTAs and replayed in shared memory
+    (``csrc/bucket_stage.cuh``). Returns the (mutated) ``(co, item_cnt,
+    rated, tabs)``.
     """
     ev_u, ev_i, u_slots, i_slots = events
     extra = () if live is None else (live,)

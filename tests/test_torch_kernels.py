@@ -21,8 +21,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from tests.test_torch_kernels_gpu import (  # noqa: E402
     ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
-    _assert_state_equal, _events, _isgd_inputs, _score_inputs, _swa_inputs,
-    _torch_factor_apply, _worker_state)
+    _assert_state_equal, _dics_events, _dics_state, _events, _isgd_inputs,
+    _score_inputs, _swa_inputs, _torch_dics_apply, _torch_factor_apply,
+    _worker_state)
 
 
 # -- CPU parity against the JAX kernels (interpret mode) ------------------
@@ -229,3 +230,147 @@ def test_swa_attention_rows_without_keys_give_zero():
                             causal=False).numpy()
     assert np.all(want[:, :, -1] == 0) and np.all(got[:, :, -1] == 0)
     np.testing.assert_allclose(got, want, **SWA_TOL["float32"])
+
+
+# -- the staged schedule of K1 (ISGD) and K4 --------------------------------
+#
+# A numpy model of how csrc/bucket_stage.cuh reorders a bucket: per chunk,
+# the tenancy and clears worked out from the chunk-start tables, the chain
+# replayed on staged copies, then every entry written once by its last
+# writer, `rated` by the rule (a set survives unless a later event of the
+# chunk clears its row or column; otherwise a cleared cell ends at 0), and
+# DICS's co / cnt adds in a shuffled order (the kernel's atomics) after the
+# clears. Held against the sequential plain versions on buckets dense in
+# collisions: the reasoning the kernels rest on, checked where there is no
+# card.
+
+
+def _staged_chunk(st, w, ev, lo, hi, dics, rng, eta=0.0, lam=0.0):
+    ev_u, ev_i = ev["ev_u"][w, lo:hi], ev["ev_i"][w, lo:hi]
+    us, is_ = ev["u_slots"][w, lo:hi], ev["i_slots"][w, lo:hi]
+    n = hi - lo
+    valid = ev_u >= 0
+    touch = np.ones(n, bool) if dics else valid
+    uid, iid = st["user_ids"][w], st["item_ids"][w]
+    u0 = {s: uid[s] for s in us[touch]}          # staged tenants
+    i0 = {s: iid[s] for s in is_[touch]}
+    flags = []
+    last_row, last_col = {}, {}
+    ten_u, ten_i = dict(u0), dict(i0)            # replayed tenancy
+    for e in range(n):
+        if not touch[e]:
+            flags.append((False, False))
+            continue
+        new_u, new_i = ten_u[us[e]] != ev_u[e], ten_i[is_[e]] != ev_i[e]
+        if new_u:
+            last_row[us[e]] = e
+        if new_i:
+            last_col[is_[e]] = e
+        if valid[e]:
+            ten_u[us[e]], ten_i[is_[e]] = ev_u[e], ev_i[e]
+        flags.append((new_u, new_i))
+    rated = st["rated"][w]
+    if dics:   # the history rows, staged and replayed
+        rows = {s: rated[s].copy() for s in us}
+        snaps = {}
+        for e in range(n):
+            new_u, new_i = flags[e]
+            if new_u:
+                rows[us[e]][:] = False
+            if new_i:
+                for r in rows.values():
+                    r[is_[e]] = False
+            if valid[e]:
+                snaps[e] = np.flatnonzero(rows[us[e]])
+                rows[us[e]][is_[e]] = True
+    else:      # the SGD chain, on staged rows
+        k = st["user_vecs"].shape[-1]
+        uv = {s: st["user_vecs"][w, s].copy() for s in us[valid]}
+        iv = {s: st["item_vecs"][w, s].copy() for s in is_[valid]}
+        for e in np.flatnonzero(valid):
+            u = ev["init_u"][w, lo + e] if flags[e][0] else uv[us[e]]
+            i = ev["init_i"][w, lo + e] if flags[e][1] else iv[is_[e]]
+            err = np.float32(1.0) - np.dot(u, i)
+            uv[us[e]] = u + np.float32(eta) * (err * i - np.float32(lam) * u)
+            iv[is_[e]] = i + np.float32(eta) * (err * u - np.float32(lam) * i)
+        for s, v in uv.items():
+            st["user_vecs"][w, s] = v
+        for s, v in iv.items():
+            st["item_vecs"][w, s] = v
+    # rated: the clears, then the sets that survive them.
+    rated[list(last_row)] = False
+    rated[:, list(last_col)] = False
+    for e in np.flatnonzero(valid):
+        if (last_row.get(us[e], -1) <= e and last_col.get(is_[e], -1) <= e):
+            rated[us[e], is_[e]] = True
+    if dics:   # co / cnt: zero what a clear touches, then surviving adds
+        co, cnt = st["co"][w], st["item_cnt"][w]
+        cleared = list(last_col)
+        co[cleared, :] = 0.0
+        co[:, cleared] = 0.0
+        cnt[cleared] = 0.0
+        adds = [(e, j) for e, hist in snaps.items() for j in hist
+                if last_col.get(is_[e], -1) <= e and last_col.get(j, -1) <= e]
+        for x in rng.permutation(len(adds)):
+            e, j = adds[x]
+            co[is_[e], j] += np.float32(1.0)
+            co[j, is_[e]] += np.float32(1.0)
+        for e in rng.permutation(np.flatnonzero(valid)):
+            if last_col.get(is_[e], -1) <= e:
+                cnt[is_[e]] += np.float32(1.0)
+    # The bookkeeping, by each slot's last valid event.
+    clock = st["clock"][w] + np.cumsum(valid)
+    for side, ids, slots, flag_at in (("user", ev_u, us, 0),
+                                      ("item", ev_i, is_, 1)):
+        for s in np.unique(slots[valid]):
+            on = np.flatnonzero(valid & (slots == s))
+            news = [e for e in on if flags[e][flag_at]]
+            freq = (on.size - on.tolist().index(news[-1]) if news
+                    else st[f"{side}_freq"][w, s] + on.size)
+            st[f"{side}_ids"][w, s] = ids[on[-1]]
+            st[f"{side}_freq"][w, s] = freq
+            st[f"{side}_ts"][w, s] = clock[on[-1]]
+    st["clock"][w] = clock[-1]
+
+
+def _staged_apply(st, ev, *, dics, chunk, seed=0, eta=0.0, lam=0.0):
+    st = {n: v.copy() for n, v in st.items()}
+    rng = np.random.default_rng(seed)
+    n_w, n_ev = ev["ev_u"].shape
+    for w in range(n_w):
+        for lo in range(0, n_ev, chunk):
+            _staged_chunk(st, w, ev, lo, min(n_ev, lo + chunk), dics, rng,
+                          eta, lam)
+    return st
+
+
+@pytest.mark.parametrize("chunk", [5, 13, 64])
+@pytest.mark.parametrize("seed", range(3))
+def test_staged_schedule_matches_factor_apply(seed, chunk):
+    """ISGD mode: six user and five item slots under sixty events with
+    ids spanning twice the caps and 20% padding, so slots are hit many
+    times and users are evicted and re-added inside one chunk."""
+    rng = np.random.default_rng(100 + seed)
+    n_w, u_cap, i_cap, k, n_ev = 2, 6, 5, 4, 60
+    st = _worker_state(rng, n_w, u_cap, i_cap, k)
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, False)
+    want = _torch_factor_apply(st, ev, "cpu", eta=0.05, lam=0.01,
+                               use_ops=False)
+    got = _staged_apply(st, ev, dics=False, chunk=chunk, eta=0.05, lam=0.01)
+    _assert_state_equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [5, 13, 64])
+@pytest.mark.parametrize("seed", range(3))
+def test_staged_schedule_matches_dics_apply(seed, chunk):
+    """DICS: the same collision density, padding that clears live last
+    slots, and co / cnt adds in a shuffled order: every array exact."""
+    rng = np.random.default_rng(200 + seed)
+    n_w, u_cap, i_cap, n_ev = 2, 6, 5, 60
+    st = _dics_state(rng, n_w, u_cap, i_cap)
+    ev = _dics_events(rng, n_w, n_ev, u_cap, i_cap)
+    want = _torch_dics_apply(st, ev, "cpu", use_ops=False)
+    got = _staged_apply(st, ev, dics=True, chunk=chunk, seed=seed)
+    _assert_state_equal(got, want, rtol=0, atol=0)
+    assert any(not np.array_equal(got["co"][w], st["co"][w])
+               for w in range(n_w))

@@ -56,11 +56,16 @@ def _worker_state(rng, n_w, u_cap, i_cap, k):
     }
 
 
-def _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise):
-    """Events with slot collisions (ids span twice the caps) and padding."""
+def _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise, padding="random"):
+    """Events with slot collisions (ids span twice the caps) and padding:
+    ``"random"`` 20% interleaved, ``"tail"`` the last 40% (as the engine
+    lays a bucket out), ``"all"`` every event."""
     ev_u = rng.integers(0, 2 * u_cap, (n_w, n_ev)).astype(np.int32)
     ev_i = rng.integers(0, 2 * i_cap, (n_w, n_ev)).astype(np.int32)
-    pad = rng.random((n_w, n_ev)) < 0.2
+    pad = {"random": rng.random((n_w, n_ev)) < 0.2,
+           "tail": np.arange(n_ev) >= n_ev * 3 // 5,
+           "all": np.ones((n_w, n_ev), bool)}[padding]
+    pad = np.broadcast_to(pad, (n_w, n_ev))
     ev_u[pad] = -1
     ev_i[pad] = -1
     return {
@@ -129,8 +134,8 @@ def _dics_state(rng, n_w, u_cap, i_cap):
     return st
 
 
-def _dics_events(rng, n_w, n_ev, u_cap, i_cap):
-    ev = _events(rng, n_w, n_ev, u_cap, i_cap, 1, False)
+def _dics_events(rng, n_w, n_ev, u_cap, i_cap, padding="random"):
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, 1, False, padding)
     return {n: ev[n] for n in DICS_EV_NAMES}
 
 
@@ -195,15 +200,30 @@ def _swa_inputs(rng, b, hq, hkv, s, d):
             rng.normal(size=(b, hkv, s, d)).astype(np.float32))
 
 
+# The staged kernels' hard cases (csrc/bucket_stage.cuh): "dense" hits six
+# user and five item slots sixty times a worker (a slot hit many times, an
+# eviction between two uses of a slot, a user evicted and re-added in one
+# bucket); "wide" is a bucket of 600 events, over two staged chunks of
+# 256; padding interleaved, at the tail, or everywhere. (n_w, u_cap, i_cap,
+# k, n_ev), padding.
+FACTOR_CASES = {
+    "tiny": ((2, 16, 8, 6, 24), "random"),
+    "small": ((4, 300, 70, 10, 64), "random"),
+    "dense": ((2, 6, 5, 4, 60), "random"),
+    "wide": ((3, 40, 24, 10, 600), "random"),
+    "tail_padding": ((2, 12, 9, 10, 40), "tail"),
+    "all_padding": ((2, 12, 9, 10, 40), "all"),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pairwise", [False, True], ids=["isgd", "bpr"])
-@pytest.mark.parametrize("shape", [(2, 16, 8, 6, 24), (4, 300, 70, 10, 64)],
-                         ids=["tiny", "small"])
+@pytest.mark.parametrize("shape", list(FACTOR_CASES))
 def test_factor_update_kernel_matches_plain(cuda_device, pairwise, shape):
-    n_w, u_cap, i_cap, k, n_ev = shape
+    (n_w, u_cap, i_cap, k, n_ev), padding = FACTOR_CASES[shape]
     rng = np.random.default_rng(11)
     st = _worker_state(rng, n_w, u_cap, i_cap, k)
-    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise)
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise, padding)
     before = ops.launch_counts()["factor_update"]
     got = _torch_factor_apply(st, ev, cuda_device, eta=0.05, lam=0.01,
                               use_ops=True)
@@ -251,15 +271,27 @@ def test_fused_topn_kernel_matches_plain(cuda_device, shape, ties):
         np.testing.assert_array_equal(got_ids[sep], want_ids[sep])
 
 
+# As FACTOR_CASES, for DICS; the last user and item slots are live, so
+# padding clears them. i_cap 32 and 48 take the kernel's 16-byte loads of
+# the history rows (48: a half word last), 5, 24 and 70 its byte loads.
+DICS_CASES = {
+    "tiny": ((2, 64, 32, 24), "random"),
+    "small": ((4, 300, 70, 96), "random"),
+    "dense": ((2, 6, 5, 60), "random"),
+    "wide": ((3, 40, 48, 600), "random"),
+    "tail_padding": ((2, 12, 24, 40), "tail"),
+    "all_padding": ((2, 12, 24, 40), "all"),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("live", [None, True, False])
-@pytest.mark.parametrize("shape", [(2, 64, 32, 24), (4, 300, 70, 96)],
-                         ids=["tiny", "small"])
+@pytest.mark.parametrize("shape", list(DICS_CASES))
 def test_dics_update_kernel_matches_plain(cuda_device, shape, live):
-    n_w, u_cap, i_cap, n_ev = shape
+    (n_w, u_cap, i_cap, n_ev), padding = DICS_CASES[shape]
     rng = np.random.default_rng(19)
     st = _dics_state(rng, n_w, u_cap, i_cap)
-    ev = _dics_events(rng, n_w, n_ev, u_cap, i_cap)
+    ev = _dics_events(rng, n_w, n_ev, u_cap, i_cap, padding)
     before = ops.launch_counts()["dics_update"]
     got = _torch_dics_apply(st, ev, cuda_device, use_ops=True, live=live)
     assert ops.launch_counts()["dics_update"] == before + 1
@@ -318,6 +350,68 @@ def test_dics_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
         out[name] = t
     for n in st:
         assert torch.equal(out["kernel"][n], out["plain"][n]), n
+
+
+def _factor_main_state(device, n_w=16, u_cap=38_912, i_cap=6_784, k=10,
+                       n_ev=256):
+    """A DISGD grid at the main path's shapes (``rated`` 4.2 GB), made on
+    the card from a seed: ~60% live slots, ~16 rated items per user row,
+    and events whose ids span twice the caps (evictions) with 20%
+    padding. Returns the state, the tables' names and the events."""
+    gen = torch.Generator(device=device).manual_seed(29)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def ids(cap):
+        base = torch.arange(cap, dtype=torch.int32, device=device)
+        alt = (rand(n_w, cap) < 0.5).to(torch.int32) * cap
+        return torch.where(rand(n_w, cap) < 0.6, base + alt, -1)
+
+    def counts(shape, hi):
+        return torch.floor(rand(*shape) * hi).to(torch.int32)
+
+    rated = torch.zeros((n_w, u_cap, i_cap), dtype=torch.bool, device=device)
+    flat = torch.floor(rand(16 * n_w * u_cap) * rated.numel()).long()
+    rated.view(-1)[flat] = True
+    st = {"user_ids": ids(u_cap), "item_ids": ids(i_cap),
+          "user_freq": counts((n_w, u_cap), 5),
+          "item_freq": counts((n_w, i_cap), 5),
+          "user_ts": counts((n_w, u_cap), 50),
+          "item_ts": counts((n_w, i_cap), 50),
+          "clock": 50 + counts((n_w,), 10),
+          "user_vecs": (rand(n_w, u_cap, k) - 0.5) * 0.6,
+          "item_vecs": (rand(n_w, i_cap, k) - 0.5) * 0.6,
+          "rated": rated}
+    ev_u = torch.floor(rand(n_w, n_ev) * 2 * u_cap).to(torch.int32)
+    ev_i = torch.floor(rand(n_w, n_ev) * 2 * i_cap).to(torch.int32)
+    pad = rand(n_w, n_ev) < 0.2
+    ev_u[pad] = -1
+    ev_i[pad] = -1
+    events = (ev_u, ev_i, (ev_u % u_cap).to(torch.int32),
+              (ev_i % i_cap).to(torch.int32), None,
+              (rand(n_w, n_ev, k) - 0.5) * 0.2,
+              (rand(n_w, n_ev, k) - 0.5) * 0.2)
+    return st, events
+
+
+@pytest.mark.gpu
+def test_factor_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
+    st, events = _factor_main_state(cuda_device)
+    out = {}
+    for name, fn in (("kernel", ops.factor_update),
+                     ("plain", ref.factor_apply)):
+        t = {n: v.clone() for n, v in st.items()}
+        fn(t["user_vecs"], t["item_vecs"], t["rated"],
+           tuple(t[n] for n in TABLE_NAMES), events, eta=0.05, lam=0.01)
+        out[name] = t
+        del t
+    for n in st:
+        got, want = out["kernel"][n], out["plain"][n]
+        if got.dtype.is_floating_point:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        else:
+            assert torch.equal(got, want), n
 
 
 @pytest.mark.gpu

@@ -1,0 +1,270 @@
+"""Where the evicting kernels' time goes: K1 ``factor_update`` (ISGD) and
+K4 ``dics_update`` of one or more checkouts, timed on the card as built
+and with parts of their source cut out.
+
+    python3 tools/time_split.py [--root CHECKOUT ...]
+
+Each ``--root`` is a checkout of this repository (default: this one), so
+two versions compare in one call on one card. A checkout's two kernels
+follow one of two designs, told apart by ``csrc/bucket_stage.cuh``:
+``sequential`` (one CTA per worker, events in order) or ``staged``
+(that header's). Every cut variant of the checkout's design must find
+the text it edits, or the run stops before anything is timed. The
+variants are edited copies of the checkout's sources, built with this
+checkout's ``build.nvcc_command`` into ``build/time_split/`` here; a
+checkout's own kernels build where its package builds them.
+
+Per checkout, in a process of its own: ``chip_smoke.py``'s DISGD and
+DICS paths trained at full size, then each kernel timed on three
+batches made by ``chip_smoke._middle_batch``: ``fresh`` (one id in ten
+unseen, the kernels line's batch), ``no_fresh`` (the stream's own ids)
+and ``padding`` (every event padding). Times are
+``chip_smoke._time_ms(cover_enqueue=True)``, median of 7 on a fresh
+clone of the state (the card's time without the host's enqueue), and,
+as built, the profiler's device time. A variant's output is not
+checked: its times are for the split only. One JSON line per kernel and
+batch on stdout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = Path("src/repro_torch/kernels/csrc")
+OUT = ROOT / "build" / "time_split"
+
+# Design -> [(variant, kernel, file under csrc/, [(text, replacement)])].
+_SEQ_BOOK = """      cnt[is] = cnt[is] + 1.f;
+      ufq[us] = new_u ? 1 : ufq[us] + 1;
+      ifq[is] = new_i ? 1 : ifq[is] + 1;
+      uid[us] = u_id;
+      iid[is] = i_id;
+      const int c = clk[0] + 1;
+      uts[us] = c;
+      its[is] = c;
+      clk[0] = c;
+      row[is] = 1;"""
+_SEQ_COL = ("for (int r = tid; r < U; r += kThreads) "
+            "rated[(int64_t)r * I + is] = 0;")
+_STAGED_CLEAR = "                            const Bucket& b, int t, int nt) {"
+_STAGED_START = "  const int rank = blockIdx.x % kBucketCtas;\n"
+_STAGED_SYNC = "    analyse_bucket(b, n, {});\n    cluster_sync();\n"
+VARIANTS = {
+    "sequential": [
+        ("no_column_clear", "factor_update", "factor_update.cu",
+         [(_SEQ_COL, "")]),
+        ("no_column_clear", "dics_update", "dics_update.cu",
+         [(_SEQ_COL, "")]),
+        ("no_rated_clears", "dics_update", "dics_update.cu", [
+            (_SEQ_COL, ""),
+            ("for (int c = tid; c < I; c += kThreads) row[c] = 0;", "")]),
+        ("no_bookkeeping", "dics_update", "dics_update.cu",
+         [(_SEQ_BOOK, "      row[is] = 1;")]),
+    ],
+    "staged": [
+        *((variant, kernel, file, edits)
+          for kernel, flag in (("factor_update", "false"),
+                               ("dics_update", "true"))
+          for variant, file, edits in (
+              ("no_column_clear", "bucket_stage.cuh",
+               [("  if (ncols == 0) return;", "  return;")]),
+              ("no_rated_clears", "bucket_stage.cuh",
+               [(_STAGED_CLEAR, _STAGED_CLEAR + "\n  if (I > 0) return;")]),
+              ("empty", f"{kernel}.cu",
+               [(_STAGED_START, "  if (E > 0) return;\n" + _STAGED_START)]),
+              ("stage_only", f"{kernel}.cu",
+               [(_STAGED_SYNC.format(flag),
+                 _STAGED_SYNC.format(flag) + "    if (E > 0) return;\n")]))),
+        ("no_replay", "factor_update", "factor_update.cu",
+         [("        if (b.ev_u[e] < 0) continue;  // uniform over the warp",
+           "        continue;")]),
+        ("no_replay", "dics_update", "dics_update.cu",
+         [("        for (int j = 0; j < min(32, n - base); ++j) {",
+           "        for (int j = 0; j < 0; ++j) {")]),
+        ("no_co_adds", "dics_update", "dics_update.cu",
+         [("        if (b.ev_u[e] < 0 || b.cclr[b.li[e]] > e) continue;",
+           "        continue;")]),
+    ],
+}
+
+
+def design(root: Path) -> str:
+    """The design of the checkout's K1 (ISGD) and K4 kernels."""
+    staged = (root / CSRC / "bucket_stage.cuh").exists()
+    return "staged" if staged else "sequential"
+
+
+def variant_sources(root: Path) -> list[tuple[str, str, str, str]]:
+    """(variant, kernel, file, edited text) for each cut variant of the
+    checkout's design; raises when a variant's text is not there."""
+    out = []
+    for variant, kernel, file, edits in VARIANTS[design(root)]:
+        src = (root / CSRC / file).read_text()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise SystemExit(f"time_split: {kernel}.{variant}: "
+                                 f"{root / CSRC / file} holds {old!r} "
+                                 f"{src.count(old)} times, not once")
+            src = src.replace(old, new)
+        out.append((variant, kernel, file, src))
+    return out
+
+
+def build_variants(root: Path, tag: str) -> dict[str, dict[str, str]]:
+    """Builds the checkout's variants, all nvcc processes at once;
+    returns {kernel: {variant: library path}}."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    libs, procs = {}, []
+    for variant, kernel, file, src in variant_sources(root):
+        out = OUT / tag / f"{kernel}.{variant}"
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(root / CSRC, out)
+        (out / file).write_text(src)
+        lib = out / f"{kernel}.so"
+        procs.append((lib, subprocess.Popen(
+            build.nvcc_command(out / f"{kernel}.cu", lib),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        libs.setdefault(kernel, {})[variant] = str(lib)
+    for lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"time_split: nvcc failed for {lib}:\n{log}")
+    return libs
+
+
+@contextlib.contextmanager
+def _entry_of(ops, kernel: str, fn):
+    """``ops`` launches ``fn`` for ``kernel`` inside the block."""
+    real = ops._entry
+    ops._entry = lambda name: fn if name == kernel else real(name)
+    try:
+        yield
+    finally:
+        ops._entry = real
+
+
+def _run(root: Path, libs: dict[str, dict[str, str]]):
+    sys.path[:0] = [str(root / "src"), str(ROOT)]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import repro_torch as rt
+    from repro_torch.core import disgd, prng, state as state_lib
+    from repro_torch.data.stream import MOVIELENS_25M, NETFLIX, synth_stream
+    from repro_torch.kernels import build, ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_split: no CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    build.build_all(force=True)
+    variants = {}
+    for kernel, paths in libs.items():
+        for variant, path in paths.items():
+            fn = getattr(ctypes.CDLL(path), f"{kernel}_launch")
+            fn.argtypes = ops._ARGTYPES[kernel]
+            fn.restype = ctypes.c_int
+            variants.setdefault(kernel, {})[variant] = fn
+
+    def time_ms(states, launch):
+        work = {}
+
+        def setup():
+            work["s"] = cs._clone(states)
+
+        return cs._time_ms(torch, lambda: launch(work["s"]), reps=7,
+                           setup=setup, cover_enqueue=True)
+
+    def device_ms(kernel, states, launch):
+        """Mean device time of the kernel's launches, by the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time_ms(states, launch)
+        rows = [e for e in prof.key_averages() if f"{kernel}_" in e.key]
+        us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
+        return us / 1e3 / max(1, sum(e.count for e in rows))
+
+    for kernel, cfg, profile in (
+            ("factor_update", cs.disgd_config(rt), MOVIELENS_25M),
+            ("dics_update", cs.dics_config(rt), NETFLIX)):
+        users, items, _ = synth_stream(profile, seed=0)
+        t0 = time.perf_counter()
+        states = rt.run_stream(users, items, cfg).final_states
+        train_s = time.perf_counter() - t0
+        h = cfg.resolved_hyper()
+        batches = {name: cs._middle_batch(torch, np, users, items, cfg,
+                                          np.random.default_rng(1), rate)
+                   for name, rate in (("fresh", 0.1), ("no_fresh", 0.0))}
+        batches["padding"] = tuple(torch.full_like(x, -1)
+                                   for x in batches["fresh"])
+        for name, (ev_u, ev_i) in batches.items():
+            u_slot = state_lib.slot_of(ev_u, h.g, h.u_cap)
+            i_slot = state_lib.slot_of(ev_i, h.n_i, h.i_cap)
+            if kernel == "factor_update":
+                cap = ev_u.shape[1]
+                init = disgd.init_vector(prng.key(cfg.seed, device="cuda"),
+                                         torch.cat([ev_u, ev_i], 1), h.k,
+                                         h.init_scale)
+                events = (ev_u, ev_i, u_slot, i_slot, None,
+                          init[:, :cap].contiguous(),
+                          init[:, cap:].contiguous())
+
+                def launch(s, events=events):
+                    ops.factor_update(s.user_vecs, s.item_vecs, s.rated,
+                                      tuple(s.tables), events, eta=h.eta,
+                                      lam=h.lam)
+            else:
+                events = (ev_u, ev_i, u_slot, i_slot)
+
+                def launch(s, events=events):
+                    ops.dics_update(s.co, s.item_cnt, s.rated,
+                                    tuple(s.tables), events)
+            ms = {"as_built": time_ms(states, launch),
+                  "as_built_device": device_ms(kernel, states, launch)}
+            for variant, fn in variants.get(kernel, {}).items():
+                with _entry_of(ops, kernel, fn):
+                    ms[variant] = time_ms(states, launch)
+            iid = states.tables.item_ids.gather(1, i_slot.long())
+            print(json.dumps({
+                "root": str(root), "design": design(root), "card": card,
+                "kernel": kernel, "batch": name, "train_s": train_s,
+                "valid": int((ev_u >= 0).sum()),
+                "item_evictions": int(((iid != ev_i) & (ev_u >= 0)).sum()),
+                "ms": ms}), flush=True)
+        del states
+        torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, action="append",
+                    help="a checkout to time (repeatable; default: this one)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    roots = [r.resolve() for r in (args.root or [ROOT])]
+    if args.child is not None:
+        _run(roots[0], json.loads(args.child))
+        return
+    libs = [build_variants(root, f"{n}-{design(root)}")
+            for n, root in enumerate(roots)]
+    for root, root_libs in zip(roots, libs):
+        subprocess.run([sys.executable, __file__, "--root", str(root),
+                        "--child", json.dumps(root_libs)], check=True)
+
+
+if __name__ == "__main__":
+    main()
