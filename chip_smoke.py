@@ -27,11 +27,12 @@ DISGD (K1-K3):
      state (one event in ten given an unseen id, so evictions run) for
      ``factor_update`` (both modes) and ``masked_scores``, and ISGD
      also on the same micro-batch without the fresh ids (the stream's own
-     evictions); the staged kernels' card time alone (``device_ms``),
-     CTAs per worker, staged chunk, dynamic shared memory and ptxas
-     registers beside them; the serving
+     evictions); the staged kernels' CTAs per worker, staged chunk,
+     dynamic shared memory and ptxas registers beside them; the serving
      inputs for ``fused_topn``; each timed beside its plain version and
-     a PyTorch library call, with its bound; ``isgd_update`` (K6) on one
+     a PyTorch library call, with its bound; every kernel (and library
+     call) also by its card time alone (``device_ms``,
+     ``library_device_ms``); ``isgd_update`` (K6) on one
      worker's tables and bucket of that micro-batch, and at
      ``bench_kernels``' shapes (U 4,096, I 2,048, E 1,024 and 16,384);
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
@@ -138,7 +139,7 @@ LLM_ARCH, LLM_BATCH, LLM_PROMPT, LLM_DECODE_STEPS = "h2o_danube_1p8b", 4, \
 # before P.V and both round the output to bf16: ~3e-3 of a row). On unit-
 # variance q / k / v the JAX kernel test's bf16 tolerance
 # (tests/test_kernels.py:90) holds as well. A kernel whose window is wrong
-# (none, or one 64-key tile short) must fail the check.
+# (none, or 64 keys short) must fail the check.
 SWA_ROW_RTOL = 1e-2
 SWA_RTOL = SWA_ATOL = 3e-2
 LOGIT_TOL, LOGIT_GAP = 0.15, 0.05
@@ -618,13 +619,20 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     b, i = cand.shape[1], cand.shape[2]
     ms = _time_ms(torch, lambda: ops.masked_scores(u_vecs, states.item_vecs,
                                                    cand))
+    device_ms = _time_ms(torch, lambda: ops.masked_scores(
+        u_vecs, states.item_vecs, cand), cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.masked_scores(
         u_vecs, states.item_vecs, cand))
     not_cand = ~cand
     it_t = states.item_vecs.transpose(1, 2)
     buf = torch.empty_like(got)
-    lib_ms = _time_ms(torch, lambda: torch.baddbmm(
-        buf, u_vecs, it_t, beta=0).masked_fill_(not_cand, float("-inf")))
+
+    def library():
+        torch.baddbmm(buf, u_vecs, it_t, beta=0).masked_fill_(
+            not_cand, float("-inf"))
+
+    lib_ms = _time_ms(torch, library)
+    lib_device_ms = _time_ms(torch, library, cover_enqueue=True)
     bound, by = _bound_ms(4 * n_w * (b * k + i * k) + 5 * n_w * b * i,
                           2 * n_w * b * i * k)
     rows.append(dict(
@@ -633,6 +641,7 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         replaces="src/repro/kernels/scoring.py:32",
         launches=main_counts["masked_scores"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+        device_ms=device_ms, library_device_ms=lib_device_ms,
         shape=f"W={n_w} B={b} I={i} k={k}"))
     del got, want, cand, not_cand, buf
 
@@ -657,13 +666,21 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     b = mask.shape[1]
     ms = _time_ms(torch, lambda: ops.fused_topn(
         sv, states.item_vecs, mask, ids, top_n=hyper.top_n))
+    device_ms = _time_ms(torch, lambda: ops.fused_topn(
+        sv, states.item_vecs, mask, ids, top_n=hyper.top_n),
+        cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.fused_topn(
         sv, states.item_vecs, mask, ids, hyper.top_n), reps=5)
     not_mask = ~mask
     buf = torch.empty(mask.shape, device=sv.device)
-    lib_ms = _time_ms(torch, lambda: torch.topk(torch.baddbmm(
-        buf, sv, states.item_vecs.transpose(1, 2), beta=0)
-        .masked_fill_(not_mask, float("-inf")), hyper.top_n, dim=-1))
+
+    def library():
+        torch.topk(torch.baddbmm(
+            buf, sv, states.item_vecs.transpose(1, 2), beta=0)
+            .masked_fill_(not_mask, float("-inf")), hyper.top_n, dim=-1)
+
+    lib_ms = _time_ms(torch, library)
+    lib_device_ms = _time_ms(torch, library, cover_enqueue=True)
     bound, by = _bound_ms(
         4 * n_w * (b * k + i * k + i) + n_w * b * i + 8 * n_w * b * hyper.top_n,
         2 * n_w * b * i * k)
@@ -673,6 +690,7 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         replaces="src/repro/kernels/topn.py:73",
         launches=serve_counts["fused_topn"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+        device_ms=device_ms, library_device_ms=lib_device_ms,
         shape=f"W={n_w} B={b} I={i} k={k} N={hyper.top_n}"))
 
     # K6 isgd_update on worker 0's tables and bucket of the same batch.
@@ -687,12 +705,13 @@ def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
                plain_reps=2):
     """isgd_update against its plain version, each timed on fresh clones
     of the tables and compared on its last timed run's tables: (max abs
-    error, kernel ms, plain ms, bound ms, bound by, valid events)."""
+    error, kernel ms, plain ms, bound ms, bound by, valid events, kernel
+    device ms)."""
     from repro_torch.kernels import ops, ref
 
     events = (u_slot.contiguous(), i_slot.contiguous(), valid.contiguous())
 
-    def timed(fn, reps):
+    def timed(fn, reps, cover_enqueue=False):
         work = []
 
         def setup():
@@ -700,9 +719,10 @@ def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
 
         ms = _time_ms(torch, lambda: fn(*work, *events, eta=hyper.eta,
                                         lam=hyper.lam), reps=reps,
-                      setup=setup)
+                      setup=setup, cover_enqueue=cover_enqueue)
         return ms, work
 
+    device_ms, _ = timed(ops.isgd_update, 10, cover_enqueue=True)
     ms, got = timed(ops.isgd_update, 10)
     plain_ms, want = timed(ref.isgd_apply, plain_reps)
     err = max(_close(g, w, "isgd_update") for g, w in zip(got, want))
@@ -715,7 +735,7 @@ def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
     # written once; 12 k flops per valid event (dot, two updates).
     bound, by = _bound_ms(9 * u_slot.numel() + 2 * 4 * k * rows,
                           12 * k * n_valid)
-    return err, ms, plain_ms, bound, by, n_valid
+    return err, ms, plain_ms, bound, by, n_valid, device_ms
 
 
 def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
@@ -731,7 +751,7 @@ def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
     launches = ops.launch_counts()["isgd_update"]
     if launches != 1:
         fail(f"isgd_update launched {launches} times for one call")
-    err, ms, plain_ms, bound, by, n_valid = _isgd_case(
+    err, ms, plain_ms, bound, by, n_valid, device_ms = _isgd_case(
         torch, user_tab, item_tab, u_slot, i_slot, valid, hyper)
     bench = []
     rng = np.random.default_rng(2)
@@ -742,19 +762,20 @@ def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
                              device=dev) for n in (u_cap, i_cap)]
         slots = [torch.tensor(rng.integers(0, n, e), dtype=torch.int32,
                               device=dev) for n in (u_cap, i_cap)]
-        b_err, b_ms, b_plain, b_bound, b_by, _ = _isgd_case(
+        b_err, b_ms, b_plain, b_bound, b_by, _, b_device = _isgd_case(
             torch, *tabs, *slots, torch.ones(e, dtype=torch.bool,
                                               device=dev), hyper,
             plain_reps=1)
         bench.append({"shape": f"U={u_cap} I={i_cap} E={e} k={k}",
                       "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
-                      "bound_ms": b_bound, "bound_by": b_by})
+                      "device_ms": b_device, "bound_ms": b_bound,
+                      "bound_by": b_by})
     return dict(
         name="isgd_update", route="cuda", matched=True,
         source="src/repro_torch/kernels/csrc/isgd_update.cu",
         replaces="src/repro/kernels/isgd.py:31", launches=launches,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=None,
+        bound_by=by, library_ms=None, device_ms=device_ms,
         library="none: no single PyTorch call runs a chain of dependent "
                 "SGD steps",
         shape=f"U={user_tab.shape[0]} I={item_tab.shape[0]} "
@@ -1036,6 +1057,8 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
         bad = int((got_ids != want_ids).sum() + (got_sc != want_sc).sum())
         fail(f"dics_topn: {bad} entries differ from the plain version")
     ms = _time_ms(torch, lambda: ops.dics_topn(*args, **kw))
+    device_ms = _time_ms(torch, lambda: ops.dics_topn(*args, **kw),
+                         cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.dics_topn(*args, **kw), reps=5)
     b, i = hist.shape[1], hist.shape[2]
     h_len = hist.sum(-1)                                    # [W, B]
@@ -1051,6 +1074,7 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
         replaces="src/repro/kernels/topn.py:144",
         launches=serve_counts["dics_topn"], max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        device_ms=device_ms,
         library="none: no single PyTorch call computes the Eq. 7 "
                 "neighbour mass and a top-N",
         shape=f"W={n_w} B={b} I={i} k_nn={hyper.k_nn} N={hyper.top_n}",
@@ -1294,8 +1318,8 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
     """K7 against its plain version at the main path's full shape: layer
     0's real q / k / v of the served prompts (S 8,192) and of the ragged
     sequence (S 8,193), and unit-variance q / k / v of both shapes. On the
-    S 8,192 inputs the kernel with a wrong window (none; one 64-key tile
-    short) must fail the same check. Returns the kernels-line row."""
+    S 8,192 inputs the kernel with a wrong window (none; 64 keys short)
+    must fail the same check. Returns the kernels-line row."""
     from repro_torch.kernels import ops, ref
 
     kw = dict(window=cfg.window, causal=cfg.causal)
@@ -1342,6 +1366,8 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
     torch.cuda.empty_cache()
 
     ms = _time_ms(torch, lambda: ops.swa_attention(q, k, v, **kw), reps=10)
+    device_ms = _time_ms(torch, lambda: ops.swa_attention(q, k, v, **kw),
+                         reps=10, cover_enqueue=True)
     b, s, d = q.shape[0], q.shape[2], q.shape[3]
     g, hq = cfg.n_heads // cfg.n_kv_heads, 8
 
@@ -1355,7 +1381,7 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
                                   v[bi:bi + 1, h // g:(h + hq) // g], **kw)
 
     plain_ms = _time_ms(torch, plain, reps=2)
-    lib_ms, lib_err = _sdpa_ms(torch, q, k, v, cfg)
+    lib_ms, lib_device_ms, lib_err = _sdpa_ms(torch, q, k, v, cfg)
     pairs = _window_pairs(np, s, cfg.window, cfg.causal)
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v bf16
     flops = 4 * pairs * d * b * cfg.n_heads
@@ -1371,7 +1397,8 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
         max_abs_err=max(c["max_abs_err"] for c in checks.values()),
         max_row_rel_err=max(c["max_row_rel_err"] for c in checks.values()),
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=lib_ms,
+        library_ms=lib_ms, device_ms=device_ms,
+        library_device_ms=lib_device_ms,
         library="scaled_dot_product_attention(attn_mask=window, "
                 "enable_gqa=True)",
         bytes=n_bytes, flops=flops, window_pairs=pairs,
@@ -1382,8 +1409,9 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
 def _sdpa_ms(torch, q, k, v, cfg):
     """The library yardstick: one ``scaled_dot_product_attention`` call
     with a bool window mask and ``enable_gqa``, on a fused backend (the
-    math backend would materialise [B, Hq, S, S] in f32). Returns its ms
-    and its max abs difference from the kernel's output."""
+    math backend would materialise [B, Hq, S, S] in f32). Returns its ms,
+    its card time alone and its max abs difference from the kernel's
+    output."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1401,7 +1429,8 @@ def _sdpa_ms(torch, q, k, v, cfg):
     err = (call().float() - ops.swa_attention(
         q, k, v, window=cfg.window, causal=cfg.causal).float()
            ).abs().max().item()
-    return _time_ms(torch, call, reps=5), err
+    return (_time_ms(torch, call, reps=5),
+            _time_ms(torch, call, reps=5, cover_enqueue=True), err)
 
 
 if __name__ == "__main__":

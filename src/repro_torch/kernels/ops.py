@@ -324,8 +324,10 @@ def swa_attention(q, k, v, *, window: int | None = None, causal: bool = True):
     q [B, Hq, S, D]; k, v [B, Hkv, S, D]; one type, f32 or bf16; ``D`` in
     ``SWA_HEAD_DIMS``; any ``S`` (the kernel masks a ragged tail itself).
     Returns [B, Hq, S, D] in q's type; see ``ref.swa_attention`` for the
-    contract. Kernel: ``csrc/swa_attention.cu`` (bf16 on the tensor cores,
-    f32 on FMA units); plain version ``ref.swa_attention``.
+    contract. Kernel: ``csrc/swa_attention.cu`` (bf16: TMA-fed K / V ring
+    and wgmma on Hopper, masks on boundary tiles only, see
+    ``ref.swa_tile_classes``; f32 on FMA units); plain version
+    ``ref.swa_attention``.
     """
     if _on_cpu(q, k, v):
         return ref.swa_attention(q, k, v, window=window, causal=causal)

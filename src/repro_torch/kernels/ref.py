@@ -15,7 +15,8 @@ import torch
 
 __all__ = ["masked_scores", "isgd_apply", "factor_apply", "topn_select",
            "fused_topn", "similarity_matrix", "neighbour_mass", "dics_clear",
-           "dics_write", "dics_apply", "dics_topn", "swa_attention"]
+           "dics_write", "dics_apply", "dics_topn", "swa_attention",
+           "swa_tile_classes", "SWA_SKIPPED", "SWA_FULL", "SWA_BOUNDARY"]
 
 # Elements of the largest dense [rows, I, I] intermediate of
 # ``neighbour_mass`` (f32: 256 MB); rows are taken in chunks below it.
@@ -334,3 +335,36 @@ def swa_attention(q, k, v, *, window: int | None, causal: bool = True):
     p = torch.softmax(logits.masked_fill_(~m, float("-inf")), dim=-1)
     p = torch.where(m.any(-1, keepdim=True), p, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+SWA_SKIPPED, SWA_FULL, SWA_BOUNDARY = 0, 1, 2
+
+
+def swa_tile_classes(s: int, window: int | None, causal: bool = True,
+                     bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """The bf16 ``swa_attention`` kernel's rule for which kv tiles a q
+    block visits and which of them it masks (``csrc/swa_attention.cu``,
+    ``tile_range`` and ``tile_full``), for the CPU tests.
+
+    Returns int8 [ceil(s / bq), ceil(s / bk)]: ``SWA_SKIPPED`` for a tile
+    the block never loads, ``SWA_FULL`` for a visited tile whose every
+    (row, key) pair is visible (no mask runs), ``SWA_BOUNDARY`` for the
+    other visited tiles (the per-logit mask and the no-visible-key guard
+    run). A block visits the tiles from its rows' first visible key to
+    their last.
+    """
+    out = torch.full((-(-s // bq), -(-s // bk)), SWA_SKIPPED,
+                     dtype=torch.int8)
+    for qb in range(out.shape[0]):
+        q0 = qb * bq
+        q1 = min(q0 + bq, s) - 1
+        last = min(q1, s - 1) if causal else s - 1
+        first = 0 if window is None else max(0, q0 - window + 1)
+        if last < first:
+            continue
+        for kt in range(first // bk, last // bk + 1):
+            k0 = kt * bk
+            full = (k0 + bk - 1 < s and (not causal or k0 + bk - 1 <= q0)
+                    and (window is None or k0 > q1 - window))
+            out[qb, kt] = SWA_FULL if full else SWA_BOUNDARY
+    return out

@@ -18,7 +18,7 @@ import torch  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from tests.test_torch_kernels_gpu import (  # noqa: E402
     ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
     _assert_state_equal, _dics_events, _dics_state, _events, _isgd_inputs,
@@ -230,6 +230,66 @@ def test_swa_attention_rows_without_keys_give_zero():
                             causal=False).numpy()
     assert np.all(want[:, :, -1] == 0) and np.all(got[:, :, -1] == 0)
     np.testing.assert_allclose(got, want, **SWA_TOL["float32"])
+
+
+# -- the bf16 K7 kernel's tile classes ---------------------------------------
+#
+# csrc/swa_attention.cu visits, for each block of bq q rows, the kv tiles of
+# bk keys from the rows' first visible key to their last, and masks only
+# the boundary ones. ref.swa_tile_classes mirrors that rule; here it is
+# held against the brute-force visible set of every (row, key) pair.
+
+SWA_MASKS = [(None, True), (None, False), (1, True), (100, True),
+             (129, True), (4095, True), (48, False), (0, False)]
+
+
+def _visible(s, window, causal):
+    r, c = np.arange(s)[:, None], np.arange(s)[None, :]
+    vis = np.ones((s, s), bool)
+    if causal:
+        vis &= c <= r
+    if window is not None:
+        vis &= c > r - window
+    return vis
+
+
+@pytest.mark.parametrize("s", [1, 5, 127, 128, 129, 300, 513])
+@pytest.mark.parametrize("window,causal", SWA_MASKS)
+@pytest.mark.parametrize("bq,bk", [(128, 128), (64, 128)])
+def test_swa_tile_classes_match_the_visible_pairs(s, window, causal, bq, bk):
+    cls = ref.swa_tile_classes(s, window, causal, bq, bk).numpy()
+    nq, nk = cls.shape
+    vis = _visible(s, window, causal)
+    # Any pair visible in a tile; every pair visible, where rows past S
+    # (never stored) count as seeing all and keys past S as unseen.
+    some = np.zeros((nq * bq, nk * bk), bool)
+    some[:s, :s] = vis
+    every = np.ones((nq * bq, nk * bk), bool)
+    every[:s, :] = False
+    every[:s, :s] = vis
+    some = some.reshape(nq, bq, nk, bk).any((1, 3))
+    every = every.reshape(nq, bq, nk, bk).all((1, 3))
+    visited = cls != ref.SWA_SKIPPED
+    assert not np.any(some & ~visited), "a visible pair in a skipped tile"
+    assert not np.any((cls == ref.SWA_FULL) & ~every), \
+        "a full tile holds a pair that is not visible"
+    for row in visited:            # the kernel walks one run lo..hi
+        idx = np.flatnonzero(row)
+        assert idx.size == 0 or idx[-1] - idx[0] + 1 == idx.size
+
+
+def test_swa_tile_classes_at_the_serving_shape():
+    """h2o-danube's prefill: S 8,192, window 4,096, 128 x 128 tiles. An
+    interior q block visits 33 tiles: 31 full, 2 boundary (the diagonal
+    and the window's lower edge); a block before the first full window
+    visits its causal prefix, only the diagonal masked."""
+    cls = ref.swa_tile_classes(8192, 4096, True, 128, 128)
+    full = (cls == ref.SWA_FULL).sum(1).tolist()
+    boundary = (cls == ref.SWA_BOUNDARY).sum(1).tolist()
+    assert full[32:] == [31] * 32 and boundary[32:] == [2] * 32
+    assert full[:32] == list(range(32)) and boundary[:32] == [1] * 32
+    assert int((cls != ref.SWA_SKIPPED).sum()) == 32 * 33 + sum(
+        range(1, 33))
 
 
 # -- the staged schedule of K1 (ISGD) and K4 --------------------------------

@@ -537,6 +537,20 @@ SWA_CASES = {
     "gqa8_full_causal": (2, 8, 1, 513, 128, None, True, "bfloat16"),
     "d64_non_causal": (1, 4, 2, 257, 64, 48, False, "bfloat16"),
     "d32_short": (2, 2, 2, 5, 32, 3, True, "bfloat16"),
+    # The wgmma design's edges: S around one 128-row tile and a ragged
+    # tail with several heads (a tensor map crossing heads would show),
+    # windows that are no multiple of the tile, no window, group sizes 1,
+    # 4 and 8, every head width.
+    "s1_heads": (2, 4, 2, 1, 80, 4096, True, "bfloat16"),
+    "s127_w100_g4": (2, 8, 2, 127, 64, 100, True, "bfloat16"),
+    "s128_w129_g8": (1, 8, 1, 128, 128, 129, True, "bfloat16"),
+    "s129_w1_g1": (2, 4, 4, 129, 32, 1, True, "bfloat16"),
+    "s8193_w4095_g8": (1, 8, 1, 8193, 80, 4095, True, "bfloat16"),
+    "s300_full_non_causal_g4": (2, 4, 1, 300, 80, None, False, "bfloat16"),
+    "s777_full_causal_g1": (2, 2, 2, 777, 64, None, True, "bfloat16"),
+    "s640_w4095_d128_g4": (1, 8, 2, 640, 128, 4095, True, "bfloat16"),
+    "d32_w100_non_causal": (2, 4, 1, 385, 32, 100, False, "bfloat16"),
+    "d80_w129_g4": (2, 8, 2, 1000, 80, 129, True, "bfloat16"),
     "f32_d80_ragged": (1, 4, 2, 130, 80, 32, True, "float32"),
     "f32_d32_gqa": (2, 4, 1, 300, 32, 64, True, "float32"),
     "f32_d128": (1, 2, 2, 96, 128, None, True, "float32"),
@@ -557,6 +571,32 @@ def test_swa_attention_kernel_matches_plain(cuda_device, case):
     assert got.dtype == tdt and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **SWA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [129, 1000])
+def test_swa_attention_heads_leave_their_neighbours_alone_when_s_is_ragged(
+        cuda_device, s):
+    """Every head of a call with a ragged S equals the same head run
+    alone, bit for bit: a tile loaded or stored across the end of a head
+    would change its neighbour's rows."""
+    b, hq, hkv, d, window = 2, 4, 2, 80, 100
+    q, k, v = (torch.tensor(x, device=cuda_device).to(torch.bfloat16) for x in
+               _swa_inputs(np.random.default_rng(53), b, hq, hkv, s, d))
+    got = ops.swa_attention(q, k, v, window=window)
+    g = hq // hkv
+    for bi in range(b):
+        for h in range(hq):
+            kv = slice(h // g, h // g + 1)
+            alone = ops.swa_attention(
+                q[bi:bi + 1, h:h + 1].contiguous(),
+                k[bi:bi + 1, kv].contiguous(), v[bi:bi + 1, kv].contiguous(),
+                window=window)
+            assert torch.equal(got[bi:bi + 1, h:h + 1], alone), (bi, h)
+    want = ref.swa_attention(q, k, v, window=window)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **SWA_TOL["bfloat16"])
 
 
 @pytest.mark.gpu

@@ -1,27 +1,32 @@
-"""Where the evicting kernels' time goes: K1 ``factor_update`` (ISGD) and
-K4 ``dics_update`` of one or more checkouts, timed on the card as built
-and with parts of their source cut out.
+"""Where a redesigned kernel's time goes: K1 ``factor_update`` (ISGD),
+K4 ``dics_update`` and K7 ``swa_attention`` of one or more checkouts,
+timed on the card as built and with parts of their source cut out.
 
-    python3 tools/time_split.py [--root CHECKOUT ...]
+    python3 tools/time_split.py [--root CHECKOUT ...] [--kernel NAME ...]
 
 Each ``--root`` is a checkout of this repository (default: this one), so
-two versions compare in one call on one card. A checkout's two kernels
-follow one of two designs, told apart by ``csrc/bucket_stage.cuh``:
-``sequential`` (one CTA per worker, events in order) or ``staged``
-(that header's). Every cut variant of the checkout's design must find
-the text it edits, or the run stops before anything is timed. The
-variants are edited copies of the checkout's sources, built with this
-checkout's ``build.nvcc_command`` into ``build/time_split/`` here; a
+two versions compare in one call on one card; ``--kernel`` picks the
+kernels (default: all three). A checkout's K1 and K4 follow one of two
+designs, told apart by ``csrc/bucket_stage.cuh``: ``sequential`` (one CTA
+per worker, events in order) or ``staged`` (that header's); its K7 one
+of two, told apart by ``csrc/swa_attention.cu``: ``mma_sync`` (64-row
+tiles loaded by the threads) or ``wgmma`` (a TMA-fed ring, wgmma, masks
+on boundary tiles only). Every cut variant of a picked kernel's design
+must find the text it edits, or the run stops before anything is timed.
+The variants are edited copies of the checkout's sources, built with
+this checkout's ``build.nvcc_command`` into ``build/time_split/`` here; a
 checkout's own kernels build where its package builds them.
 
-Per checkout, in a process of its own: ``chip_smoke.py``'s DISGD and
-DICS paths trained at full size, then each kernel timed on three
-batches made by ``chip_smoke._middle_batch``: ``fresh`` (one id in ten
-unseen, the kernels line's batch), ``no_fresh`` (the stream's own ids)
-and ``padding`` (every event padding). Times are
-``chip_smoke._time_ms(cover_enqueue=True)``, median of 7 on a fresh
-clone of the state (the card's time without the host's enqueue), and,
-as built, the profiler's device time. A variant's output is not
+Per checkout, in a process of its own. K1 / K4: ``chip_smoke.py``'s
+DISGD and DICS paths trained at full size, then each kernel timed on
+three batches made by ``chip_smoke._middle_batch``: ``fresh`` (one id in
+ten unseen, the kernels line's batch), ``no_fresh`` (the stream's own
+ids) and ``padding`` (every event padding). K7: h2o-danube-1.8b's layer
+0 q / k / v for ``chip_smoke.py``'s four 8,192-token prompts (batch
+``layer0``; the serving shape). Times are
+``chip_smoke._time_ms(cover_enqueue=True)``, median of 7 (K1 / K4 on a
+fresh clone of the state), the card's time without the host's enqueue,
+and, as built, the profiler's device time. A variant's output is not
 checked: its times are for the split only. One JSON line per kernel and
 batch on stdout.
 """
@@ -58,6 +63,17 @@ _SEQ_COL = ("for (int r = tid; r < U; r += kThreads) "
 _STAGED_CLEAR = "                            const Bucket& b, int t, int nt) {"
 _STAGED_START = "  const int rank = blockIdx.x % kBucketCtas;\n"
 _STAGED_SYNC = "    analyse_bucket(b, n, {});\n    cluster_sync();\n"
+# K7, wgmma design: the consumers only wait for each tile and release it.
+_K7_CONSUMER = "    asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\");\n"
+_K7_LOADS_ONLY = """    if (n_tiles > 0) mbar_wait(bar.q, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % T::kStages, ph = (i / T::kStages) & 1;
+      mbar_wait(&bar.k[s], ph);
+      mbar_wait(&bar.v[s], ph);
+      if (lane == 0) mbar_arrive(&bar.empty[s]);
+    }
+    if (n_tiles >= 0) return;
+"""
 VARIANTS = {
     "sequential": [
         ("no_column_clear", "factor_update", "factor_update.cu",
@@ -94,7 +110,43 @@ VARIANTS = {
          [("        if (b.ev_u[e] < 0 || b.cclr[b.li[e]] > e) continue;",
            "        continue;")]),
     ],
+    "mma_sync": [
+        ("no_mask", "swa_attention", "swa_attention.cu",
+         [("s[n][e] = visible(r, c, S, window, causal) ? s[n][e] * scale "
+           ": kNeg;", "s[n][e] = s[n][e] * scale;")]),
+    ],
+    "wgmma": [
+        ("loads_only", "swa_attention", "swa_attention.cu",
+         [(_K7_CONSUMER, _K7_CONSUMER + _K7_LOADS_ONLY)]),
+        ("no_mask", "swa_attention", "swa_attention.cu",
+         [("  return k1 < S && (!causal || k1 <= q0) && "
+           "(window < 0 || k0 > q1 - window);", "  return true;")]),
+        ("no_rescale", "swa_attention", "swa_attention.cu",
+         [("      rescale(o0, o1, alpha);\n", "")]),
+        ("no_softmax", "swa_attention", "swa_attention.cu",
+         [("    float (&l)[2], float (&alpha)[2]) {\n  const int k0 = (lo + i) * BK;",
+           "    float (&l)[2], float (&alpha)[2]) {\n  if (BK > 0) return;\n"
+           "  const int k0 = (lo + i) * BK;")]),
+        ("no_pv", "swa_attention", "swa_attention.cu",
+         [("      pv_issue<D>(o0, o1, pa, smem_addr(smem + T::v_tile(s)));\n",
+           "")]),
+        # The design's two choices undone: exp2f for ex2.approx, and no
+        # turns between the consumer warpgroups.
+        ("exp2f", "swa_attention", "swa_attention.cu",
+         [('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+           "  y = exp2f(x);")]),
+        ("no_pingpong", "swa_attention", "swa_attention.cu",
+         [("      if (wg == 1) turn_pass(wg);\n", ""),
+          ("      turn_pass(wg);\n", ""),
+          ("      if (wg == 0 || more) turn_pass(wg);\n", ""),
+          ("      turn_wait(wg);\n      qk_issue", "      qk_issue"),
+          ("      turn_wait(wg);\n      pv_issue", "      pv_issue")]),
+    ],
 }
+KERNELS = ("factor_update", "dics_update", "swa_attention")
+# The name the profiler gives each kernel's __global__ function.
+PROFILE_KEY = {"factor_update": "factor_update_", "dics_update": "dics_update_",
+               "swa_attention": "swa_bf16_kernel"}
 
 
 def design(root: Path) -> str:
@@ -103,11 +155,25 @@ def design(root: Path) -> str:
     return "staged" if staged else "sequential"
 
 
-def variant_sources(root: Path) -> list[tuple[str, str, str, str]]:
+def swa_design(root: Path) -> str:
+    """The design of the checkout's K7 bf16 kernel."""
+    src = (root / CSRC / "swa_attention.cu").read_text()
+    return "wgmma" if "wgmma.mma_async" in src else "mma_sync"
+
+
+def kernel_design(root: Path, kernel: str) -> str:
+    return swa_design(root) if kernel == "swa_attention" else design(root)
+
+
+def variant_sources(root: Path, kernels=KERNELS
+                    ) -> list[tuple[str, str, str, str]]:
     """(variant, kernel, file, edited text) for each cut variant of the
-    checkout's design; raises when a variant's text is not there."""
+    designs of the checkout's ``kernels``; raises when a variant's text
+    is not there."""
     out = []
-    for variant, kernel, file, edits in VARIANTS[design(root)]:
+    entries = [e for d in sorted({kernel_design(root, k) for k in kernels})
+               for e in VARIANTS[d] if e[1] in kernels]
+    for variant, kernel, file, edits in entries:
         src = (root / CSRC / file).read_text()
         for old, new in edits:
             if src.count(old) != 1:
@@ -119,14 +185,17 @@ def variant_sources(root: Path) -> list[tuple[str, str, str, str]]:
     return out
 
 
-def build_variants(root: Path, tag: str) -> dict[str, dict[str, str]]:
+def build_variants(root: Path, tag: str, kernels=KERNELS
+                   ) -> dict[str, dict[str, str]]:
     """Builds the checkout's variants, all nvcc processes at once;
-    returns {kernel: {variant: library path}}."""
+    returns {kernel: {variant: library path}} (every picked kernel, with
+    no variants where its design has none)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
-    libs, procs = {}, []
-    for variant, kernel, file, src in variant_sources(root):
+    libs = {k: {} for k in kernels}
+    procs = []
+    for variant, kernel, file, src in variant_sources(root, kernels):
         out = OUT / tag / f"{kernel}.{variant}"
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(root / CSRC, out)
@@ -135,7 +204,7 @@ def build_variants(root: Path, tag: str) -> dict[str, dict[str, str]]:
         procs.append((lib, subprocess.Popen(
             build.nvcc_command(out / f"{kernel}.cu", lib),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        libs.setdefault(kernel, {})[variant] = str(lib)
+        libs[kernel][variant] = str(lib)
     for lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -171,15 +240,17 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     build.build_all(force=True)
-    variants = {}
+    variants = {kernel: {} for kernel in libs}
     for kernel, paths in libs.items():
         for variant, path in paths.items():
             fn = getattr(ctypes.CDLL(path), f"{kernel}_launch")
             fn.argtypes = ops._ARGTYPES[kernel]
             fn.restype = ctypes.c_int
-            variants.setdefault(kernel, {})[variant] = fn
+            variants[kernel][variant] = fn
 
     def time_ms(states, launch):
+        if states is None:
+            return cs._time_ms(torch, launch, reps=7, cover_enqueue=True)
         work = {}
 
         def setup():
@@ -194,13 +265,25 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time_ms(states, launch)
-        rows = [e for e in prof.key_averages() if f"{kernel}_" in e.key]
+        rows = [e for e in prof.key_averages()
+                if PROFILE_KEY[kernel] in e.key]
         us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
         return us / 1e3 / max(1, sum(e.count for e in rows))
+
+    def split(kernel, states, launch):
+        ms = {"as_built": time_ms(states, launch),
+              "as_built_device": device_ms(kernel, states, launch)}
+        for variant, fn in variants[kernel].items():
+            with _entry_of(ops, kernel, fn):
+                ms[variant] = time_ms(states, launch)
+        return {"root": str(root), "design": kernel_design(root, kernel),
+                "card": card, "kernel": kernel, "ms": ms}
 
     for kernel, cfg, profile in (
             ("factor_update", cs.disgd_config(rt), MOVIELENS_25M),
             ("dics_update", cs.dics_config(rt), NETFLIX)):
+        if kernel not in libs:
+            continue
         users, items, _ = synth_stream(profile, seed=0)
         t0 = time.perf_counter()
         states = rt.run_stream(users, items, cfg).final_states
@@ -233,33 +316,51 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
                 def launch(s, events=events):
                     ops.dics_update(s.co, s.item_cnt, s.rated,
                                     tuple(s.tables), events)
-            ms = {"as_built": time_ms(states, launch),
-                  "as_built_device": device_ms(kernel, states, launch)}
-            for variant, fn in variants.get(kernel, {}).items():
-                with _entry_of(ops, kernel, fn):
-                    ms[variant] = time_ms(states, launch)
             iid = states.tables.item_ids.gather(1, i_slot.long())
             print(json.dumps({
-                "root": str(root), "design": design(root), "card": card,
-                "kernel": kernel, "batch": name, "train_s": train_s,
-                "valid": int((ev_u >= 0).sum()),
-                "item_evictions": int(((iid != ev_i) & (ev_u >= 0)).sum()),
-                "ms": ms}), flush=True)
+                **split(kernel, states, launch), "batch": name,
+                "train_s": train_s, "valid": int((ev_u >= 0).sum()),
+                "item_evictions": int(((iid != ev_i) & (ev_u >= 0)).sum())}),
+                flush=True)
         del states
         torch.cuda.empty_cache()
+
+    if "swa_attention" in libs:
+        from repro_torch.configs import get_config
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.models.factory import build as build_model
+
+        cfg = get_config(cs.LLM_ARCH)
+        params = build_model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        prompts = torch.as_tensor(TokenPipeline(cfg.vocab, seed=0).sample(
+            cs.LLM_BATCH, cs.LLM_PROMPT), device="cuda")
+        q, k, v = cs._layer0_qkv(torch, params, cfg, prompts)
+        del params
+        torch.cuda.empty_cache()
+        kw = dict(window=cfg.window, causal=cfg.causal)
+        print(json.dumps({
+            **split("swa_attention", None,
+                    lambda: ops.swa_attention(q, k, v, **kw)),
+            "batch": "layer0", "shape": f"B={q.shape[0]} Hq={q.shape[1]} "
+            f"Hkv={k.shape[1]} S={q.shape[2]} D={q.shape[3]} "
+            f"window={cfg.window} bf16"}), flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, action="append",
                     help="a checkout to time (repeatable; default: this one)")
+    ap.add_argument("--kernel", action="append", choices=KERNELS,
+                    help="a kernel to time (repeatable; default: all)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     roots = [r.resolve() for r in (args.root or [ROOT])]
     if args.child is not None:
         _run(roots[0], json.loads(args.child))
         return
-    libs = [build_variants(root, f"{n}-{design(root)}")
+    kernels = tuple(args.kernel or KERNELS)
+    libs = [build_variants(root, str(n), kernels)
             for n, root in enumerate(roots)]
     for root, root_libs in zip(roots, libs):
         subprocess.run([sys.executable, __file__, "--root", str(root),
