@@ -169,6 +169,106 @@ def dics_config(rt):
         backend="cuda", device=DEVICE)
 
 
+def serve_batches(torch, np, users, dev):
+    """SERVE_USERS distinct stream users (seed 0), in calls of
+    SERVE_BATCH: the serve phases' queries."""
+    rng = np.random.default_rng(0)
+    queries = rng.choice(np.unique(users), SERVE_USERS, replace=False)
+    return [torch.as_tensor(queries[s:s + SERVE_BATCH], dtype=torch.int32,
+                            device=dev)
+            for s in range(0, SERVE_USERS, SERVE_BATCH)]
+
+
+def kernel_batch(torch, np, users, items, cfg, rng, fresh_rate=0.1):
+    """``_middle_batch`` and what the cuda worker derives from it: (ev_u,
+    ev_i, u_slot, i_slot, init_u, init_i), the events' slots and their
+    init vectors."""
+    from repro_torch.core import disgd, prng, state as state_lib
+
+    hyper = cfg.resolved_hyper()
+    ev_u, ev_i = _middle_batch(torch, np, users, items, cfg, rng, fresh_rate)
+    cap = ev_u.shape[1]
+    init = disgd.init_vector(prng.key(cfg.seed, device=ev_u.device),
+                             torch.cat([ev_u, ev_i], 1), hyper.k,
+                             hyper.init_scale)
+    return (ev_u, ev_i, state_lib.slot_of(ev_u, hyper.g, hyper.u_cap),
+            state_lib.slot_of(ev_i, hyper.n_i, hyper.i_cap),
+            init[:, :cap].contiguous(), init[:, cap:].contiguous())
+
+
+def masked_scores_inputs(torch, states, ev_u, u_slot, init_u):
+    """K2's inputs on the kernels line: the bucket-start scoring of
+    ``kernel_batch``'s micro-batch (users ``ev_u`` in slots ``u_slot``,
+    init vectors ``init_u``) on the trained DISGD state, as the cuda
+    worker builds them: (u_vecs, item_vecs, candidate mask)."""
+    t = states.tables
+    w = torch.arange(ev_u.shape[0], device=ev_u.device)[:, None]
+    us = u_slot.long()
+    known_u = t.user_ids.gather(1, us) == ev_u
+    u_vecs = torch.where(known_u[..., None], states.user_vecs[w, us], init_u)
+    cand = ((t.item_ids >= 0)[:, None, :] & ~(states.rated[w, us]
+                                              & known_u[..., None])
+            & (ev_u >= 0)[..., None])
+    return u_vecs, states.item_vecs, cand
+
+
+def dics_topn_inputs(torch, states, cfg, serve_q):
+    """K5's inputs on the kernels line: one ``grid_topn`` call's query
+    rows (``serve_q``, bucketed by user column as the serve plane does)
+    on the trained DICS state: ((co, item_cnt, hist, known, item_ids),
+    dict(top_n, k_nn))."""
+    from repro_torch.core import routing, state as state_lib
+    from repro_torch.serve.plane import query_capacity
+
+    hyper = cfg.resolved_hyper()
+    g, n_i = cfg.grid.g, cfg.grid.n_i
+    col = torch.where(serve_q >= 0, serve_q % g, g)
+    buckets, _, _ = routing.bucket_dispatch(col, g,
+                                            query_capacity(SERVE_BATCH, g))
+    qu = torch.where(buckets >= 0, serve_q[buckets.clamp(min=0).long()], -1)
+    qu = qu.repeat(n_i, 1)
+    slots = state_lib.slot_of(qu, g, hyper.u_cap).long()
+    t = states.tables
+    known = t.user_ids.gather(1, slots) == qu
+    w = torch.arange(qu.shape[0], device=qu.device)[:, None]
+    hist = states.rated[w, slots] & known[..., None]
+    return ((states.co, states.item_cnt, hist, known, t.item_ids),
+            dict(top_n=hyper.top_n, k_nn=hyper.k_nn))
+
+
+def dics_serve_kw(cfg):
+    """``grid_topn``'s keywords for the DICS serve calls of ``cfg``."""
+    from repro_torch.serve.plane import query_capacity
+
+    hyper = cfg.resolved_hyper()
+    return dict(algorithm="dics", grid=cfg.grid, top_n=hyper.top_n,
+                u_cap=hyper.u_cap, qcap=query_capacity(SERVE_BATCH, cfg.grid.g),
+                k_nn=hyper.k_nn)
+
+
+def dics_serve_calls(torch, rt, states, kw, batches, rounds=1):
+    """Phase ``dics_serve``'s calls: one warm-up call, the launch counts
+    set to 0, then ``grid_topn(states, q, **kw)`` for every serve batch
+    ``q``, ``rounds`` times over, each call's wall time taken from the
+    end of the previous call's synchronisation to the end of its own.
+    Returns (seconds of each call, the last round's outputs, the launch
+    counts of all rounds)."""
+    from repro_torch.kernels import ops
+
+    rt.grid_topn(states, batches[0], **kw)          # warm the allocator
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lat = []
+    for _ in range(rounds):
+        outs = []
+        for q in batches:
+            t0 = time.perf_counter()
+            outs.append(rt.grid_topn(states, q, **kw))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    return lat, outs, ops.launch_counts()
+
+
 def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -241,14 +341,10 @@ def main():
     # -- 3. serving ----------------------------------------------------------
     from repro_torch.serve.plane import query_capacity
 
-    rng = np.random.default_rng(0)
-    queries = rng.choice(np.unique(users), SERVE_USERS, replace=False)
     qcap = query_capacity(SERVE_BATCH, grid.g)
     kw = dict(algorithm="disgd", grid=grid, top_n=hyper.top_n, u_cap=U_CAP,
               qcap=qcap)
-    batches = [torch.as_tensor(queries[s:s + SERVE_BATCH], dtype=torch.int32,
-                               device=dev)
-               for s in range(0, SERVE_USERS, SERVE_BATCH)]
+    batches = serve_batches(torch, np, users, dev)
     rt.grid_topn(states, batches[0], **kw)          # warm the allocator
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -342,13 +438,17 @@ def _device_rows(prof):
 
 
 def _ptxas_entries(log: str) -> dict:
-    """ptxas's report per entry function of one library: registers,
-    static shared memory and stack, by the kernel's name."""
+    """ptxas's report per entry function of one library (registers,
+    static shared memory, stack, spills), by the kernel's name, and a
+    template instance by ``name<N>`` (its integer argument)."""
     out = {}
     for block in log.split("Compiling entry function '")[1:]:
-        name = re.search(r"\d([a-z][a-z_]*_kernel)", block.split("'", 1)[0])
+        name = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                         block.split("'", 1)[0])
         if name:
-            out.setdefault(name.group(1), _ptxas(block))
+            key = name.group(1) + (f"<{name.group(2)}>" if name.group(2)
+                                   else "")
+            out.setdefault(key, _ptxas(block))
     return out
 
 
@@ -380,9 +480,22 @@ def _ptxas(log: str) -> dict:
     regs = re.search(r"Used (\d+) registers", log)
     smem = re.search(r"(\d+) bytes smem", log)
     stack = re.search(r"(\d+) bytes stack frame", log)
+    spill_st = re.search(r"(\d+) bytes spill stores", log)
+    spill_ld = re.search(r"(\d+) bytes spill loads", log)
     return {"registers": int(regs.group(1)) if regs else None,
             "smem_bytes": int(smem.group(1)) if smem else 0,
-            "stack_bytes": int(stack.group(1)) if stack else 0}
+            "stack_bytes": int(stack.group(1)) if stack else 0,
+            "spill_store_bytes": int(spill_st.group(1)) if spill_st else 0,
+            "spill_load_bytes": int(spill_ld.group(1)) if spill_ld else 0}
+
+
+def _ptxas_instances(log: str, kernel: str) -> dict:
+    """``_ptxas_entries`` of each instance of the kernel template."""
+    out = {k: v for k, v in _ptxas_entries(log).items()
+           if k.startswith(kernel + "<")}
+    if not out:
+        fail(f"no ptxas report for {kernel}")
+    return out
 
 
 def _close(got, want, what):
@@ -506,21 +619,16 @@ def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
 
 def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
                    main_counts, serve_counts, infos):
-    from repro_torch.core import disgd, prng, serve, state as state_lib
+    from repro_torch.core import serve, state as state_lib
     from repro_torch.kernels import ops, ref
 
     hyper = cfg.resolved_hyper()
     k = hyper.k
     rng = np.random.default_rng(1)
-    ev_u, ev_i = _middle_batch(torch, np, users, items, cfg, rng)
+    ev_u, ev_i, u_slot, i_slot, init_u, init_i = kernel_batch(
+        torch, np, users, items, cfg, rng)
     n_w, cap = ev_u.shape
     t = states.tables
-    u_slot = state_lib.slot_of(ev_u, hyper.g, hyper.u_cap)
-    i_slot = state_lib.slot_of(ev_i, hyper.n_i, hyper.i_cap)
-    key = prng.key(cfg.seed, device=ev_u.device)
-    init = disgd.init_vector(key, torch.cat([ev_u, ev_i], 1), k,
-                             hyper.init_scale)
-    init_u, init_i = init[:, :cap].contiguous(), init[:, cap:].contiguous()
     rows = []
 
     # K1 factor_update, both modes, on clones of the trained state; ISGD
@@ -531,17 +639,14 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     n_valid = int((ev_u >= 0).sum())
     j_slot = torch.as_tensor(rng.integers(0, hyper.i_cap, (n_w, cap)),
                              dtype=torch.int32, device=ev_u.device)
-    nf_u, nf_i = _middle_batch(torch, np, users, items, cfg,
-                               np.random.default_rng(1), fresh_rate=0.0)
-    nf_init = disgd.init_vector(key, torch.cat([nf_u, nf_i], 1), k,
-                                hyper.init_scale)
+    nf_u, nf_i, nf_us, nf_is, nf_init_u, nf_init_i = kernel_batch(
+        torch, np, users, items, cfg, np.random.default_rng(1),
+        fresh_rate=0.0)
     cases = {
         "isgd": (ev_u, ev_i, u_slot, i_slot, None, init_u, init_i),
         "pairwise": (ev_u, ev_i, u_slot, i_slot, j_slot, init_u, init_i),
-        "isgd_no_fresh": (
-            nf_u, nf_i, state_lib.slot_of(nf_u, hyper.g, hyper.u_cap),
-            state_lib.slot_of(nf_i, hyper.n_i, hyper.i_cap), None,
-            nf_init[:, :cap].contiguous(), nf_init[:, cap:].contiguous())}
+        "isgd_no_fresh": (nf_u, nf_i, nf_us, nf_is, None, nf_init_u,
+                          nf_init_i)}
     k1 = {}
     for case, events in cases.items():
         work = {}
@@ -585,6 +690,10 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         work.clear()
         k1[case] = (err, ms, plain_ms, device_ms)
     bound, by = _bound_ms(n_bytes, 12 * k * n_valid)
+    # Pairwise mode also reads and writes each valid event's negative
+    # vector and reads its tenant id and rated byte; 18k flops an event.
+    p_bound, p_by = _bound_ms(n_bytes + n_valid * (8 * k + 4 + 1),
+                              18 * k * n_valid)
     err, ms, plain_ms, device_ms = k1["isgd"]
     p_err, p_ms, p_plain_ms, p_device_ms = k1["pairwise"]
     log = infos["factor_update"].ptxas
@@ -600,19 +709,15 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         **_staged_layout("factor_update", cap, k, log,
                          "factor_update_isgd_kernel"),
         pairwise={"max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain_ms,
-                  "device_ms": p_device_ms,
+                  "device_ms": p_device_ms, "bound_ms": p_bound,
+                  "bound_by": p_by,
                   **_ptxas_entries(log)["factor_update_pairwise_kernel"]},
         shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap} k={k}",
         valid_events=n_valid))
 
     # K2 masked_scores on the same micro-batch, as the cuda worker builds it.
-    w = torch.arange(n_w, device=ev_u.device)[:, None]
-    us = u_slot.long()
-    known_u = t.user_ids.gather(1, us) == ev_u
-    u_vecs = torch.where(known_u[..., None], states.user_vecs[w, us], init_u)
-    cand = ((t.item_ids >= 0)[:, None, :] & ~(states.rated[w, us]
-                                              & known_u[..., None])
-            & (ev_u >= 0)[..., None])
+    u_vecs, _, cand = masked_scores_inputs(torch, states, ev_u, u_slot,
+                                           init_u)
     got = ops.masked_scores(u_vecs, states.item_vecs, cand)
     want = ref.masked_scores(u_vecs, states.item_vecs, cand)
     err = _close(got, want, "masked_scores")
@@ -642,6 +747,8 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         launches=main_counts["masked_scores"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
         device_ms=device_ms, library_device_ms=lib_device_ms,
+        ptxas=_ptxas_instances(infos["masked_scores"].ptxas,
+                               "masked_scores_kernel"),
         shape=f"W={n_w} B={b} I={i} k={k}"))
     del got, want, cand, not_cand, buf
 
@@ -820,7 +927,6 @@ def _dics_phases(torch, np, rt, dev, infos):
     kernels held against their plain versions. Returns the kernel rows."""
     from repro_torch.data.stream import NETFLIX, synth_stream
     from repro_torch.kernels import ops
-    from repro_torch.serve.plane import query_capacity
 
     # -- 6. dics_path ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -828,7 +934,7 @@ def _dics_phases(torch, np, rt, dev, infos):
     gen_s = time.perf_counter() - t0
     n = int(users.size)
     cfg = dics_config(rt)
-    hyper, grid = cfg.hyper, cfg.grid
+    grid = cfg.grid
     steps = (math.ceil(n / MICRO_BATCH)
              + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
     torch.cuda.reset_peak_memory_stats()
@@ -857,25 +963,11 @@ def _dics_phases(torch, np, rt, dev, infos):
                    phase="dics_profile")
 
     # -- 7. dics_serve ----------------------------------------------------------
-    rng = np.random.default_rng(0)
-    queries = rng.choice(np.unique(users), SERVE_USERS, replace=False)
-    qcap = query_capacity(SERVE_BATCH, grid.g)
-    kw = dict(algorithm="dics", grid=grid, top_n=hyper.top_n,
-              u_cap=DICS_U_CAP, qcap=qcap, k_nn=K_NN)
-    batches = [torch.as_tensor(queries[s:s + SERVE_BATCH], dtype=torch.int32,
-                               device=dev)
-               for s in range(0, SERVE_USERS, SERVE_BATCH)]
-    rt.grid_topn(states, batches[0], **kw)          # warm the allocator
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    lat, outs = [], []
-    for q in batches:
-        t0 = time.perf_counter()
-        out = rt.grid_topn(states, q, **kw)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        outs.append(out)
-    serve_counts = ops.launch_counts()
+    kw = dics_serve_kw(cfg)
+    qcap = kw["qcap"]
+    batches = serve_batches(torch, np, users, dev)
+    lat, outs, serve_counts = dics_serve_calls(torch, rt, states, kw,
+                                               batches)
     if serve_counts["dics_topn"] != len(batches):
         fail(f"dics_topn launched {serve_counts['dics_topn']} times for "
              f"{len(batches)} serve calls")
@@ -895,8 +987,7 @@ def _dics_phases(torch, np, rt, dev, infos):
 
     # -- 8. kernels against their plain versions ---------------------------------
     rows = _dics_kernel_checks(torch, np, users, items, states, cfg,
-                               batches[0], qcap, path_counts, serve_counts,
-                               infos)
+                               batches[0], path_counts, serve_counts, infos)
     del states, res, outs, batches
     torch.cuda.empty_cache()
 
@@ -949,9 +1040,9 @@ def _dics_touched_bytes(np, uid, iid, rows, ev_u, ev_i, u_slot, i_slot,
     return total
 
 
-def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
+def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q,
                         path_counts, serve_counts, infos):
-    from repro_torch.core import dics, routing, state as state_lib
+    from repro_torch.core import dics, state as state_lib
     from repro_torch.kernels import ops, ref
 
     hyper = cfg.resolved_hyper()
@@ -1041,16 +1132,8 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
         states, ev_u, hyper), reps=5)
 
     # K5 dics_topn on the inputs of one serve call.
-    g, n_i = cfg.grid.g, cfg.grid.n_i
-    col = torch.where(serve_q >= 0, serve_q % g, g)
-    buckets, _, _ = routing.bucket_dispatch(col, g, qcap)
-    qu = torch.where(buckets >= 0, serve_q[buckets.clamp(min=0).long()], -1)
-    qu = qu.repeat(n_i, 1)
-    slots = state_lib.slot_of(qu, g, hyper.u_cap).long()
-    known = t.user_ids.gather(1, slots) == qu
-    hist = states.rated[w, slots] & known[..., None]
-    args = (states.co, states.item_cnt, hist, known, t.item_ids)
-    kw = dict(top_n=hyper.top_n, k_nn=hyper.k_nn)
+    args, kw = dics_topn_inputs(torch, states, cfg, serve_q)
+    hist, known = args[2], args[3]
     got_ids, got_sc = ops.dics_topn(*args, **kw)
     want_ids, want_sc = ref.dics_topn(*args, **kw)
     if not (torch.equal(got_ids, want_ids) and torch.equal(got_sc, want_sc)):
@@ -1060,6 +1143,13 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
     device_ms = _time_ms(torch, lambda: ops.dics_topn(*args, **kw),
                          cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.dics_topn(*args, **kw), reps=5)
+    # The instance the serve path runs must keep its lists in registers.
+    k5_ptxas = _ptxas_instances(infos["dics_topn"].ptxas, "dics_topn_kernel")
+    kcap = min(c for c in (4, 8, 10, 16, 32) if c >= hyper.k_nn)
+    used = k5_ptxas.get(f"dics_topn_kernel<{kcap}>")
+    if used is None or used["stack_bytes"] or used["spill_store_bytes"]:
+        fail(f"dics_topn: the serve path's instance has a stack frame or "
+             f"spills: {k5_ptxas}")
     b, i = hist.shape[1], hist.shape[2]
     h_len = hist.sum(-1)                                    # [W, B]
     cols = hist.any(1).sum(-1)                              # [W] distinct q
@@ -1077,6 +1167,7 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q, qcap,
         device_ms=device_ms,
         library="none: no single PyTorch call computes the Eq. 7 "
                 "neighbour mass and a top-N",
+        ptxas=k5_ptxas,
         shape=f"W={n_w} B={b} I={i} k_nn={hyper.k_nn} N={hyper.top_n}",
         mean_history=float(h_len[known].float().mean()),
         max_history=int(h_len.max())))

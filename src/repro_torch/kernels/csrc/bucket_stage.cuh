@@ -41,6 +41,8 @@
 
 #include <atomic>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -99,24 +101,6 @@ inline int bucket_chunk(int E, int extra) {
   int ch = E < kMaxChunk ? E : kMaxChunk;
   while (ch > 1 && bucket_smem(ch, extra) > kSmemBudget) ch /= 2;
   return bucket_smem(ch, extra) > kSmemBudget ? 0 : ch;
-}
-
-// Lets `kernel` take up to kSmemBudget bytes of dynamic shared memory
-// (every chunk bucket_chunk picks fits) on the current device: one driver
-// call per device, at its first launch; `done` is the kernel's own mask
-// of devices already set.
-template <typename Kernel>
-inline cudaError_t allow_bucket_smem(Kernel kernel,
-                                     std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 __device__ __forceinline__ void cluster_sync() {

@@ -14,9 +14,9 @@
 //   p is a candidate if its slot is live, the user has not rated it, the
 //   user is known and mass(p) > 0; others score -inf with their real ids;
 // and the N best (score, id) pairs in the order (score desc, id asc), as
-// topn_select gives them. sqrtf and '/' are IEEE-rounded (no fast-math)
-// and the sum has a fixed order, so the scores equal the plain version's
-// bit for bit.
+// topn_select gives them. sqrtf and '/' are IEEE-rounded (no fast-math),
+// the sum has a fixed order and co is read as co[p, q] (never assumed
+// symmetric), so the scores equal the plain version's bit for bit.
 //
 // What bounds it: bytes — each query's history row is read once, and the
 // co entries of the (candidate, history) pairs, from L2. The TPU kernel
@@ -24,114 +24,287 @@
 // the history, a few items on average, is compacted first, so the work
 // is I * |h| similarities and a k_nn insertion list per candidate.
 //
-// Design: one CTA per (query, worker). The history indices are compacted
-// into shared memory; each thread owns candidates p = t, t + T, ... and
-// keeps a register list of its k_nn largest sims and a sorted top-N of its
-// candidates. Each warp merges its 32 lists with N rounds of a shuffle
-// arg-max over (score desc, id asc, lane asc), popping the winner's head
-// (topn_merge.cuh); warp 0 then merges the eight warp lists the same
-// way.
+// Design (tests/test_torch_kernels.py::dics_topn_schedule models it on
+// the CPU): one CTA of 8 warps serves kGroup queries of one worker,
+// strided over its rows (CTA c of n takes rows c, c + n, ...: the serve
+// plane pads each worker's rows at the end, so this spreads the real
+// queries evenly over the CTAs).
+// Each warp compacts one query's history row into a shared-memory list
+// (ballots, so no atomics) and a bitmap. A query without a history (or
+// an unknown user) has no candidate, so its list is the worker's N
+// smallest ids at -inf: the CTA computes that list once, as one "empty"
+// work item, and copies it. For every other query all 8 warps take a
+// share of the candidates (warp w: p = 32 w + lane + 256 j), so a long
+// history is spread over the CTA. Each lane keeps its candidate's k_nn
+// list in registers (a sorted list of KCAP >= k_nn entries, KCAP in
+// {4, 8, 10, 16, 32}: compile-time indices, predicated inserts, no local
+// memory) and loads kLoads co entries ahead of their inserts. Each warp
+// keeps a running top-N across its candidates with one entry per lane
+// (lane j holds the j-th best; a new entry finds its rank by a ballot
+// and shifts the tail by a shuffle). The 8 warp lists of a query are
+// merged by N rounds of an 8-lane shuffle arg-max.
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "smem_limit.cuh"
 #include "topn_merge.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 8;            // queries per CTA (fewer when I is large)
+constexpr int kEmpty = kGroup;       // the work item of history-less queries
 constexpr int kMaxN = 32;
-constexpr int kMaxKnn = 32;
+constexpr int kLoads = 8;            // co loads issued ahead of their inserts
+constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
+__host__ __device__ size_t smem_per_query(int I) {
+  return (size_t)I * sizeof(int) + (size_t)((I + 31) / 32) * sizeof(uint32_t);
+}
+
+// Insert v into the descending list top[0..KCAP).
+template <int KCAP>
+__device__ __forceinline__ void insert_desc(float (&top)[KCAP], float v) {
+  if (!(v > top[KCAP - 1])) return;
+#pragma unroll
+  for (int j = KCAP - 1; j > 0; --j) {
+    top[j] = v > top[j - 1] ? top[j - 1] : (v > top[j] ? v : top[j]);
+  }
+  top[0] = v > top[0] ? v : top[0];
+}
+
+// Eq. 7 mass of candidate p over the compacted history hl[0..H): the
+// K largest sims (zeros beyond |h|) added in descending order; -inf when
+// not positive. p is never in its own history, so the diagonal is out.
+template <int KCAP>
+__device__ __forceinline__ float neighbour_mass(const float* co_p, float cp,
+                                                const float* cnt,
+                                                const int* hl, int H, int K) {
+  float top[KCAP];
+#pragma unroll
+  for (int j = 0; j < KCAP; ++j) top[j] = 0.f;
+  for (int x0 = 0; x0 < H; x0 += kLoads) {
+    float c[kLoads], cq[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      c[j] = 0.f;
+      if (x0 + j < H) {
+        const int q = hl[x0 + j];
+        c[j] = co_p[q];
+        cq[j] = cnt[q];
+      }
+    }
+    // A sim that is not positive never enters the list (its entries are
+    // >= 0), so only a positive count is divided.
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (c[j] > 0.f) {
+        const float denom = sqrtf(cp * cq[j]);
+        insert_desc(top, denom > 0.f ? c[j] / fmaxf(denom, 1e-12f) : 0.f);
+      }
+    }
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < KCAP; ++j) {
+    if (j < K) acc = acc + top[j];
+  }
+  return acc > 0.f ? acc : -INFINITY;
+}
+
+// Offer each lane's (s, id) to the warp's running top-N (lane j holds
+// entry j of N, sorted by better()): the offers that beat the last entry
+// go in lane order, each re-checked against the new last entry.
+__device__ __forceinline__ void offer(float& lsc, int& lid, float s, int id,
+                                      int N, int lane) {
+  unsigned pend = __ballot_sync(
+      kFull, better(s, id, __shfl_sync(kFull, lsc, N - 1),
+                    __shfl_sync(kFull, lid, N - 1)));
+  while (pend) {
+    const int src = __ffs(pend) - 1;
+    const float cs = __shfl_sync(kFull, s, src);
+    const int cid = __shfl_sync(kFull, id, src);
+    const int r =
+        __popc(__ballot_sync(kFull, lane < N && !better(cs, cid, lsc, lid)));
+    const float up_s = __shfl_up_sync(kFull, lsc, 1);
+    const int up_id = __shfl_up_sync(kFull, lid, 1);
+    if (r < N && lane == r) {
+      lsc = cs;
+      lid = cid;
+    } else if (r < N && lane > r) {
+      lsc = up_s;
+      lid = up_id;
+    }
+    pend &= pend - 1;
+    pend &= __ballot_sync(
+        kFull, better(s, id, __shfl_sync(kFull, lsc, N - 1),
+                      __shfl_sync(kFull, lid, N - 1)));
+  }
+}
+
+template <int KCAP>
 __global__ void __launch_bounds__(kThreads) dics_topn_kernel(
     const float* __restrict__ co, const float* __restrict__ cnt,
     const uint8_t* __restrict__ hist, const uint8_t* __restrict__ known,
     const int* __restrict__ ids, int* __restrict__ out_ids,
-    float* __restrict__ out_sc, int B, int I, int N, int K) {
-  extern __shared__ int hist_s[];  // [I] compacted history indices
-  __shared__ int n_hist;
-  __shared__ float wsc[kWarps][kMaxN];
-  __shared__ int wid[kWarps][kMaxN];
+    float* __restrict__ out_sc, int B, int I, int N, int K, int G) {
+  extern __shared__ int smem[];
+  __shared__ int n_hist[kGroup];
+  __shared__ int work[kGroup + 1];
+  __shared__ int n_work;
+  __shared__ float psc[kGroup + 1][kWarps][kMaxN];
+  __shared__ int pid[kGroup + 1][kWarps][kMaxN];
+  __shared__ float msc[kGroup + 1][kMaxN];
+  __shared__ int mid[kGroup + 1][kMaxN];
   const int64_t w = blockIdx.y;
-  const int64_t b = blockIdx.x;
+  const int b0 = blockIdx.x, stride = gridDim.x;  // query qb: row b0 + qb * stride
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int words = (I + 31) / 32;
+  int* hl = smem;                                          // [G][I]
+  uint32_t* hb = reinterpret_cast<uint32_t*>(smem + G * I);  // [G][words]
   co += w * I * (int64_t)I;
   cnt += w * I;
   ids += w * I;
-  hist += (w * B + b) * (int64_t)I;
-  out_ids += (w * B + b) * N;
-  out_sc += (w * B + b) * N;
-  const bool is_known = known[w * B + b] != 0;
 
-  if (tid == 0) n_hist = 0;
-  __syncthreads();
-  if (is_known) {
-    for (int q = tid; q < I; q += kThreads) {
-      if (hist[q]) hist_s[atomicAdd(&n_hist, 1)] = q;
-    }
-  }
-  __syncthreads();
-  const int h = n_hist;  // the order of hist_s does not change any sum
-
-  float lsc[kMaxN];
-  int lid[kMaxN];
-  for (int j = 0; j < kMaxN; ++j) {
-    lsc[j] = -INFINITY;
-    lid[j] = INT_MAX;
-  }
-  float worst_sc = -INFINITY;
-  int worst_id = INT_MAX;
-  for (int p = tid; p < I; p += kThreads) {
-    const int id = ids[p];
-    float s = -INFINITY;
-    if (is_known && id >= 0 && !hist[p]) {
-      float top[kMaxKnn];
-      for (int j = 0; j < K; ++j) top[j] = 0.f;
-      const float cp = cnt[p];
-      const float* co_p = co + (int64_t)p * I;
-      for (int x = 0; x < h; ++x) {
-        const int q = hist_s[x];
-        if (q == p) continue;  // an item is not its own neighbour
-        const float denom = sqrtf(cp * cnt[q]);
-        const float v = denom > 0.f ? co_p[q] / fmaxf(denom, 1e-12f) : 0.f;
-        if (v > top[K - 1]) {
-          int j = K - 1;
-          while (j > 0 && v > top[j - 1]) {
-            top[j] = top[j - 1];
-            --j;
-          }
-          top[j] = v;
+  // Compact each query's history: warp qb takes query qb, the bytes of
+  // kLoads words loaded before their ballots.
+  for (int qb = warp; qb < G; qb += kWarps) {
+    const int64_t b = b0 + (int64_t)qb * stride;
+    int count = 0;
+    if (b < B && known[w * B + b]) {
+      const uint8_t* row = hist + (w * B + b) * (int64_t)I;
+      for (int base = 0; base < I; base += 32 * kLoads) {
+        bool in[kLoads];
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          const int p = base + 32 * j + lane;
+          in[j] = p < I && row[p];
+        }
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          const int p = base + 32 * j + lane;
+          const unsigned m = __ballot_sync(kFull, in[j]);
+          if (lane == 0 && p - lane < I) hb[qb * words + p / 32] = m;
+          if (in[j]) hl[qb * I + count + __popc(m & ((1u << lane) - 1))] = p;
+          count += __popc(m);
         }
       }
-      float acc = 0.f;
-      for (int j = 0; j < K; ++j) acc = acc + top[j];
-      if (acc > 0.f) s = acc;
     }
-    if (better(s, id, worst_sc, worst_id)) {
-      int j = N - 1;
-      while (j > 0 && better(s, id, lsc[j - 1], lid[j - 1])) {
-        lsc[j] = lsc[j - 1];
-        lid[j] = lid[j - 1];
-        --j;
-      }
-      lsc[j] = s;
-      lid[j] = id;
-      worst_sc = lsc[N - 1];
-      worst_id = lid[N - 1];
-    }
+    if (lane == 0) n_hist[qb] = count;
   }
-
-  warp_merge(lsc, lid, N, N, lane, wsc[warp], wid[warp]);
   __syncthreads();
-  if (warp == 0) {
-    const bool has = lane < kWarps;
-    warp_merge(has ? wsc[lane] : wsc[0], has ? wid[lane] : wid[0],
-               has ? N : 0, N, lane, out_sc, out_ids);
+  if (tid == 0) {
+    int n = 0;
+    bool empty = false;
+    for (int qb = 0; qb < G && b0 + qb * stride < B; ++qb) {
+      if (n_hist[qb] > 0) {
+        work[n++] = qb;
+      } else {
+        empty = true;
+      }
+    }
+    if (empty) work[n++] = kEmpty;
+    n_work = n;
   }
+  __syncthreads();
+
+  // Every warp's share of the candidates, for each work item.
+  for (int x = 0; x < n_work; ++x) {
+    const int qb = work[x];
+    const int H = qb == kEmpty ? 0 : n_hist[qb];
+    const int* hlq = hl + qb * I;
+    const uint32_t* hbq = hb + qb * words;
+    float lsc = -INFINITY;
+    int lid = INT_MAX;
+    for (int base = warp * 32; base < I; base += kThreads) {
+      const int p = base + lane;
+      float s = -INFINITY;
+      int id = INT_MAX;
+      if (p < I) {
+        id = ids[p];
+        if (H > 0 && id >= 0 && !((hbq[p >> 5] >> (p & 31)) & 1u)) {
+          s = neighbour_mass<KCAP>(co + (int64_t)p * I, cnt[p], cnt, hlq, H,
+                                   K);
+        }
+      }
+      offer(lsc, lid, s, id, N, lane);
+    }
+    if (lane < N) {
+      psc[x][warp][lane] = lsc;
+      pid[x][warp][lane] = lid;
+    }
+  }
+  __syncthreads();
+
+  // Merge the 8 warp lists of each work item: lane l < 8 owns list l.
+  for (int x = warp; x < n_work; x += kWarps) {
+    int head = 0;
+    for (int r = 0; r < N; ++r) {
+      const bool has = lane < kWarps && head < N;
+      float s = has ? psc[x][lane][head] : -INFINITY;
+      int id = has ? pid[x][lane][head] : INT_MAX;
+      int src = lane;
+      for (int o = kWarps / 2; o > 0; o >>= 1) {
+        const float s2 = __shfl_xor_sync(kFull, s, o);
+        const int id2 = __shfl_xor_sync(kFull, id, o);
+        const int src2 = __shfl_xor_sync(kFull, src, o);
+        if (better(s2, id2, s, id) || (s2 == s && id2 == id && src2 < src)) {
+          s = s2;
+          id = id2;
+          src = src2;
+        }
+      }
+      if (lane == src) ++head;
+      if (lane == 0) {
+        msc[x][r] = s;
+        mid[x][r] = id;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Each query's list: its own work item's, or the empty item's.
+  for (int t = tid; t < G * N; t += kThreads) {
+    const int qb = t / N, r = t % N;
+    const int64_t b = b0 + (int64_t)qb * stride;
+    if (b >= B) continue;
+    int x = n_work - 1;                       // the empty item, last
+    for (int y = 0; y < n_work; ++y) {
+      if (work[y] == qb) x = y;
+    }
+    out_ids[(w * B + b) * N + r] = mid[x][r];
+    out_sc[(w * B + b) * N + r] = msc[x][r];
+  }
+}
+
+template <int KCAP>
+int launch(const void* co, const void* cnt, const void* hist,
+           const void* known, const void* ids, void* out_ids, void* out_sc,
+           int W, int B, int I, int N, int K, cudaStream_t stream) {
+  int G = kGroup;
+  while (G > 1 && G * smem_per_query(I) > kMaxDynamicSmem) --G;
+  const size_t smem = G * smem_per_query(I);
+  if (smem > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+  // Static and dynamic shared memory may pass 48 KB together: the
+  // instance may take the whole budget.
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = allow_dynamic_smem(
+      dics_topn_kernel<KCAP>, (int)kMaxDynamicSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + G - 1) / G, W);
+  dics_topn_kernel<KCAP><<<grid, kThreads, smem, stream>>>(
+      (const float*)co, (const float*)cnt, (const uint8_t*)hist,
+      (const uint8_t*)known, (const int*)ids, (int*)out_ids, (float*)out_sc,
+      B, I, N, K, G);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,17 +315,16 @@ extern "C" int dics_topn_launch(const void* co, const void* cnt,
                                 int W, int B, int I, int N, int K,
                                 void* stream) {
   if (W == 0 || B == 0) return 0;
-  const size_t smem = (size_t)I * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dics_topn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(B, W);
-  dics_topn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)co, (const float*)cnt, (const uint8_t*)hist,
-      (const uint8_t*)known, (const int*)ids, (int*)out_ids, (float*)out_sc,
-      B, I, N, K);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define DICS_TOPN_LAUNCH(KCAP)                                               \
+  if (K <= KCAP)                                                             \
+    return launch<KCAP>(co, cnt, hist, known, ids, out_ids, out_sc, W, B, I, \
+                        N, K, s);
+  DICS_TOPN_LAUNCH(4)
+  DICS_TOPN_LAUNCH(8)
+  DICS_TOPN_LAUNCH(10)
+  DICS_TOPN_LAUNCH(16)
+  DICS_TOPN_LAUNCH(32)
+#undef DICS_TOPN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -228,7 +228,8 @@ extern "C" int dics_update_launch(
   if (ch == 0) return (int)cudaErrorInvalidValue;
   const int smem = bucket_smem(ch, extra);
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t err = allow_bucket_smem(dics_update_kernel, smem_set);
+  const cudaError_t err =
+      allow_dynamic_smem(dics_update_kernel, kSmemBudget, smem_set);
   if (err != cudaSuccess) return (int)err;
   dics_update_kernel<<<W * kBucketCtas, kBucketThreads, smem,
                        (cudaStream_t)stream>>>(

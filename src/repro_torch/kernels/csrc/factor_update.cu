@@ -257,7 +257,7 @@ extern "C" int factor_update_launch(
   const int smem = bucket_smem(ch, extra);
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err =
-      allow_bucket_smem(factor_update_isgd_kernel, smem_set);
+      allow_dynamic_smem(factor_update_isgd_kernel, kSmemBudget, smem_set);
   if (err != cudaSuccess) return (int)err;
   factor_update_isgd_kernel<<<W * kBucketCtas, kBucketThreads, smem,
                               (cudaStream_t)stream>>>(

@@ -65,6 +65,8 @@
 
 #include <atomic>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;  // a masked logit (the TPU kernel's NEG_INF)
@@ -759,22 +761,6 @@ bool encode_panel(EncodeTiled fn, CUtensorMap* map, const void* base, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Raises the kernel's dynamic shared-memory limit once per device.
-template <int D>
-cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(swa_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SwaTiles<D>::kSmem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int S, int window, int causal,
@@ -795,7 +781,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                       rows[t]))
       return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem<D>();
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err =
+      allow_dynamic_smem(swa_bf16_kernel<D>, T::kSmem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   const dim3 grid(B * Hq, (S + T::kBQ - 1) / T::kBQ);

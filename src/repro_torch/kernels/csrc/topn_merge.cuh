@@ -1,8 +1,8 @@
-// The total order of the serving kernels' top-N lists and their warp merge,
-// shared by fused_topn.cu and dics_topn.cu so both keep the order that
+// The total order of the serving kernels' top-N lists, shared by
+// fused_topn.cu and dics_topn.cu so both keep the order that
 // src/repro_torch/kernels/ref.py::topn_select defines: score descending,
 // then id ascending; unused entries are (-inf, INT_MAX), after every real
-// entry.
+// entry. And fused_topn.cu's warp merge of per-lane lists.
 #pragma once
 
 #include <climits>

@@ -110,7 +110,10 @@ def masked_scores(u_vecs, item_vecs, mask):
     """Masked scoring for every worker: f32[W, B, I], -inf where masked.
 
     u_vecs f32[W, B, k]; item_vecs f32[W, I, k]; mask bool/uint8 [W, B, I].
-    Kernel: ``csrc/masked_scores.cu``; plain version ``ref.masked_scores``.
+    Kernel: ``csrc/masked_scores.cu`` (4 items a thread, a CTA walking 16
+    rows of a 1,024-item strip; 4-byte mask loads and float4 stores where
+    I is a multiple of 4, scalar ones elsewhere); plain version
+    ``ref.masked_scores``.
     """
     if _on_cpu(u_vecs, item_vecs, mask):
         return ref.masked_scores(u_vecs, item_vecs, mask)
@@ -137,8 +140,12 @@ def isgd_update(user_tab, item_tab, u_slots, i_slots, valid, *, eta: float,
     user_tab f32[U, k]; item_tab f32[I, k] (``k <= MAX_K``, taken as it
     is: no lane padding); u_slots / i_slots i32[E]; valid bool/uint8 [E].
     An event whose slot lies outside its table changes nothing, on either
-    version. Kernel: ``csrc/isgd_update.cu``, one warp running the events
-    in order. Returns the (mutated) ``(user_tab, item_tab)``.
+    version. Such slots fall outside the parity contract with
+    ``repro.kernels.ops.isgd_update``, which wraps a negative slot to the
+    last row and, for a slot past the end, clamps its gather to the last
+    row and drops its scatter. Kernel: ``csrc/isgd_update.cu``, one warp
+    running the events in order. Returns the (mutated) ``(user_tab,
+    item_tab)``.
     """
     if _on_cpu(user_tab, item_tab, u_slots, i_slots, valid):
         return ref.isgd_apply(user_tab, item_tab, u_slots, i_slots, valid,
@@ -290,7 +297,8 @@ def dics_topn(co, item_cnt, hist, known, item_ids, *, top_n: int, k_nn: int):
     co f32[W, I, I]; item_cnt f32[W, I]; hist bool/uint8 [W, B, I]
     (known-masked rated rows); known bool [W, B]; item_ids i32[W, I].
     Returns (ids i32[W, B, n], scores f32[W, B, n]), ``n = min(top_n,
-    I)``, equal to ``ref.dics_topn``. Kernel: ``csrc/dics_topn.cu``.
+    I)``, equal to ``ref.dics_topn``. Kernel: ``csrc/dics_topn.cu`` (one
+    CTA per 8 queries of a worker).
     """
     if _on_cpu(co, item_cnt, hist, known, item_ids):
         return ref.dics_topn(co, item_cnt, hist.bool(), known.bool(),

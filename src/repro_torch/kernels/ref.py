@@ -46,6 +46,12 @@ def isgd_apply(user_tab, item_tab, u_slots, i_slots, valid, *, eta: float,
     valid bool[E]. Events run in order, each reading the rows the previous
     ones wrote; an invalid event changes nothing, nor does one whose slot
     lies outside its table. Returns the (mutated) ``(user_tab, item_tab)``.
+
+    Out-of-range slots fall outside the parity contract with
+    ``repro.kernels.ops.isgd_update``: there a negative slot wraps to the
+    last row, and a slot past the end has its gather clamped to the last
+    row and its scatter dropped; here (and in the kernel) the event is
+    skipped.
     """
     u_slots, i_slots = u_slots.long(), i_slots.long()
     inside = ((u_slots >= 0) & (u_slots < user_tab.shape[0])

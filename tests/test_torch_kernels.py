@@ -21,9 +21,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from tests.test_torch_kernels_gpu import (  # noqa: E402
     ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
-    _assert_state_equal, _dics_events, _dics_state, _events, _isgd_inputs,
-    _score_inputs, _swa_inputs, _torch_dics_apply, _torch_factor_apply,
-    _worker_state)
+    _assert_state_equal, _dics_events, _dics_state, _dics_topn_inputs,
+    _events, _isgd_inputs, _score_inputs, _swa_inputs, _torch_dics_apply,
+    _torch_factor_apply, _worker_state)
 
 
 # -- CPU parity against the JAX kernels (interpret mode) ------------------
@@ -163,6 +163,169 @@ def test_isgd_apply_skips_slots_outside_the_tables():
     for got, want in zip(*runs):
         np.testing.assert_array_equal(got, want)
     assert not np.array_equal(runs[0][0], inp["user_tab"])
+
+
+def test_isgd_edge_slots_match_jax_kernel():
+    """In-range edge slots (0, U - 1, I - 1), each repeated in a chain,
+    against the Pallas body (interpret mode) and the JAX oracle, at the
+    tolerance of the K6 tests above. Slots outside the tables fall outside
+    the parity contract (``ops.isgd_update``)."""
+    u_cap, i_cap, k, e = 16, 12, 10, 40
+    inp = _isgd_inputs(np.random.default_rng(39), u_cap, i_cap, k, e)
+    rng = np.random.default_rng(40)
+    inp["u_slots"] = rng.choice([0, u_cap - 1, 0, 5], e).astype(np.int32)
+    inp["i_slots"] = rng.choice([0, i_cap - 1, i_cap - 1, 3],
+                                e).astype(np.int32)
+    inp["u_slots"][:6] = u_cap - 1              # a chain through one pair
+    inp["i_slots"][:6] = i_cap - 1
+    got_u, got_i = ops.isgd_update(*(torch.tensor(inp[n]) for n in ISGD_NAMES),
+                                   eta=0.05, lam=0.01)
+    jargs = [jnp.asarray(inp[n]) for n in ISGD_NAMES]
+    for want_u, want_i in (
+            jops.isgd_update(*jargs, eta=0.05, lam=0.01, interpret=True),
+            jops.isgd_update(*jargs, eta=0.05, lam=0.01)):
+        np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i),
+                                   rtol=1e-5, atol=1e-6)
+    for tab, slots in ((got_u, (0, u_cap - 1)), (got_i, (0, i_cap - 1))):
+        for s in slots:                        # every edge row was trained
+            assert not np.array_equal(tab[s].numpy(), inp[
+                "user_tab" if tab is got_u else "item_tab"][s])
+
+
+# -- K5 dics_topn's list building --------------------------------------------
+
+# csrc/dics_topn.cu's kGroup (queries a CTA), kWarps (warps a CTA) and
+# kMaxDynamicSmem, and the lanes of a warp.
+K5_GROUP, K5_WARPS, K5_SMEM, LANES = 8, 8, 200 * 1024, 32
+
+
+def _k5_group(n_i):
+    """The kernel's queries a CTA at ``n_i`` items: kGroup, fewer where
+    their compacted histories would not fit its shared memory."""
+    per_query = 4 * n_i + 4 * -(-n_i // 32)
+    g = K5_GROUP
+    while g > 1 and g * per_query > K5_SMEM:
+        g -= 1
+    return g
+
+
+def dics_topn_schedule(co, item_cnt, hist, known, item_ids, top_n, k_nn):
+    """The ``dics_topn`` kernel's way to ``ref.dics_topn``'s lists, step by
+    step in Python (small shapes only): the masses are
+    ``ref.neighbour_mass``'s, the list building is the kernel's.
+
+    Per CTA of ``_k5_group(I)`` queries (CTA c of n takes rows c, c + n,
+    ...): queries with a history each form a work item; the others (no
+    history, or an unknown user) share one "empty" work item whose
+    candidates all score -inf. For each item, warp ``v`` takes the
+    candidates ``p = LANES * v + lane + LANES * K5_WARPS * j`` in steps of
+    LANES and keeps a running top-N, one entry per lane: the lanes whose
+    (score, id) beats the list's last entry are inserted in lane order,
+    each behind the entries it does not beat, re-checking the rest
+    against the new last entry. The warp lists are merged by N rounds of
+    an arg-max over their heads by (score desc, id asc, warp asc).
+    Returns (ids i32[W, B, n], scores f32[W, B, n]).
+    """
+    n_w, n_b, n_i = hist.shape
+    n = min(top_n, n_i)
+    group = _k5_group(n_i)
+    mass = ref.neighbour_mass(ref.similarity_matrix(co, item_cnt), hist,
+                              k_nn)
+    cand = ((item_ids >= 0)[:, None, :] & ~hist & known[..., None]
+            & (mass > 0))
+    scores = torch.where(cand, mass, float("-inf")).tolist()
+    ids = item_ids.tolist()
+    has_hist = (known & hist.any(-1)).tolist()
+    worst = (float("-inf"), 2**31 - 1)           # an unused entry
+
+    def better(a, b):
+        return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+    def warp_list(row, ids_w, v):
+        lst = [worst] * n
+        for base in range(LANES * v, n_i, LANES * K5_WARPS):
+            offers = [(row[p], ids_w[p])
+                      for p in range(base, min(base + LANES, n_i))]
+            pend = [e for e in offers if better(e, lst[-1])]
+            while pend:
+                e = pend.pop(0)
+                r = sum(not better(e, x) for x in lst)
+                if r < n:
+                    lst = lst[:r] + [e] + lst[r:-1]
+                pend = [x for x in pend if better(x, lst[-1])]
+        return lst
+
+    def merge(lists):
+        heads, out = [0] * len(lists), []
+        for _ in range(n):
+            best = None
+            for v, lst in enumerate(lists):
+                e = lst[heads[v]] if heads[v] < n else worst
+                if best is None or better(e, best[0]):
+                    best = (e, v)
+            out.append(best[0])
+            heads[best[1]] += 1
+        return out
+
+    out_ids = torch.empty((n_w, n_b, n), dtype=torch.int32)
+    out_sc = torch.empty((n_w, n_b, n), dtype=torch.float32)
+    for w in range(n_w):
+        n_cta = -(-n_b // group)
+        for c in range(n_cta):
+            rows = range(c, n_b, n_cta)
+            items = {b: scores[w][b] for b in rows if has_hist[w][b]}
+            if any(not has_hist[w][b] for b in rows):
+                items["empty"] = [float("-inf")] * n_i
+            lists = {x: merge([warp_list(row, ids[w], v)
+                               for v in range(K5_WARPS)])
+                     for x, row in items.items()}
+            for b in rows:
+                lst = lists[b if has_hist[w][b] else "empty"]
+                out_sc[w, b] = torch.tensor([e[0] for e in lst])
+                out_ids[w, b] = torch.tensor([e[1] for e in lst],
+                                             dtype=torch.int32)
+    return out_ids, out_sc
+
+
+# (n_w, b, i), top_n, k_nn: B not a multiple of the 8 queries a CTA
+# serves, I not a multiple of a warp's 32 candidates or of the CTA's 256,
+# lists as long as the kernel keeps (32), and a worker with fewer items
+# than warps * 32 (some warps' lists stay empty).
+SCHEDULE_CASES = {
+    "tiny": ((2, 9, 37), 7, 5),
+    "items_300": ((2, 11, 300), 10, 10),
+    "lists_32": ((2, 10, 70), 32, 32),
+    "items_20": ((2, 8, 20), 20, 32),
+}
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_dics_topn_schedule_matches_plain(case, ties):
+    """The kernel's list building (``dics_topn_schedule``: the shared
+    list of history-less queries, each warp's running top-N over its
+    share of the candidates, the warp lists' merge) gives the plain
+    version's lists exactly: ties broken by id, dead slots (id -1) and
+    unknown users included."""
+    shape, top_n, k_nn = SCHEDULE_CASES[case]
+    args = [torch.tensor(x) for x in
+            _dics_topn_inputs(np.random.default_rng(41), *shape, ties=ties)]
+    got_ids, got_sc = dics_topn_schedule(*args, top_n, k_nn)
+    want_ids, want_sc = ref.dics_topn(*args, top_n, k_nn)
+    assert torch.equal(got_ids, want_ids)
+    assert torch.equal(got_sc, want_sc)
+    assert torch.isinf(want_sc).any() and torch.isfinite(want_sc).any()
+
+
+def test_k5_group_follows_the_kernels_shared_memory():
+    """The model's queries a CTA: 8 at the serve shape (I 768), fewer
+    where 8 compacted histories pass the kernel's 200 KB (I 7,000: 7)."""
+    assert _k5_group(768) == 8
+    assert _k5_group(6_200) == 8
+    assert _k5_group(7_000) == 7
+    assert _k5_group(60_000) == 1
 
 
 def _swa_check(q, k, v, dtype, *, window, causal=True, pallas=True):

@@ -247,6 +247,57 @@ def test_masked_scores_kernel_matches_plain(cuda_device, shape):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+# K2's hard cases (csrc/masked_scores.cu): I not a multiple of 4 (the
+# kernel's scalar path: 37, 6,785) or of its 1,024-item strip (1,028: the
+# 4-byte mask loads and float4 stores, then a partial strip), B not a
+# multiple of the 16 rows a CTA walks, k at both ends (1, 32), and masks
+# all false and all true. (n_w, b, i, k), mask.
+MASKED_CASES = {
+    "items_37": ((2, 9, 37, 8), "random"),
+    "items_6785": ((2, 37, 6785, 10), "random"),
+    "partial_strip": ((3, 21, 1028, 10), "random"),
+    "k_1": ((2, 40, 300, 1), "random"),
+    "k_32": ((2, 40, 300, 32), "random"),
+    "all_false": ((2, 17, 1024, 10), "none"),
+    "all_true": ((2, 17, 1024, 10), "all"),
+}
+
+
+def _assert_scores_match(got, want):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MASKED_CASES))
+def test_masked_scores_kernel_hard_cases(cuda_device, case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, fill = MASKED_CASES[case]
+    u, it, mask, _ = _score_inputs(np.random.default_rng(14), *shape)
+    if fill != "random":
+        mask[:] = fill == "all"
+    args = [torch.tensor(x, device=cuda_device) for x in (u, it, mask)]
+    before = ops.launch_counts()["masked_scores"]
+    got = ops.masked_scores(*args)
+    assert ops.launch_counts()["masked_scores"] == before + 1
+    _assert_scores_match(got, ref.masked_scores(*args))
+
+
+@pytest.mark.gpu
+def test_masked_scores_kernel_takes_a_mask_at_an_odd_address(cuda_device):
+    """A contiguous mask view one byte into its buffer cannot take the
+    4-byte loads: the kernel's scalar path runs, with the same scores."""
+    u, it, mask, _ = _score_inputs(np.random.default_rng(15), 2, 20, 1024, 10)
+    buf = torch.zeros(mask.size + 1, dtype=torch.uint8, device=cuda_device)
+    odd = buf[1:].view(mask.shape)
+    odd.copy_(torch.tensor(mask, device=cuda_device))
+    assert odd.data_ptr() % 4 and odd.is_contiguous()
+    u_t, it_t = (torch.tensor(x, device=cuda_device) for x in (u, it))
+    _assert_scores_match(ops.masked_scores(u_t, it_t, odd),
+                         ref.masked_scores(u_t, it_t, odd))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
 @pytest.mark.parametrize("shape", [(2, 9, 37, 8), (16, 512, 6784, 10)],
@@ -430,6 +481,56 @@ def test_dics_topn_kernel_matches_plain(cuda_device, shape, top_n, k_nn,
     assert ops.launch_counts()["dics_topn"] == before + 1
     want_ids, want_sc = ref.dics_topn(*args, top_n, k_nn)
     # Same IEEE operations in the same order: scores and ids exactly.
+    np.testing.assert_array_equal(got_sc.cpu().numpy(), want_sc.cpu().numpy())
+    np.testing.assert_array_equal(got_ids.cpu().numpy(),
+                                  want_ids.cpu().numpy())
+
+
+def _dics_topn_case(rng, n_w, b, i, kind, ties=False):
+    """``_dics_topn_inputs`` made into one of K5's hard cases:
+    ``"asymmetric"`` counts (so the kernel must read co[p, q], not
+    co[q, p]), ``"dense"`` histories (~90% of a row: many batches of the
+    kernel's co loads, and few candidates), ``"empty"`` (no query has a
+    history: every list is the worker's smallest ids at -inf)."""
+    co, cnt, hist, known, ids = _dics_topn_inputs(rng, n_w, b, i, ties=ties)
+    if kind == "asymmetric":
+        co = rng.integers(0, 40, (n_w, i, i)).astype(np.float32)
+        assert not np.array_equal(co, co.transpose(0, 2, 1))
+    elif kind == "dense":
+        hist = (rng.random((n_w, b, i)) < 0.9) & known[..., None]
+    elif kind == "empty":
+        hist[:] = False
+    return co, cnt, hist, known, ids
+
+
+# K5's hard cases (csrc/dics_topn.cu): an asymmetric co, dense history
+# rows, no history anywhere, I not a multiple of a warp's 32 candidates or
+# of the CTA's 256 (20, 300), B not a multiple of the CTA's 8 queries,
+# top_n = k_nn = 32 (the kernel's largest lists), and I = 7,000 (fewer
+# queries a CTA, so their history lists fit in shared memory).
+# (n_w, b, i), top_n, k_nn, kind.
+DICS_TOPN_CASES = {
+    "asymmetric": ((2, 24, 300), 10, 10, "asymmetric"),
+    "dense_rows": ((2, 12, 300), 10, 10, "dense"),
+    "no_history": ((2, 16, 70), 10, 10, "empty"),
+    "items_20": ((2, 8, 20), 10, 10, None),
+    "items_300": ((3, 37, 300), 10, 10, None),
+    "lists_32": ((2, 24, 300), 32, 32, None),
+    "items_7000": ((1, 9, 7000), 10, 10, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("case", list(DICS_TOPN_CASES))
+def test_dics_topn_kernel_hard_cases(cuda_device, case, ties):
+    shape, top_n, k_nn, kind = DICS_TOPN_CASES[case]
+    args = [torch.tensor(x, device=cuda_device) for x in
+            _dics_topn_case(np.random.default_rng(37), *shape, kind, ties)]
+    before = ops.launch_counts()["dics_topn"]
+    got_ids, got_sc = ops.dics_topn(*args, top_n=top_n, k_nn=k_nn)
+    assert ops.launch_counts()["dics_topn"] == before + 1
+    want_ids, want_sc = ref.dics_topn(*args, top_n, k_nn)
     np.testing.assert_array_equal(got_sc.cpu().numpy(), want_sc.cpu().numpy())
     np.testing.assert_array_equal(got_ids.cpu().numpy(),
                                   want_ids.cpu().numpy())

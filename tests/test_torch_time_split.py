@@ -1,6 +1,6 @@
 """``tools/time_split.py`` finds the text of every cut variant of this
-checkout's K1 / K4 and K7 designs, so an edit to a kernel source that
-would drop a variant fails here, on the CPU, before a card run."""
+checkout's K1 / K4, K2, K5 and K7 designs, so an edit to a kernel source
+that would drop a variant fails here, on the CPU, before a card run."""
 
 import importlib.util
 import shutil
@@ -23,8 +23,10 @@ def test_every_cut_variant_of_this_checkout_finds_its_text():
     tool = _tool()
     assert tool.design(ROOT) == "staged"
     assert tool.swa_design(ROOT) == "wgmma"
+    assert tool.scores_design(ROOT) == "strip"
+    assert tool.dics_topn_design(ROOT) == "query_group"
     got = {(v, k) for v, k, _, _ in tool.variant_sources(ROOT)}
-    assert got == {(v, k) for d in ("staged", "wgmma")
+    assert got == {(v, k) for d in ("staged", "wgmma", "strip", "query_group")
                    for v, k, _, _ in tool.VARIANTS[d]}
     only_k7 = tool.variant_sources(ROOT, ("swa_attention",))
     assert {v for v, _, _, _ in only_k7} == {
@@ -52,3 +54,33 @@ def test_a_k7_variant_whose_text_is_gone_stops_the_tool(tmp_path):
     src.write_text(src.read_text().replace("rescale(o0, o1, alpha);", "x"))
     with pytest.raises(SystemExit, match="no_rescale"):
         tool.variant_sources(tmp_path, ("swa_attention",))
+
+
+@pytest.mark.parametrize("kernel,variant,text", [
+    ("masked_scores", "scalar_mask", "aligned && i0 + kVec <= I"),
+    ("masked_scores", "no_load_ahead", "constexpr int kBatch = 8;"),
+    ("dics_topn", "runtime_lists", "for (int j = KCAP - 1; j > 0; --j)"),
+    ("dics_topn", "no_empty_item", "if (n_hist[qb] > 0) {")])
+def test_a_k2_or_k5_variant_whose_text_is_gone_stops_the_tool(
+        tmp_path, kernel, variant, text):
+    tool = _tool()
+    csrc = tmp_path / tool.CSRC
+    csrc.parent.mkdir(parents=True)
+    shutil.copytree(ROOT / tool.CSRC, csrc)
+    src = csrc / f"{kernel}.cu"
+    src.write_text(src.read_text().replace(text, "x"))
+    with pytest.raises(SystemExit, match=variant):
+        tool.variant_sources(tmp_path, (kernel,))
+
+
+def test_the_earlier_k2_and_k5_designs_have_no_variants(tmp_path):
+    """A checkout from before the K2 / K5 redesign (one CTA per 32 x 128
+    tile; one CTA per query) is timed as built, with no variant."""
+    tool = _tool()
+    csrc = tmp_path / tool.CSRC
+    csrc.mkdir(parents=True)
+    (csrc / "masked_scores.cu").write_text("constexpr int kItems = 128;\n")
+    (csrc / "dics_topn.cu").write_text("constexpr int kMaxKnn = 32;\n")
+    assert tool.scores_design(tmp_path) == "tiles"
+    assert tool.dics_topn_design(tmp_path) == "per_query"
+    assert tool.variant_sources(tmp_path, ("masked_scores", "dics_topn")) == []

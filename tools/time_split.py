@@ -1,18 +1,23 @@
 """Where a redesigned kernel's time goes: K1 ``factor_update`` (ISGD),
-K4 ``dics_update`` and K7 ``swa_attention`` of one or more checkouts,
-timed on the card as built and with parts of their source cut out.
+K2 ``masked_scores``, K4 ``dics_update``, K5 ``dics_topn`` and K7
+``swa_attention`` of one or more checkouts, timed on the card as built
+and with parts of their source cut out.
 
     python3 tools/time_split.py [--root CHECKOUT ...] [--kernel NAME ...]
 
 Each ``--root`` is a checkout of this repository (default: this one), so
 two versions compare in one call on one card; ``--kernel`` picks the
-kernels (default: all three). A checkout's K1 and K4 follow one of two
+kernels (default: all five). A checkout's K1 and K4 follow one of two
 designs, told apart by ``csrc/bucket_stage.cuh``: ``sequential`` (one CTA
 per worker, events in order) or ``staged`` (that header's); its K7 one
 of two, told apart by ``csrc/swa_attention.cu``: ``mma_sync`` (64-row
 tiles loaded by the threads) or ``wgmma`` (a TMA-fed ring, wgmma, masks
-on boundary tiles only). Every cut variant of a picked kernel's design
-must find the text it edits, or the run stops before anything is timed.
+on boundary tiles only); its K2 ``tiles`` (32 x 128 tiles staged in
+shared memory) or ``strip`` (4 items a thread, a CTA walking rows); its
+K5 ``per_query`` (one CTA per query) or ``query_group`` (one CTA per 8
+queries, warp lists merged). Every cut variant of a picked kernel's
+design must find the text it edits, or the run stops before anything is
+timed.
 The variants are edited copies of the checkout's sources, built with
 this checkout's ``build.nvcc_command`` into ``build/time_split/`` here; a
 checkout's own kernels build where its package builds them.
@@ -21,9 +26,14 @@ Per checkout, in a process of its own. K1 / K4: ``chip_smoke.py``'s
 DISGD and DICS paths trained at full size, then each kernel timed on
 three batches made by ``chip_smoke._middle_batch``: ``fresh`` (one id in
 ten unseen, the kernels line's batch), ``no_fresh`` (the stream's own
-ids) and ``padding`` (every event padding). K7: h2o-danube-1.8b's layer
-0 q / k / v for ``chip_smoke.py``'s four 8,192-token prompts (batch
-``layer0``; the serving shape). Times are
+ids) and ``padding`` (every event padding). K2 on the same trained DISGD
+state and ``fresh`` batch, K5 on the trained DICS state and the first
+serve call's queries: the kernels line's inputs
+(``chip_smoke.kernel_batch`` / ``masked_scores_inputs`` /
+``dics_topn_inputs``); with K5 also the checkout's DICS serve p50, the
+median of SERVE_ROUNDS rounds of ``chip_smoke.dics_serve_calls``. K7:
+h2o-danube-1.8b's layer 0 q / k / v for ``chip_smoke.py``'s four
+8,192-token prompts (batch ``layer0``; the serving shape). Times are
 ``chip_smoke._time_ms(cover_enqueue=True)``, median of 7 (K1 / K4 on a
 fresh clone of the state), the card's time without the host's enqueue,
 and, as built, the profiler's device time. A variant's output is not
@@ -38,6 +48,7 @@ import contextlib
 import ctypes
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -74,7 +85,59 @@ _K7_LOADS_ONLY = """    if (n_tiles > 0) mbar_wait(bar.q, 0);
     }
     if (n_tiles >= 0) return;
 """
+# K2, strip design: the mask word of a row, its store, its FMAs.
+_K2_VEC = "  const bool vec = aligned && i0 + kVec <= I;"
+_K2_STORE = "        __stcs(reinterpret_cast<float4*>(out + row), o);"
+_K2_NO_STORE = ("        if (o.x == 1234.5f && o.w == -1234.5f)\n"
+                "          __stcs(reinterpret_cast<float4*>(out + row), o);")
+_K2_FMA = ("          for (int v = 0; v < kVec; ++v) "
+           "acc[v] = fmaf(uk, it[v][k], acc[v]);")
+# K5, query_group design.
+_K5_WORK = "  for (int x = 0; x < n_work; ++x) {"
+_K5_MERGE = "  for (int x = warp; x < n_work; x += kWarps) {"
 VARIANTS = {
+    "tiles": [],
+    "strip": [
+        ("scalar_mask", "masked_scores", "masked_scores.cu",
+         [(_K2_VEC, "  const bool vec = false;")]),
+        ("no_store", "masked_scores", "masked_scores.cu",
+         [(_K2_STORE, _K2_NO_STORE)]),
+        ("loads_only", "masked_scores", "masked_scores.cu",
+         [(_K2_STORE, _K2_NO_STORE), (_K2_FMA, "")]),
+        ("no_load_ahead", "masked_scores", "masked_scores.cu",
+         [("constexpr int kBatch = 8;", "constexpr int kBatch = 1;")]),
+        ("rows_8", "masked_scores", "masked_scores.cu",
+         [("constexpr int kRowsPerCta = 16;",
+           "constexpr int kRowsPerCta = 8;")]),
+        ("rows_32", "masked_scores", "masked_scores.cu",
+         [("constexpr int kRowsPerCta = 16;",
+           "constexpr int kRowsPerCta = 32;")]),
+    ],
+    "per_query": [],
+    "query_group": [
+        ("no_merge", "dics_topn", "dics_topn.cu",
+         [(_K5_MERGE, "  for (int x = warp; x < 0; x += kWarps) {")]),
+        ("compaction_only", "dics_topn", "dics_topn.cu",
+         [(_K5_WORK, "  for (int x = 0; x < 0; ++x) {"),
+          (_K5_MERGE, "  for (int x = warp; x < 0; x += kWarps) {")]),
+        ("runtime_lists", "dics_topn", "dics_topn.cu",
+         [("#pragma unroll\n  for (int j = KCAP - 1; j > 0; --j) {",
+           "#pragma unroll 1\n  for (int j = KCAP - 1; j > 0; --j) {")]),
+        ("no_empty_item", "dics_topn", "dics_topn.cu",
+         [("      if (n_hist[qb] > 0) {", "      if (true) {")]),
+        ("no_load_batch", "dics_topn", "dics_topn.cu",
+         [("constexpr int kLoads = 8; ", "constexpr int kLoads = 1; ")]),
+        ("no_mass", "dics_topn", "dics_topn.cu",
+         [("          s = neighbour_mass<KCAP>(", "          s = (float)id;\n"
+           "          if (H < 0) s = neighbour_mass<KCAP>(")]),
+        ("no_offers", "dics_topn", "dics_topn.cu",
+         [("      offer(lsc, lid, s, id, N, lane);",
+           "      if (s == 1.5f) offer(lsc, lid, s, id, N, lane);")]),
+        ("group_2", "dics_topn", "dics_topn.cu",
+         [("constexpr int kGroup = 8; ", "constexpr int kGroup = 2; ")]),
+        ("group_4", "dics_topn", "dics_topn.cu",
+         [("constexpr int kGroup = 8; ", "constexpr int kGroup = 4; ")]),
+    ],
     "sequential": [
         ("no_column_clear", "factor_update", "factor_update.cu",
          [(_SEQ_COL, "")]),
@@ -143,9 +206,14 @@ VARIANTS = {
           ("      turn_wait(wg);\n      pv_issue", "      pv_issue")]),
     ],
 }
-KERNELS = ("factor_update", "dics_update", "swa_attention")
+KERNELS = ("factor_update", "masked_scores", "dics_update", "dics_topn",
+           "swa_attention")
+# Rounds of chip_smoke.py's 8 DICS serve calls behind a checkout's serve p50.
+SERVE_ROUNDS = 32
 # The name the profiler gives each kernel's __global__ function.
 PROFILE_KEY = {"factor_update": "factor_update_", "dics_update": "dics_update_",
+               "masked_scores": "masked_scores_kernel",
+               "dics_topn": "dics_topn_kernel",
                "swa_attention": "swa_bf16_kernel"}
 
 
@@ -161,8 +229,21 @@ def swa_design(root: Path) -> str:
     return "wgmma" if "wgmma.mma_async" in src else "mma_sync"
 
 
+def scores_design(root: Path) -> str:
+    """The design of the checkout's K2 kernel."""
+    src = (root / CSRC / "masked_scores.cu").read_text()
+    return "strip" if "kStrip" in src else "tiles"
+
+
+def dics_topn_design(root: Path) -> str:
+    """The design of the checkout's K5 kernel."""
+    src = (root / CSRC / "dics_topn.cu").read_text()
+    return "query_group" if "kGroup" in src else "per_query"
+
+
 def kernel_design(root: Path, kernel: str) -> str:
-    return swa_design(root) if kernel == "swa_attention" else design(root)
+    return {"swa_attention": swa_design, "masked_scores": scores_design,
+            "dics_topn": dics_topn_design}.get(kernel, design)(root)
 
 
 def variant_sources(root: Path, kernels=KERNELS
@@ -279,15 +360,62 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
         return {"root": str(root), "design": kernel_design(root, kernel),
                 "card": card, "kernel": kernel, "ms": ms}
 
-    for kernel, cfg, profile in (
-            ("factor_update", cs.disgd_config(rt), MOVIELENS_25M),
-            ("dics_update", cs.dics_config(rt), NETFLIX)):
-        if kernel not in libs:
+    def serve_p50_ms(states, cfg, batches):
+        """``chip_smoke.py``'s phase ``dics_serve`` (its calls and
+        measure), SERVE_ROUNDS times over: the median wall ms of a
+        ``grid_topn(algorithm="dics")`` call."""
+        lat, _, counts = cs.dics_serve_calls(
+            torch, rt, states, cs.dics_serve_kw(cfg), batches,
+            rounds=SERVE_ROUNDS)
+        if counts["dics_topn"] != len(lat):
+            raise SystemExit(f"time_split: dics_topn launched "
+                             f"{counts['dics_topn']} times in {len(lat)} "
+                             "serve calls")
+        return 1e3 * statistics.median(lat)
+
+    for kernel, leaf, cfg, profile in (
+            ("factor_update", "masked_scores", cs.disgd_config(rt),
+             MOVIELENS_25M),
+            ("dics_update", "dics_topn", cs.dics_config(rt), NETFLIX)):
+        if kernel not in libs and leaf not in libs:
             continue
         users, items, _ = synth_stream(profile, seed=0)
         t0 = time.perf_counter()
         states = rt.run_stream(users, items, cfg).final_states
         train_s = time.perf_counter() - t0
+        if leaf == "masked_scores" and leaf in libs:
+            ev_u, _, u_slot, _, init_u, _ = cs.kernel_batch(
+                torch, np, users, items, cfg, np.random.default_rng(1))
+            args = cs.masked_scores_inputs(torch, states, ev_u, u_slot,
+                                           init_u)
+            print(json.dumps({
+                **split(leaf, None, lambda: ops.masked_scores(*args)),
+                "batch": "fresh", "train_s": train_s,
+                "shape": "W={} B={} I={} k={}".format(
+                    *args[2].shape, args[0].shape[2])}), flush=True)
+        if leaf == "dics_topn" and leaf in libs:
+            batches = cs.serve_batches(torch, np, users, torch.device("cuda"))
+            args, kw = cs.dics_topn_inputs(torch, states, cfg, batches[0])
+            hist = args[2]
+            # The same call with its longest history cleared: that row's
+            # share of the kernel.
+            light = hist.clone()
+            light.view(-1, hist.shape[-1])[hist.sum(-1).argmax()] = False
+            print(json.dumps({
+                **split(leaf, None, lambda: ops.dics_topn(*args, **kw)),
+                "ms_without_longest_history": time_ms(
+                    None, lambda: ops.dics_topn(*args[:2], light, *args[3:],
+                                                **kw)),
+                "batch": "serve", "train_s": train_s,
+                "serve_p50_ms": serve_p50_ms(states, cfg, batches),
+                "shape": "W={} B={} I={} k_nn={k_nn} N={top_n}".format(
+                    *hist.shape, **kw),
+                "mean_history": float(hist.sum(-1).float().mean()),
+                "max_history": int(hist.sum(-1).max())}), flush=True)
+        if kernel not in libs:
+            del states
+            torch.cuda.empty_cache()
+            continue
         h = cfg.resolved_hyper()
         batches = {name: cs._middle_batch(torch, np, users, items, cfg,
                                           np.random.default_rng(1), rate)
