@@ -33,8 +33,12 @@ DISGD (K1-K3):
      a PyTorch library call, with its bound; every kernel (and library
      call) also by its card time alone (``device_ms``,
      ``library_device_ms``); ``isgd_update`` (K6) on one
-     worker's tables and bucket of that micro-batch, and at
-     ``bench_kernels``' shapes (U 4,096, I 2,048, E 1,024 and 16,384);
+     worker's tables and bucket of that micro-batch, at
+     ``bench_kernels``' shapes (U 4,096, I 2,048, E 1,024 and 16,384)
+     and at E 16,384 with every event on one user row, each case beside
+     its chain depth; the rows of K2 / K3 / K5 / K6 carry ptxas's
+     registers, shared memory and stack per instance, and the instance
+     each path runs must have no stack frame or spill;
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
      stream with slot collisions.
 
@@ -212,6 +216,65 @@ def masked_scores_inputs(torch, states, ev_u, u_slot, init_u):
     return u_vecs, states.item_vecs, cand
 
 
+def fused_topn_inputs(torch, states, cfg, serve_q):
+    """K3's inputs on the kernels line: one ``grid_topn`` call's query
+    rows (``serve_q``, bucketed by user column as the serve plane does)
+    on the trained DISGD state: ((u_vecs, item_vecs, mask, item_ids),
+    dict(top_n))."""
+    from repro_torch.core import routing, serve
+    from repro_torch.serve.plane import query_capacity
+
+    hyper = cfg.resolved_hyper()
+    g, n_i = cfg.grid.g, cfg.grid.n_i
+    col = torch.where(serve_q >= 0, serve_q % g, g)
+    buckets, _, _ = routing.bucket_dispatch(col, g,
+                                            query_capacity(SERVE_BATCH, g))
+    qu = torch.where(buckets >= 0, serve_q[buckets.clamp(min=0).long()], -1)
+    qu = qu.repeat(n_i, 1)
+    sv, mask, _ = serve._gather_queries(states, qu, g, hyper.u_cap)
+    return ((sv, states.item_vecs, mask, states.tables.item_ids),
+            dict(top_n=hyper.top_n))
+
+
+def isgd_cases(torch, np, states, u_slot, i_slot, ev_u, k):
+    """K6's inputs on the kernels line: DISGD worker 0's tables and bucket
+    of ``kernel_batch``'s micro-batch, then ``benchmarks/bench_kernels.py``'s
+    shapes (U 4,096, I 2,048, E 1,024 and 16,384; seeded tables, random
+    slots with repeats, every event valid), and E 16,384 again with every
+    event on user row 0 (one chain as long as the batch). Returns [(case,
+    (user_tab, item_tab, u_slots, i_slots, valid))]."""
+    cases = [("worker", (states.user_vecs[0], states.item_vecs[0],
+                         u_slot[0].contiguous(), i_slot[0].contiguous(),
+                         (ev_u[0] >= 0).contiguous()))]
+    rng = np.random.default_rng(2)
+    dev = states.user_vecs.device
+    for e in (1024, 16384):
+        u_cap, i_cap = 4096, 2048
+        tabs = [torch.tensor(rng.normal(size=(n, k)), dtype=torch.float32,
+                             device=dev) for n in (u_cap, i_cap)]
+        slots = [torch.tensor(rng.integers(0, n, e), dtype=torch.int32,
+                              device=dev) for n in (u_cap, i_cap)]
+        cases.append((f"bench_{e}", (*tabs, *slots, torch.ones(
+            e, dtype=torch.bool, device=dev))))
+    _, (ut, it, us, is_, ok) = cases[-1]
+    cases.append(("one_row_16384", (ut, it, torch.zeros_like(us), is_, ok)))
+    return cases
+
+
+def chain_depth(np, u_slot, i_slot, valid, n_u, n_i) -> int:
+    """The longest chain of dependent events in an ISGD batch: an event
+    follows the last valid earlier event on its user row and on its item
+    row (slots outside the tables, like invalid events, run nothing)."""
+    us, is_, ok = (x.cpu().numpy() for x in (u_slot, i_slot, valid))
+    ok = ok.astype(bool) & (us >= 0) & (us < n_u) & (is_ >= 0) & (is_ < n_i)
+    lu, li, depth = {}, {}, 0
+    for e in np.flatnonzero(ok).tolist():
+        d = 1 + max(lu.get(int(us[e]), 0), li.get(int(is_[e]), 0))
+        lu[int(us[e])] = li[int(is_[e])] = d
+        depth = max(depth, d)
+    return depth
+
+
 def dics_topn_inputs(torch, states, cfg, serve_q):
     """K5's inputs on the kernels line: one ``grid_topn`` call's query
     rows (``serve_q``, bucketed by user column as the serve plane does)
@@ -236,21 +299,25 @@ def dics_topn_inputs(torch, states, cfg, serve_q):
             dict(top_n=hyper.top_n, k_nn=hyper.k_nn))
 
 
-def dics_serve_kw(cfg):
-    """``grid_topn``'s keywords for the DICS serve calls of ``cfg``."""
+def serve_kw(cfg):
+    """``grid_topn``'s keywords for the serve calls of ``cfg`` (DISGD or
+    DICS)."""
     from repro_torch.serve.plane import query_capacity
 
     hyper = cfg.resolved_hyper()
-    return dict(algorithm="dics", grid=cfg.grid, top_n=hyper.top_n,
-                u_cap=hyper.u_cap, qcap=query_capacity(SERVE_BATCH, cfg.grid.g),
-                k_nn=hyper.k_nn)
+    kw = dict(algorithm=cfg.algorithm, grid=cfg.grid, top_n=hyper.top_n,
+              u_cap=hyper.u_cap, qcap=query_capacity(SERVE_BATCH, cfg.grid.g))
+    if cfg.algorithm == "dics":
+        kw["k_nn"] = hyper.k_nn
+    return kw
 
 
-def dics_serve_calls(torch, rt, states, kw, batches, rounds=1):
-    """Phase ``dics_serve``'s calls: one warm-up call, the launch counts
-    set to 0, then ``grid_topn(states, q, **kw)`` for every serve batch
-    ``q``, ``rounds`` times over, each call's wall time taken from the
-    end of the previous call's synchronisation to the end of its own.
+def serve_calls(torch, rt, states, kw, batches, rounds=1):
+    """The calls of phases ``serve`` and ``dics_serve``: one warm-up
+    call, the launch counts set to 0, then ``grid_topn(states, q, **kw)``
+    for every serve batch ``q``, ``rounds`` times over, each call's wall
+    time taken from the end of the previous call's synchronisation to the
+    end of its own.
     Returns (seconds of each call, the last round's outputs, the launch
     counts of all rounds)."""
     from repro_torch.kernels import ops
@@ -339,23 +406,10 @@ def main():
     _profile_steps(torch, rt, users, items, cfg, steps=64)
 
     # -- 3. serving ----------------------------------------------------------
-    from repro_torch.serve.plane import query_capacity
-
-    qcap = query_capacity(SERVE_BATCH, grid.g)
-    kw = dict(algorithm="disgd", grid=grid, top_n=hyper.top_n, u_cap=U_CAP,
-              qcap=qcap)
+    kw = serve_kw(cfg)
+    qcap = kw["qcap"]
     batches = serve_batches(torch, np, users, dev)
-    rt.grid_topn(states, batches[0], **kw)          # warm the allocator
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    lat, outs = [], []
-    for q in batches:
-        t0 = time.perf_counter()
-        out = rt.grid_topn(states, q, **kw)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        outs.append(out)
-    serve_counts = ops.launch_counts()
+    lat, outs, serve_counts = serve_calls(torch, rt, states, kw, batches)
     if serve_counts["fused_topn"] != len(batches):
         fail(f"fused_topn launched {serve_counts['fused_topn']} times for "
              f"{len(batches)} serve calls")
@@ -378,7 +432,7 @@ def main():
 
     # -- 4. kernels against their plain versions -----------------------------
     kernels = _kernel_checks(torch, np, rt, users, items, states, cfg,
-                             batches[0], qcap, main_counts, serve_counts,
+                             batches[0], main_counts, serve_counts,
                              infos)
     del states, res, outs, batches
 
@@ -497,6 +551,19 @@ def _ptxas_instances(log: str, kernel: str) -> dict:
         fail(f"no ptxas report for {kernel}")
     return out
 
+
+
+def _registers_only(log: str, kernel: str, width: int) -> dict:
+    """``_ptxas_instances`` of a serving kernel (instances by k or k_nn
+    up to 4, 8, 10, 16, 32); the instance the path runs at ``width`` must
+    keep its per-thread arrays in registers: no stack frame, no spill."""
+    instances = _ptxas_instances(log, f"{kernel}_kernel")
+    kcap = min(c for c in (4, 8, 10, 16, 32) if c >= width)
+    used = instances.get(f"{kernel}_kernel<{kcap}>")
+    if used is None or used["stack_bytes"] or used["spill_store_bytes"]:
+        fail(f"{kernel}: the path's instance has a stack frame or spills: "
+             f"{instances}")
+    return instances
 
 def _close(got, want, what):
     import torch
@@ -617,9 +684,9 @@ def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
     return total
 
 
-def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
+def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
                    main_counts, serve_counts, infos):
-    from repro_torch.core import serve, state as state_lib
+    from repro_torch.core import state as state_lib
     from repro_torch.kernels import ops, ref
 
     hyper = cfg.resolved_hyper()
@@ -753,37 +820,27 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     del got, want, cand, not_cand, buf
 
     # K3 fused_topn on the serving inputs of one grid_topn call.
-    from repro_torch.core import routing
-
-    g, n_i = cfg.grid.g, cfg.grid.n_i
-    col = torch.where(serve_q >= 0, serve_q % g, g)
-    buckets, _, _ = routing.bucket_dispatch(col, g, qcap)
-    qu = torch.where(buckets >= 0, serve_q[buckets.clamp(min=0).long()], -1)
-    qu = qu.repeat(n_i, 1)
-    sv, mask, _ = serve._gather_queries(states, qu, g, hyper.u_cap)
-    ids = t.item_ids
-    got_ids, got_sc = ops.fused_topn(sv, states.item_vecs, mask, ids,
-                                     top_n=hyper.top_n)
-    want_ids, want_sc = ref.fused_topn(sv, states.item_vecs, mask, ids,
-                                       hyper.top_n)
+    (sv, items_t, mask, ids), k3_kw = fused_topn_inputs(torch, states, cfg,
+                                                        serve_q)
+    got_ids, got_sc = ops.fused_topn(sv, items_t, mask, ids, **k3_kw)
+    want_ids, want_sc = ref.fused_topn(sv, items_t, mask, ids, **k3_kw)
     err = _close(got_sc, want_sc, "fused_topn scores")
     bad = _ids_mismatch(got_ids, want_ids, want_sc)
     if bad:
         fail(f"fused_topn: {bad} ids differ away from score ties")
     b = mask.shape[1]
-    ms = _time_ms(torch, lambda: ops.fused_topn(
-        sv, states.item_vecs, mask, ids, top_n=hyper.top_n))
+    ms = _time_ms(torch, lambda: ops.fused_topn(sv, items_t, mask, ids,
+                                                **k3_kw))
     device_ms = _time_ms(torch, lambda: ops.fused_topn(
-        sv, states.item_vecs, mask, ids, top_n=hyper.top_n),
-        cover_enqueue=True)
+        sv, items_t, mask, ids, **k3_kw), cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.fused_topn(
-        sv, states.item_vecs, mask, ids, hyper.top_n), reps=5)
+        sv, items_t, mask, ids, **k3_kw), reps=5)
     not_mask = ~mask
     buf = torch.empty(mask.shape, device=sv.device)
 
     def library():
         torch.topk(torch.baddbmm(
-            buf, sv, states.item_vecs.transpose(1, 2), beta=0)
+            buf, sv, items_t.transpose(1, 2), beta=0)
             .masked_fill_(not_mask, float("-inf")), hyper.top_n, dim=-1)
 
     lib_ms = _time_ms(torch, library)
@@ -791,6 +848,7 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
     bound, by = _bound_ms(
         4 * n_w * (b * k + i * k + i) + n_w * b * i + 8 * n_w * b * hyper.top_n,
         2 * n_w * b * i * k)
+    n_cand = mask.sum(-1)
     rows.append(dict(
         name="fused_topn", route="cuda", matched=True,
         source="src/repro_torch/kernels/csrc/fused_topn.cu",
@@ -798,11 +856,16 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q, qcap,
         launches=serve_counts["fused_topn"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
         device_ms=device_ms, library_device_ms=lib_device_ms,
-        shape=f"W={n_w} B={b} I={i} k={k} N={hyper.top_n}"))
+        ptxas=_registers_only(infos["fused_topn"].ptxas, "fused_topn", k),
+        shape=f"W={n_w} B={b} I={i} k={k} N={hyper.top_n}",
+        rows_without_candidate=int((n_cand == 0).sum()),
+        rows_short=int(((n_cand > 0) & (n_cand < hyper.top_n)).sum())))
+    del not_mask, buf
 
     # K6 isgd_update on worker 0's tables and bucket of the same batch.
-    rows.append(_isgd_row(torch, np, states.user_vecs[0], states.item_vecs[0],
-                          u_slot[0], i_slot[0], ev_u[0] >= 0, hyper))
+    rows.append(_isgd_row(torch, np, isgd_cases(torch, np, states, u_slot,
+                                                i_slot, ev_u, k),
+                          hyper, infos))
     emit("kernels_vs_plain", matched=[r["name"] for r in rows],
          rtol=RTOL, atol=ATOL, score_gap=SCORE_GAP)
     return rows
@@ -845,38 +908,38 @@ def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
     return err, ms, plain_ms, bound, by, n_valid, device_ms
 
 
-def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
-    """K6 on one DISGD worker's tables and bucket (its path is
-    ``ops.isgd_update`` itself: counts zeroed, one call, read), then at
-    ``benchmarks/bench_kernels.py``'s shapes with repeated slots."""
+def _isgd_row(torch, np, cases, hyper, infos):
+    """K6 on ``isgd_cases``: one DISGD worker's tables and bucket (its
+    path is ``ops.isgd_update`` itself: counts zeroed, one call, read),
+    then ``benchmarks/bench_kernels.py``'s shapes; each case beside its
+    chain depth."""
     from repro_torch.kernels import ops
 
+    (_, (user_tab, item_tab, u_slot, i_slot, valid)), *bench_cases = cases
     ops.reset_launch_counts()
-    ops.isgd_update(user_tab.clone(), item_tab.clone(), u_slot.contiguous(),
-                    i_slot.contiguous(), valid.contiguous(), eta=hyper.eta,
-                    lam=hyper.lam)
+    ops.isgd_update(user_tab.clone(), item_tab.clone(), u_slot, i_slot,
+                    valid, eta=hyper.eta, lam=hyper.lam)
     launches = ops.launch_counts()["isgd_update"]
     if launches != 1:
         fail(f"isgd_update launched {launches} times for one call")
     err, ms, plain_ms, bound, by, n_valid, device_ms = _isgd_case(
         torch, user_tab, item_tab, u_slot, i_slot, valid, hyper)
     bench = []
-    rng = np.random.default_rng(2)
-    dev = user_tab.device
-    for e in (1024, 16384):
-        u_cap, i_cap, k = 4096, 2048, hyper.k
-        tabs = [torch.tensor(rng.normal(size=(n, k)), dtype=torch.float32,
-                             device=dev) for n in (u_cap, i_cap)]
-        slots = [torch.tensor(rng.integers(0, n, e), dtype=torch.int32,
-                              device=dev) for n in (u_cap, i_cap)]
+    for case, (ut, it, us, is_, ok) in bench_cases:
         b_err, b_ms, b_plain, b_bound, b_by, _, b_device = _isgd_case(
-            torch, *tabs, *slots, torch.ones(e, dtype=torch.bool,
-                                              device=dev), hyper,
-            plain_reps=1)
-        bench.append({"shape": f"U={u_cap} I={i_cap} E={e} k={k}",
+            torch, ut, it, us, is_, ok, hyper, plain_reps=1)
+        bench.append({"case": case,
+                      "shape": f"U={ut.shape[0]} I={it.shape[0]} "
+                               f"E={us.numel()} k={ut.shape[1]}",
+                      "chain_depth": chain_depth(np, us, is_, ok,
+                                                 ut.shape[0], it.shape[0]),
                       "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
                       "device_ms": b_device, "bound_ms": b_bound,
                       "bound_by": b_by})
+    entry = _ptxas_entries(infos["isgd_update"].ptxas).get(
+        "isgd_update_kernel")
+    if entry is None or entry["stack_bytes"] or entry["spill_store_bytes"]:
+        fail(f"isgd_update: no ptxas report, a stack frame or spills: {entry}")
     return dict(
         name="isgd_update", route="cuda", matched=True,
         source="src/repro_torch/kernels/csrc/isgd_update.cu",
@@ -885,9 +948,13 @@ def _isgd_row(torch, np, user_tab, item_tab, u_slot, i_slot, valid, hyper):
         bound_by=by, library_ms=None, device_ms=device_ms,
         library="none: no single PyTorch call runs a chain of dependent "
                 "SGD steps",
+        ptxas=entry,
         shape=f"U={user_tab.shape[0]} I={item_tab.shape[0]} "
               f"E={u_slot.numel()} k={user_tab.shape[1]} (one worker)",
-        valid_events=n_valid, bench=bench)
+        valid_events=n_valid,
+        chain_depth=chain_depth(np, u_slot, i_slot, valid,
+                                user_tab.shape[0], item_tab.shape[0]),
+        bench=bench)
 
 
 def _backends_agree(torch, np, rt):
@@ -963,10 +1030,10 @@ def _dics_phases(torch, np, rt, dev, infos):
                    phase="dics_profile")
 
     # -- 7. dics_serve ----------------------------------------------------------
-    kw = dics_serve_kw(cfg)
+    kw = serve_kw(cfg)
     qcap = kw["qcap"]
     batches = serve_batches(torch, np, users, dev)
-    lat, outs, serve_counts = dics_serve_calls(torch, rt, states, kw,
+    lat, outs, serve_counts = serve_calls(torch, rt, states, kw,
                                                batches)
     if serve_counts["dics_topn"] != len(batches):
         fail(f"dics_topn launched {serve_counts['dics_topn']} times for "
@@ -1143,13 +1210,8 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q,
     device_ms = _time_ms(torch, lambda: ops.dics_topn(*args, **kw),
                          cover_enqueue=True)
     plain_ms = _time_ms(torch, lambda: ref.dics_topn(*args, **kw), reps=5)
-    # The instance the serve path runs must keep its lists in registers.
-    k5_ptxas = _ptxas_instances(infos["dics_topn"].ptxas, "dics_topn_kernel")
-    kcap = min(c for c in (4, 8, 10, 16, 32) if c >= hyper.k_nn)
-    used = k5_ptxas.get(f"dics_topn_kernel<{kcap}>")
-    if used is None or used["stack_bytes"] or used["spill_store_bytes"]:
-        fail(f"dics_topn: the serve path's instance has a stack frame or "
-             f"spills: {k5_ptxas}")
+    k5_ptxas = _registers_only(infos["dics_topn"].ptxas, "dics_topn",
+                               hyper.k_nn)
     b, i = hist.shape[1], hist.shape[2]
     h_len = hist.sum(-1)                                    # [W, B]
     cols = hist.any(1).sum(-1)                              # [W] distinct q

@@ -61,7 +61,6 @@ constexpr int kGroup = 8;            // queries per CTA (fewer when I is large)
 constexpr int kEmpty = kGroup;       // the work item of history-less queries
 constexpr int kMaxN = 32;
 constexpr int kLoads = 8;            // co loads issued ahead of their inserts
-constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
 __host__ __device__ size_t smem_per_query(int I) {
@@ -116,36 +115,6 @@ __device__ __forceinline__ float neighbour_mass(const float* co_p, float cp,
     if (j < K) acc = acc + top[j];
   }
   return acc > 0.f ? acc : -INFINITY;
-}
-
-// Offer each lane's (s, id) to the warp's running top-N (lane j holds
-// entry j of N, sorted by better()): the offers that beat the last entry
-// go in lane order, each re-checked against the new last entry.
-__device__ __forceinline__ void offer(float& lsc, int& lid, float s, int id,
-                                      int N, int lane) {
-  unsigned pend = __ballot_sync(
-      kFull, better(s, id, __shfl_sync(kFull, lsc, N - 1),
-                    __shfl_sync(kFull, lid, N - 1)));
-  while (pend) {
-    const int src = __ffs(pend) - 1;
-    const float cs = __shfl_sync(kFull, s, src);
-    const int cid = __shfl_sync(kFull, id, src);
-    const int r =
-        __popc(__ballot_sync(kFull, lane < N && !better(cs, cid, lsc, lid)));
-    const float up_s = __shfl_up_sync(kFull, lsc, 1);
-    const int up_id = __shfl_up_sync(kFull, lid, 1);
-    if (r < N && lane == r) {
-      lsc = cs;
-      lid = cid;
-    } else if (r < N && lane > r) {
-      lsc = up_s;
-      lid = up_id;
-    }
-    pend &= pend - 1;
-    pend &= __ballot_sync(
-        kFull, better(s, id, __shfl_sync(kFull, lsc, N - 1),
-                      __shfl_sync(kFull, lid, N - 1)));
-  }
 }
 
 template <int KCAP>
@@ -246,28 +215,8 @@ __global__ void __launch_bounds__(kThreads) dics_topn_kernel(
 
   // Merge the 8 warp lists of each work item: lane l < 8 owns list l.
   for (int x = warp; x < n_work; x += kWarps) {
-    int head = 0;
-    for (int r = 0; r < N; ++r) {
-      const bool has = lane < kWarps && head < N;
-      float s = has ? psc[x][lane][head] : -INFINITY;
-      int id = has ? pid[x][lane][head] : INT_MAX;
-      int src = lane;
-      for (int o = kWarps / 2; o > 0; o >>= 1) {
-        const float s2 = __shfl_xor_sync(kFull, s, o);
-        const int id2 = __shfl_xor_sync(kFull, id, o);
-        const int src2 = __shfl_xor_sync(kFull, src, o);
-        if (better(s2, id2, s, id) || (s2 == s && id2 == id && src2 < src)) {
-          s = s2;
-          id = id2;
-          src = src2;
-        }
-      }
-      if (lane == src) ++head;
-      if (lane == 0) {
-        msc[x][r] = s;
-        mid[x][r] = id;
-      }
-    }
+    merge_lists<kWarps>(&psc[x][0][0], &pid[x][0][0], kMaxN, N, lane,
+                        msc[x], mid[x]);
   }
   __syncthreads();
 

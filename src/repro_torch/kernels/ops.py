@@ -143,8 +143,11 @@ def isgd_update(user_tab, item_tab, u_slots, i_slots, valid, *, eta: float,
     version. Such slots fall outside the parity contract with
     ``repro.kernels.ops.isgd_update``, which wraps a negative slot to the
     last row and, for a slot past the end, clamps its gather to the last
-    row and drops its scatter. Kernel: ``csrc/isgd_update.cu``, one warp
-    running the events in order. Returns the (mutated) ``(user_tab,
+    row and drops its scatter. Kernel: ``csrc/isgd_update.cu``, one CTA
+    taking the events in staged chunks: each event linked to the previous
+    one on its user and item row, then replayed by 32 warps as those
+    finish (every row's events in the batch's order, so the result is
+    the sequential one bit for bit). Returns the (mutated) ``(user_tab,
     item_tab)``.
     """
     if _on_cpu(user_tab, item_tab, u_slots, i_slots, valid):
@@ -223,7 +226,13 @@ def fused_topn(u_vecs, item_vecs, mask, item_ids, *, top_n: int):
     [W, B, I]; item_ids i32[W, I]. Returns (ids i32[W, B, n], scores
     f32[W, B, n]) with ``n = min(top_n, I)``, ordered (score desc, id
     asc) exactly as ``masked_scores`` + ``topn_select``. Kernel:
-    ``csrc/fused_topn.cu``; plain version ``ref.fused_topn``.
+    ``csrc/fused_topn.cu`` (one CTA per 8 queries of a worker, strided
+    over its rows; passes of 1,024 items staged in shared memory by
+    cp.async, byte loads where a source is not 16-byte aligned; 4 items a
+    thread scored against the 8 queries; one running top-N a query, one
+    entry a lane, held in its warp; one shared list for rows without a
+    candidate, an exact pass for rows with 1 to N - 1); plain version
+    ``ref.fused_topn``.
     """
     if _on_cpu(u_vecs, item_vecs, mask, item_ids):
         return ref.fused_topn(u_vecs, item_vecs, mask, item_ids, top_n)

@@ -22,8 +22,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from tests.test_torch_kernels_gpu import (  # noqa: E402
     ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
     _assert_state_equal, _dics_events, _dics_state, _dics_topn_inputs,
-    _events, _isgd_inputs, _score_inputs, _swa_inputs, _torch_dics_apply,
-    _torch_factor_apply, _worker_state)
+    _events, _isgd_inputs, _late_candidates, _score_inputs, _swa_inputs,
+    _torch_dics_apply, _torch_factor_apply, _worker_state)
 
 
 # -- CPU parity against the JAX kernels (interpret mode) ------------------
@@ -326,6 +326,342 @@ def test_k5_group_follows_the_kernels_shared_memory():
     assert _k5_group(6_200) == 8
     assert _k5_group(7_000) == 7
     assert _k5_group(60_000) == 1
+
+
+# -- K3 fused_topn's list building -------------------------------------------
+
+# csrc/fused_topn.cu's kGroup (queries a CTA), kWarps (warps a CTA) and
+# kItems (consecutive items a thread).
+K3_GROUP, K3_WARPS, K3_ITEMS = 8, 8, 4
+_WORST = (float("-inf"), 2**31 - 1)              # an unused list entry
+
+
+def _better(a, b):
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _offer(lst, offers):
+    """topn_merge.cuh's ``offer``: the offers (in lane order) that beat
+    the list's last entry go in one by one, each behind the entries it
+    does not beat, the rest re-checked against the new last entry."""
+    n = len(lst)
+    pend = [e for e in offers if _better(e, lst[-1])]
+    while pend:
+        e = pend.pop(0)
+        r = sum(not _better(e, x) for x in lst)
+        if r < n:
+            lst = lst[:r] + [e] + lst[r:-1]
+        pend = [x for x in pend if _better(x, lst[-1])]
+    return lst
+
+
+def _merge(lists, n):
+    """``merge_lists``: n rounds of an arg-max over the lists' heads by
+    (score desc, id asc, list asc), each popping the winner's head."""
+    heads, out = [0] * len(lists), []
+    for _ in range(n):
+        best = None
+        for v, lst in enumerate(lists):
+            e = lst[heads[v]] if heads[v] < n else _WORST
+            if best is None or _better(e, best[0]):
+                best = (e, v)
+        out.append(best[0])
+        heads[best[1]] += 1
+    return out
+
+
+def fused_topn_schedule(u_vecs, item_vecs, mask, item_ids, top_n):
+    """The ``fused_topn`` kernel's way to ``ref.fused_topn``'s lists, step
+    by step in Python (small shapes only): the scores are
+    ``ref.masked_scores``', the list building is the kernel's.
+
+    Per CTA of K3_GROUP queries (CTA c of n takes rows c, c + n, ...),
+    the items go 1,024 a pass. Query q's one list (its warp's): per pass,
+    lane l marks which of its items ``base + 32 j + l`` (j < 32) beat the
+    list's last entry at the start of the pass (finite scores only); while
+    the list still fills (its last entry -inf), a pass with no finite
+    score is skipped, and only scores no lower than the pass floor (the
+    N-th largest of the 32 lanes' best scores) are marked; then each round
+    j with a mark offers the marked lanes' entries. The list of
+    candidate-less rows: warp v = t // 32 of thread t keeps a list of the
+    ids of items ``base + 4 t .. base + 4 t + 3`` at -inf (item j of every
+    lane, then item j + 1), and the warp lists are merged. A query with N
+    finite entries keeps its list, one with none takes the -inf list (the
+    worker's N smallest ids), and one with 1 to N - 1 takes an exact pass:
+    warp v offers items ``32 v + lane + 256 j`` with their scores or -inf,
+    32 at a time, and the warp lists are merged.
+    Returns (ids i32[W, B, n], scores f32[W, B, n]).
+    """
+    n_w, n_b, n_i = mask.shape
+    n = min(top_n, n_i)
+    threads = 32 * K3_WARPS
+    span = threads * K3_ITEMS
+    scores = ref.masked_scores(u_vecs, item_vecs, mask).tolist()
+    ids = item_ids.tolist()
+    ninf = float("-inf")
+
+    def query_list(row, ids_w):
+        lst = [_WORST] * n
+        for base in range(0, n_i, span):
+            last = lst[-1]
+            floor = ninf
+            if last[0] == ninf:        # the list still fills
+                best = [max((row[p] for p in range(base + l, base + span, 32)
+                             if p < n_i), default=ninf) for l in range(32)]
+                if max(best) == ninf:
+                    continue
+                floor = sorted(best, reverse=True)[n - 1]
+            marks = [[p < n_i and row[p] > ninf and row[p] >= floor
+                      and _better((row[p], ids_w[p]), last)
+                      for p in range(base + 32 * j, base + 32 * j + 32)]
+                     for j in range(span // 32)]
+            for j, lanes in enumerate(marks):
+                if any(lanes):
+                    lst = _offer(lst, [
+                        (row[base + 32 * j + l], ids_w[base + 32 * j + l])
+                        if lanes[l] else _WORST for l in range(32)])
+        return lst
+
+    def empty_lists(ids_w):
+        lists = []
+        for v in range(K3_WARPS):
+            lst = [_WORST] * n
+            for base in range(0, n_i, span):
+                for j in range(K3_ITEMS):
+                    lst = _offer(lst, [
+                        (ninf, ids_w[p]) if p < n_i else _WORST
+                        for p in (base + K3_ITEMS * (32 * v + lane) + j
+                                  for lane in range(32))])
+            lists.append(lst)
+        return lists
+
+    def exact_lists(row, ids_w):
+        lists = []
+        for v in range(K3_WARPS):
+            lst = [_WORST] * n
+            for base in range(32 * v, n_i, threads):
+                lst = _offer(lst, [(row[p], ids_w[p]) if p < n_i else _WORST
+                                   for p in range(base, base + 32)])
+            lists.append(lst)
+        return lists
+
+    out_ids = torch.empty((n_w, n_b, n), dtype=torch.int32)
+    out_sc = torch.empty((n_w, n_b, n), dtype=torch.float32)
+    for w in range(n_w):
+        empty = _merge(empty_lists(ids[w]), n)
+        n_cta = -(-n_b // K3_GROUP)
+        for c in range(n_cta):
+            for b in range(c, n_b, n_cta):
+                lst = query_list(scores[w][b], ids[w])
+                finite = sum(e[0] > ninf for e in lst)
+                if finite == 0:
+                    lst = empty
+                elif finite < n:
+                    lst = _merge(exact_lists(scores[w][b], ids[w]), n)
+                out_sc[w, b] = torch.tensor([e[0] for e in lst])
+                out_ids[w, b] = torch.tensor([e[1] for e in lst],
+                                             dtype=torch.int32)
+    return out_ids, out_sc
+
+
+def _fused_case(rng, shape, top_n, kind, ties):
+    """``_score_inputs`` made into one of K3's hard cases: ``"few"`` (row
+    r keeps 0, 1, N - 1, N, N + 1 or all of its candidates), ``"late"``
+    (``_late_candidates``: a list that still fills when a later pass of N
+    or more candidates begins),
+    ``"none"`` (padding rows only: no candidate anywhere)."""
+    u, it, mask, ids = _score_inputs(rng, *shape, ties=ties)
+    if kind == "few":
+        for r in range(mask.shape[1]):
+            c = [0, 1, top_n - 1, top_n, top_n + 1, shape[2]][r % 6]
+            mask[:, r] &= np.cumsum(mask[:, r], axis=-1) <= c
+    elif kind == "late":
+        _late_candidates(u, it, mask, top_n)
+    elif kind == "none":
+        mask[:] = False
+    return [torch.tensor(x) for x in (u, it, mask, ids)]
+
+
+# (n_w, b, i, k), top_n, kind: I not a multiple of a thread's 4 items or
+# of the CTA's 1,024 (37, 1,030), B not a multiple of the CTA's 8
+# queries, rows with 0, 1, N - 1, N, N + 1 and all candidates, rows whose
+# list still fills after the first of 3 passes (the pass floor), padding
+# rows only, lists of 1 and 32, and I < N.
+K3_SCHEDULE_CASES = {
+    "tiny": ((2, 9, 37, 4), 7, None),
+    "few_candidates": ((2, 13, 1030, 3), 10, "few"),
+    "late_candidates": ((1, 9, 3072, 3), 10, "late"),
+    "late_lists_32": ((1, 9, 3072, 3), 32, "late"),
+    "padding_only": ((1, 10, 300, 3), 10, "none"),
+    "lists_1": ((1, 9, 100, 3), 1, "few"),
+    "lists_32": ((1, 12, 300, 3), 32, "few"),
+    "items_below_n": ((2, 9, 7, 4), 10, None),
+}
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("case", list(K3_SCHEDULE_CASES))
+def test_fused_topn_schedule_matches_plain(case, ties):
+    """The kernel's list building (``fused_topn_schedule``: one lane list
+    a query offered its marked finite scores pass by pass, the shared -inf
+    list of rows without a candidate, the exact pass of rows with 1 to
+    N - 1, the merges) gives the plain version's lists exactly: ties
+    broken by id, duplicate -1 ids of empty slots included."""
+    shape, top_n, kind = K3_SCHEDULE_CASES[case]
+    args = _fused_case(np.random.default_rng(61), shape, top_n, kind, ties)
+    got_ids, got_sc = fused_topn_schedule(*args, top_n)
+    want_ids, want_sc = ref.fused_topn(*args, top_n)
+    assert torch.equal(got_ids, want_ids)
+    assert torch.equal(got_sc, want_sc)
+    if kind != "none":
+        assert torch.isinf(want_sc).any() and torch.isfinite(want_sc).any()
+
+
+def test_fused_topn_schedule_matches_the_pallas_kernel():
+    """Tied integer factors (exact scores), rows with few candidates and
+    dead slots: the schedule's lists equal the Pallas body's (interpret
+    mode) exactly."""
+    args = _fused_case(np.random.default_rng(62), (2, 12, 40, 4), 7, "few",
+                       True)
+    got_ids, got_sc = fused_topn_schedule(*args, 7)
+    for w in range(2):
+        want_ids, want_sc = jops.fused_topn(
+            *(jnp.asarray(x[w].numpy()) for x in args), top_n=7,
+            interpret=True)
+        np.testing.assert_array_equal(got_ids[w].numpy(), np.asarray(want_ids))
+        np.testing.assert_array_equal(got_sc[w].numpy(), np.asarray(want_sc))
+
+
+# -- K6 isgd_update's replay -------------------------------------------------
+
+# csrc/isgd_update.cu's warps and largest chunk (k <= 22 fits 2,048 events).
+K6_WARPS, K6_CHUNK = 32, 2048
+
+
+def _previous_events(slots, ok):
+    """For each event, the previous ``ok`` event on its slot (-1: none),
+    and whether it is the last one: the kernel's links."""
+    prev = np.full(slots.size, -1)
+    last = np.zeros(slots.size, bool)
+    order = np.lexsort((np.arange(slots.size), slots))
+    order = order[ok[order]]
+    for a, b in zip(order[:-1], order[1:]):
+        if slots[a] == slots[b]:
+            prev[b] = a
+    for a, b in zip(order, list(order[1:]) + [-1]):
+        last[a] = b < 0 or slots[a] != slots[b]
+    return prev, last
+
+
+def isgd_schedule(user_tab, item_tab, u_slots, i_slots, valid, *, eta, lam,
+                  chunk=K6_CHUNK):
+    """The ``isgd_update`` kernel's way to ``ref.isgd_apply``, IN PLACE:
+    per chunk, each valid in-range event linked to the previous one on
+    its user and its item row, the rows of events with no previous one
+    gathered, then a dataflow replay on the staged rows: an event belongs
+    to warp ``slot % K6_WARPS`` of its row in the table with more links in
+    the chunk; each warp runs its events in order, each once both of its
+    previous events have run (the warps take turns, one event at a time),
+    with the plain version's arithmetic; every row is written back by its
+    last event. Returns (user_tab, item_tab, [chain depth of each chunk]).
+    """
+    u_all, i_all = u_slots.numpy(), i_slots.numpy()
+    inside = ((u_all >= 0) & (u_all < user_tab.shape[0]) & (i_all >= 0)
+              & (i_all < item_tab.shape[0]))
+    ok_all = valid.numpy().astype(bool) & inside
+    depths = []
+    for e0 in range(0, u_all.size, chunk):
+        us, is_ = u_all[e0:e0 + chunk], i_all[e0:e0 + chunk]
+        ok = ok_all[e0:e0 + chunk]
+        pu, last_u = _previous_events(us, ok)
+        pi, last_i = _previous_events(is_, ok)
+        urow = {e: user_tab[us[e]:us[e] + 1].clone()
+                for e in np.flatnonzero(ok & (pu < 0))}
+        irow = {e: item_tab[is_[e]:is_[e] + 1].clone()
+                for e in np.flatnonzero(ok & (pi < 0))}
+        owner = (is_ if (pi >= 0).sum() > (pu >= 0).sum() else us) % K6_WARPS
+        queues = [[e for e in range(us.size) if ok[e] and owner[e] == v]
+                  for v in range(K6_WARPS)]
+        level = {}
+        while any(queues):
+            ran = False
+            for q in queues:
+                if not q:
+                    continue
+                e = q[0]
+                a, b = pu[e], pi[e]
+                if (a >= 0 and a not in level) or (b >= 0 and b not in level):
+                    continue
+                u = urow[a if a >= 0 else e]
+                i = irow[b if b >= 0 else e]
+                err = 1.0 - (u * i).sum(-1, keepdim=True)
+                urow[e] = u + eta * (err * i - lam * u)
+                irow[e] = i + eta * (err * u - lam * i)
+                level[e] = 1 + max(level.get(a, 0), level.get(b, 0))
+                q.pop(0)
+                ran = True
+            assert ran, "the replay waits on an event that never runs"
+        for e in np.flatnonzero(ok & last_u):
+            user_tab[us[e]:us[e] + 1] = urow[e]
+        for e in np.flatnonzero(ok & last_i):
+            item_tab[is_[e]:is_[e] + 1] = irow[e]
+        depths.append(max(level.values(), default=0))
+    return user_tab, item_tab, depths
+
+
+def _isgd_chain_case(rng, kind, u_cap=64, i_cap=48, k=10, n_ev=1024):
+    inp = _isgd_inputs(rng, u_cap, i_cap, k, n_ev)
+    if kind == "one_slot":             # every event on one user and item row
+        inp["u_slots"][:] = 5
+        inp["i_slots"][:] = 3
+    elif kind == "alternating":        # two rows each, taking turns
+        inp["u_slots"] = (np.arange(n_ev) % 2 * 9).astype(np.int32)
+        inp["i_slots"] = (np.arange(n_ev) // 2 % 2 * 7).astype(np.int32)
+    elif kind == "outside":            # slots past either table skipped
+        inp["u_slots"][::5] = u_cap
+        inp["i_slots"][3::7] = -1
+    return inp
+
+
+@pytest.mark.parametrize("chunk", [K6_CHUNK, 100])
+@pytest.mark.parametrize("kind", ["one_slot", "alternating", "random",
+                                  "outside"])
+def test_isgd_schedule_matches_plain_bit_for_bit(kind, chunk):
+    """The kernel's replay order (``isgd_schedule``) gives the plain
+    version's tables bit for bit: one row pair hit by every event (a chain
+    as long as the batch), rows taking turns, random slots at E = 1,024
+    (and chunks of 100 events, so rows carry over between chunks), slots
+    outside the tables."""
+    inp = _isgd_chain_case(np.random.default_rng(71), kind)
+    got = [torch.tensor(inp[n]) for n in ISGD_NAMES]
+    want = [torch.tensor(inp[n]) for n in ISGD_NAMES]
+    got_u, got_i, depths = isgd_schedule(*got, eta=0.05, lam=0.01,
+                                         chunk=chunk)
+    want_u, want_i = ref.isgd_apply(*want, eta=0.05, lam=0.01)
+    assert torch.equal(got_u, want_u) and torch.equal(got_i, want_i)
+    n_ok = int(inp["valid"].sum())
+    if kind == "one_slot":             # one event after another
+        assert sum(depths) == n_ok
+    if kind == "random":               # far shorter than the batch
+        assert max(depths) < n_ok // 10
+
+
+def test_isgd_schedule_matches_the_pallas_kernel():
+    """Random slots with repeats and invalid events: the schedule's tables
+    against the Pallas body (interpret mode), at the K6 tests'
+    tolerance."""
+    inp = _isgd_chain_case(np.random.default_rng(72), "random", 32, 24, 8,
+                           200)
+    got_u, got_i, _ = isgd_schedule(
+        *(torch.tensor(inp[n]) for n in ISGD_NAMES), eta=0.05, lam=0.01,
+        chunk=64)
+    want_u, want_i = jops.isgd_update(
+        *(jnp.asarray(inp[n]) for n in ISGD_NAMES), eta=0.05, lam=0.01,
+        interpret=True)
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), rtol=1e-5,
+                               atol=1e-6)
 
 
 def _swa_check(q, k, v, dtype, *, window, causal=True, pallas=True):

@@ -322,6 +322,143 @@ def test_fused_topn_kernel_matches_plain(cuda_device, shape, ties):
         np.testing.assert_array_equal(got_ids[sep], want_ids[sep])
 
 
+
+def _assert_topn_match(got, want, exact):
+    """``fused_topn`` lists against the plain version's: scores within
+    RTOL / ATOL (the two sum k products in other orders); ids exactly
+    where ``exact`` (integer factors: exact scores) or else wherever
+    neighbouring scores are clearly apart."""
+    (got_ids, got_sc), (want_ids, want_sc) = (
+        [x.cpu().numpy() for x in pair] for pair in (got, want))
+    np.testing.assert_array_equal(np.isneginf(got_sc), np.isneginf(want_sc))
+    np.testing.assert_allclose(got_sc, want_sc, rtol=RTOL, atol=ATOL)
+    if exact:
+        np.testing.assert_array_equal(got_ids, want_ids)
+        return
+    gap = np.abs(np.diff(want_sc, axis=-1))
+    sep = np.ones_like(want_sc, dtype=bool)
+    near = ~((gap > 1e-4) | np.isnan(gap))
+    sep[..., 1:] &= ~near
+    sep[..., :-1] &= ~near
+    np.testing.assert_array_equal(got_ids[sep], want_ids[sep])
+
+
+def _candidate_counts(mask, counts):
+    """Row r of every worker keeps only its first ``counts[r % len]``
+    candidates (a count past I keeps them all)."""
+    for r in range(mask.shape[1]):
+        c = counts[r % len(counts)]
+        row = mask[:, r]
+        keep = np.cumsum(row, axis=-1) <= c
+        mask[:, r] = row & keep
+
+
+def _late_candidates(u, it, mask, top_n, span=1024):
+    """Row r of every worker keeps candidates as the r-th of the patterns
+    below (in turn) says, in the kernel's passes of ``span`` items: c1 of
+    the last 32 items of pass 1 (those that score lowest), then in pass 2
+    the N best of its first 32 items ("top": one a lane, so the pass floor
+    is their lowest score), all its candidates or none, then c3 of the
+    first 32 items of pass 3 (lowest) or all its candidates. So the list
+    still fills when a later pass of N or more candidates begins, and
+    after "top" it ends full with pass 2's entries first: a floor set too
+    high changes it."""
+    n = top_n
+    patterns = [(0, "top", n), (1, "top", 1), (n - 1, "top", 0),
+                (n // 2, "top", n // 2), (1, "all", "all"), (0, None, "all")]
+    scores = np.einsum("wbk,wik->wbi", u.astype(np.float64),
+                       it.astype(np.float64))
+
+    def pick(row, lo, count, low):
+        s = row[lo:lo + 32]
+        keep = np.zeros(32, bool)
+        keep[np.argsort(s if low else -s, kind="stable")[:count]] = True
+        return keep
+
+    for r in range(mask.shape[1]):
+        if not mask[:, r].any():       # a row without a candidate stays so
+            continue
+        c1, mid, c3 = patterns[r % len(patterns)]
+        for w in range(mask.shape[0]):
+            row, sc = mask[w, r].copy(), scores[w, r]
+            mask[w, r] = False
+            mask[w, r, span - 32:span] = pick(sc, span - 32, c1, True)
+            if mid == "top":
+                mask[w, r, span:span + 32] = pick(sc, span, n, False)
+            elif mid == "all":
+                mask[w, r, span:2 * span] = row[span:2 * span]
+            if c3 == "all":
+                mask[w, r, 2 * span:] = row[2 * span:]
+            else:
+                mask[w, r, 2 * span:2 * span + 32] = pick(sc, 2 * span, c3,
+                                                          True)
+
+
+# K3's hard cases (csrc/fused_topn.cu): I not a multiple of 4 (the byte
+# mask loads and scalar item loads: 37, 6,785), k at both ends and at the
+# serve width (1, 10, 32: the instances' widths and the float4 path), N at
+# both ends (1, 32: the longest lane list), rows with 0, 1, N - 1, N, N + 1
+# and all candidates (the shared list of rows without a candidate and
+# the exact pass of rows with 1 to N - 1), rows whose list still fills
+# when a later pass of N or more candidates begins (the pass floor; I =
+# 3,072 takes the cp.async copies across 3 passes), a batch of padding
+# rows only (no candidate anywhere), and I < N (n = I). (n_w, b, i, k),
+# top_n, kind.
+FUSED_CASES = {
+    "items_37": ((2, 9, 37, 8), 10, None),
+    "items_6785": ((2, 37, 6785, 10), 10, None),
+    "k_1": ((2, 40, 300, 1), 10, None),
+    "k_10": ((2, 40, 1024, 10), 10, None),
+    "k_32": ((2, 40, 300, 32), 10, None),
+    "n_1": ((2, 24, 300, 10), 1, None),
+    "n_32": ((2, 24, 300, 10), 32, None),
+    "few_candidates": ((3, 50, 1024, 10), 10, "few"),
+    "late_candidates": ((2, 40, 3072, 10), 10, "late"),
+    "late_n_32": ((2, 40, 3072, 10), 32, "late"),
+    "padding_only": ((2, 64, 1024, 10), 10, "none"),
+    "items_below_n": ((2, 9, 7, 8), 10, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_topn_kernel_hard_cases(cuda_device, case, ties):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, top_n, kind = FUSED_CASES[case]
+    u, it, mask, ids = _score_inputs(np.random.default_rng(19), *shape,
+                                     ties=ties)
+    if kind == "few":
+        _candidate_counts(mask, [0, 1, top_n - 1, top_n, top_n + 1,
+                                 shape[2]])
+    elif kind == "late":
+        _late_candidates(u, it, mask, top_n)
+    elif kind == "none":
+        mask[:] = False
+    args = [torch.tensor(x, device=cuda_device) for x in (u, it, mask, ids)]
+    before = ops.launch_counts()["fused_topn"]
+    got = ops.fused_topn(*args, top_n=top_n)
+    assert ops.launch_counts()["fused_topn"] == before + 1
+    assert got[0].shape == (shape[0], shape[1], min(top_n, shape[2]))
+    _assert_topn_match(got, ref.fused_topn(*args, top_n=top_n), ties)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied"])
+def test_fused_topn_kernel_takes_a_mask_at_an_odd_address(cuda_device, ties):
+    """A contiguous mask view one byte into its buffer cannot take the
+    4-byte mask loads: the kernel's byte loads run, with the same lists."""
+    u, it, mask, ids = _score_inputs(np.random.default_rng(23), 2, 20, 1024,
+                                     10, ties=ties)
+    buf = torch.zeros(mask.size + 1, dtype=torch.uint8, device=cuda_device)
+    odd = buf[1:].view(mask.shape)
+    odd.copy_(torch.tensor(mask, device=cuda_device))
+    assert odd.data_ptr() % 4 and odd.is_contiguous()
+    u_t, it_t, ids_t = (torch.tensor(x, device=cuda_device)
+                        for x in (u, it, ids))
+    _assert_topn_match(ops.fused_topn(u_t, it_t, odd, ids_t, top_n=10),
+                       ref.fused_topn(u_t, it_t, odd, ids_t, top_n=10), ties)
+
 # As FACTOR_CASES, for DICS; the last user and item slots are live, so
 # padding clears them. i_cap 32 and 48 take the kernel's 16-byte loads of
 # the history rows (48: a half word last), 5, 24 and 70 its byte loads.
@@ -605,6 +742,54 @@ def test_isgd_update_kernel_matches_plain(cuda_device, shape):
     for got, want in zip(out["kernel"], out["plain"]):
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
+
+
+def _isgd_one_event_at_a_time(args, eta, lam):
+    """The kernel launched once per event: the batch's order with the
+    kernel's own arithmetic, one dependent step after another."""
+    ut, it, u_slots, i_slots, valid = args
+    for e in range(u_slots.shape[0]):
+        ops.isgd_update(ut, it, u_slots[e:e + 1], i_slots[e:e + 1],
+                        valid[e:e + 1], eta=eta, lam=lam)
+    return ut, it
+
+
+# K6's deep chains (csrc/isgd_update.cu): every event on one user row, or
+# on one item row (one event at a time, 16,384 deep, over eight staged
+# chunks), the bench shape (random slots, ~30 levels deep) and one DISGD
+# worker's shape (a 256-event bucket, 2 levels). (u_cap, i_cap, k, n_ev),
+# the slot drawn for every event (None: random).
+ISGD_CHAIN_CASES = {
+    "one_user_row": ((4096, 2048, 10, 16384), "user"),
+    "one_item_row": ((4096, 2048, 10, 16384), "item"),
+    "bench": ((4096, 2048, 10, 16384), None),
+    "worker": ((38_912, 6_784, 10, 256), None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ISGD_CHAIN_CASES))
+def test_isgd_update_kernel_replays_deep_chains_bit_for_bit(cuda_device,
+                                                            case):
+    """The parallel replay gives what the events give one at a time, bit
+    for bit: each row's events run in the batch's order."""
+    shape, one = ISGD_CHAIN_CASES[case]
+    inp = _isgd_inputs(np.random.default_rng(53), *shape)
+    if one is not None:
+        inp[f"{one[0]}_slots"][:] = 7
+    out = {}
+    for name in ("batch", "events"):
+        args = [torch.tensor(inp[n], device=cuda_device) for n in ISGD_NAMES]
+        if name == "batch":
+            before = ops.launch_counts()["isgd_update"]
+            ops.isgd_update(*args, eta=0.05, lam=0.01)
+            assert ops.launch_counts()["isgd_update"] == before + 1
+        else:
+            _isgd_one_event_at_a_time(args, 0.05, 0.01)
+        out[name] = [a.cpu().numpy() for a in args[:2]]
+    for got, want in zip(out["batch"], out["events"]):
+        np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(out["batch"][0], inp["user_tab"])
 
 @pytest.mark.gpu
 def test_isgd_update_kernel_skips_slots_outside_the_tables(cuda_device):

@@ -1,5 +1,5 @@
 """``tools/time_split.py`` finds the text of every cut variant of this
-checkout's K1 / K4, K2, K5 and K7 designs, so an edit to a kernel source
+checkout's K1 / K4, K2, K3, K5, K6 and K7 designs, so an edit to a kernel source
 that would drop a variant fails here, on the CPU, before a card run."""
 
 import importlib.util
@@ -25,8 +25,11 @@ def test_every_cut_variant_of_this_checkout_finds_its_text():
     assert tool.swa_design(ROOT) == "wgmma"
     assert tool.scores_design(ROOT) == "strip"
     assert tool.dics_topn_design(ROOT) == "query_group"
+    assert tool.fused_topn_design(ROOT) == "lane_lists"
+    assert tool.isgd_design(ROOT) == "dataflow"
     got = {(v, k) for v, k, _, _ in tool.variant_sources(ROOT)}
-    assert got == {(v, k) for d in ("staged", "wgmma", "strip", "query_group")
+    assert got == {(v, k) for d in ("staged", "wgmma", "strip", "query_group",
+                                    "lane_lists", "dataflow")
                    for v, k, _, _ in tool.VARIANTS[d]}
     only_k7 = tool.variant_sources(ROOT, ("swa_attention",))
     assert {v for v, _, _, _ in only_k7} == {
@@ -73,14 +76,53 @@ def test_a_k2_or_k5_variant_whose_text_is_gone_stops_the_tool(
         tool.variant_sources(tmp_path, (kernel,))
 
 
+@pytest.mark.parametrize("kernel,variants", [
+    ("fused_topn", {"no_offers", "loads_only", "byte_mask", "no_empty_list",
+                    "sync_stage", "group_4"}),
+    ("isgd_update", {"stage_only", "one_warp"})])
+def test_the_k3_and_k6_variants_edit_their_own_sources(kernel, variants):
+    """Each K3 / K6 variant changes its kernel's source, and only that."""
+    tool = _tool()
+    got = tool.variant_sources(ROOT, (kernel,))
+    assert {v for v, _, _, _ in got} == variants
+    src = (ROOT / tool.CSRC / f"{kernel}.cu").read_text()
+    for variant, k, file, text in got:
+        assert (k, file) == (kernel, f"{kernel}.cu")
+        assert text != src, variant
+
+
+@pytest.mark.parametrize("kernel,variant,text", [
+    ("fused_topn", "no_offers", "scores + warp * kSpan, pass_ids, N,"),
+    ("fused_topn", "byte_mask", "I % 16 == 0 && (reinterpret_cast"),
+    ("fused_topn", "group_4", "constexpr int kWarps = 8;"),
+    ("isgd_update", "stage_only", "replay_chunk(c, K, eta, lam, links);"),
+    ("isgd_update", "one_warp", "(unsigned)slot % kWarps")])
+def test_a_k3_or_k6_variant_whose_text_is_gone_stops_the_tool(
+        tmp_path, kernel, variant, text):
+    tool = _tool()
+    csrc = tmp_path / tool.CSRC
+    csrc.parent.mkdir(parents=True)
+    shutil.copytree(ROOT / tool.CSRC, csrc)
+    src = csrc / f"{kernel}.cu"
+    src.write_text(src.read_text().replace(text, "x"))
+    with pytest.raises(SystemExit, match=variant):
+        tool.variant_sources(tmp_path, (kernel,))
+
+
 def test_the_earlier_k2_and_k5_designs_have_no_variants(tmp_path):
-    """A checkout from before the K2 / K5 redesign (one CTA per 32 x 128
-    tile; one CTA per query) is timed as built, with no variant."""
+    """A checkout from before the K2 / K5 / K3 / K6 redesigns (one CTA per
+    32 x 128 tile; one CTA per query; one warp per query row; one warp
+    running the events in order) is timed as built, with no variant."""
     tool = _tool()
     csrc = tmp_path / tool.CSRC
     csrc.mkdir(parents=True)
     (csrc / "masked_scores.cu").write_text("constexpr int kItems = 128;\n")
     (csrc / "dics_topn.cu").write_text("constexpr int kMaxKnn = 32;\n")
+    (csrc / "fused_topn.cu").write_text("constexpr int kTile = 128;\n")
+    (csrc / "isgd_update.cu").write_text("isgd_step(u, i, eta, lam);\n")
     assert tool.scores_design(tmp_path) == "tiles"
     assert tool.dics_topn_design(tmp_path) == "per_query"
-    assert tool.variant_sources(tmp_path, ("masked_scores", "dics_topn")) == []
+    assert tool.fused_topn_design(tmp_path) == "row_warps"
+    assert tool.isgd_design(tmp_path) == "one_warp"
+    assert tool.variant_sources(tmp_path, ("masked_scores", "dics_topn",
+                                           "fused_topn", "isgd_update")) == []

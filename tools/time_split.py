@@ -1,13 +1,14 @@
 """Where a redesigned kernel's time goes: K1 ``factor_update`` (ISGD),
-K2 ``masked_scores``, K4 ``dics_update``, K5 ``dics_topn`` and K7
-``swa_attention`` of one or more checkouts, timed on the card as built
-and with parts of their source cut out.
+K2 ``masked_scores``, K3 ``fused_topn``, K4 ``dics_update``, K5
+``dics_topn``, K6 ``isgd_update`` and K7 ``swa_attention`` of one or more
+checkouts, timed on the card as built and with parts of their source cut
+out.
 
     python3 tools/time_split.py [--root CHECKOUT ...] [--kernel NAME ...]
 
 Each ``--root`` is a checkout of this repository (default: this one), so
 two versions compare in one call on one card; ``--kernel`` picks the
-kernels (default: all five). A checkout's K1 and K4 follow one of two
+kernels (default: all seven). A checkout's K1 and K4 follow one of two
 designs, told apart by ``csrc/bucket_stage.cuh``: ``sequential`` (one CTA
 per worker, events in order) or ``staged`` (that header's); its K7 one
 of two, told apart by ``csrc/swa_attention.cu``: ``mma_sync`` (64-row
@@ -15,9 +16,13 @@ tiles loaded by the threads) or ``wgmma`` (a TMA-fed ring, wgmma, masks
 on boundary tiles only); its K2 ``tiles`` (32 x 128 tiles staged in
 shared memory) or ``strip`` (4 items a thread, a CTA walking rows); its
 K5 ``per_query`` (one CTA per query) or ``query_group`` (one CTA per 8
-queries, warp lists merged). Every cut variant of a picked kernel's
-design must find the text it edits, or the run stops before anything is
-timed.
+queries, warp lists merged); its K3 ``row_warps`` (one warp per query
+row, item tiles staged in shared memory) or ``lane_lists`` (one CTA per 8
+queries, passes staged by cp.async, one lane-resident list a query in its
+warp); its K6 ``one_warp`` (the events in order) or ``dataflow`` (a
+staged chunk replayed by 32 warps as each event's previous ones finish).
+Every cut variant of a picked kernel's design must find the text it
+edits, or the run stops before anything is timed.
 The variants are edited copies of the checkout's sources, built with
 this checkout's ``build.nvcc_command`` into ``build/time_split/`` here; a
 checkout's own kernels build where its package builds them.
@@ -31,7 +36,12 @@ state and ``fresh`` batch, K5 on the trained DICS state and the first
 serve call's queries: the kernels line's inputs
 (``chip_smoke.kernel_batch`` / ``masked_scores_inputs`` /
 ``dics_topn_inputs``); with K5 also the checkout's DICS serve p50, the
-median of SERVE_ROUNDS rounds of ``chip_smoke.dics_serve_calls``. K7:
+median of SERVE_ROUNDS rounds of ``chip_smoke.serve_calls``. K3 on the
+trained DISGD state and the first serve call's queries
+(``chip_smoke.fused_topn_inputs``), with the checkout's DISGD serve p50
+taken the same way; K6 on ``chip_smoke.isgd_cases`` (DISGD worker 0's
+bucket; U 4,096, I 2,048, E 1,024 and 16,384, and 16,384 on one user
+row), each beside its chain depth, on clones of the tables made once. K7:
 h2o-danube-1.8b's layer 0 q / k / v for ``chip_smoke.py``'s four
 8,192-token prompts (batch ``layer0``; the serving shape). Times are
 ``chip_smoke._time_ms(cover_enqueue=True)``, median of 7 (K1 / K4 on a
@@ -95,7 +105,46 @@ _K2_FMA = ("          for (int v = 0; v < kVec; ++v) "
 # K5, query_group design.
 _K5_WORK = "  for (int x = 0; x < n_work; ++x) {"
 _K5_MERGE = "  for (int x = warp; x < n_work; x += kWarps) {"
+# K3, lane_lists design: the query offers, the mask test, the -inf list.
+_K3_OFFER = ("      take_scores(lsc, lid, scores + warp * kSpan, pass_ids, N, "
+             "lane);")
+_K3_MASK = ("      if (__any_sync(kFull, mw[qb] != 0)) {  "
+            "// the 4 chains side by side")
+_K3_EMPTY = "      offer_items(e_sc, e_id, s, id, N, lane);"
+_K3_ASYNC_MASK = ("  const bool async_mask =\n      I % 16 == 0 && "
+                  "(reinterpret_cast<uintptr_t>(mask) & 15) == 0;",
+                  "  const bool async_mask = false;")
 VARIANTS = {
+    "row_warps": [],
+    "lane_lists": [
+        ("no_offers", "fused_topn", "fused_topn.cu",
+         [(_K3_OFFER, "      if (N < 0)\n  " + _K3_OFFER)]),
+        # Scores never taken: the loads (items, ids, mask words), the
+        # score tile and the -inf list alone.
+        ("loads_only", "fused_topn", "fused_topn.cu",
+         [(_K3_MASK, "      if (__any_sync(kFull, mw[qb] == 256u + N)) {")]),
+        # The mask copied to shared memory by byte loads, not cp.async.
+        ("byte_mask", "fused_topn", "fused_topn.cu", [_K3_ASYNC_MASK]),
+        ("no_empty_list", "fused_topn", "fused_topn.cu",
+         [(_K3_EMPTY, "      if (N < 0)\n  " + _K3_EMPTY)]),
+        # Every pass staged by plain loads and stores, none ahead.
+        ("sync_stage", "fused_topn", "fused_topn.cu",
+         [("  const bool async_vec = (reinterpret_cast<uintptr_t>(items) & 15)"
+           " == 0;", "  const bool async_vec = false;"),
+          ("  const bool async_ids = (reinterpret_cast<uintptr_t>(ids) & 15) "
+           "== 0;", "  const bool async_ids = false;"), _K3_ASYNC_MASK]),
+        # 4 warps, 4 queries a CTA, 512 items a pass.
+        ("group_4", "fused_topn", "fused_topn.cu",
+         [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")]),
+    ],
+    "one_warp": [],
+    "dataflow": [
+        ("stage_only", "isgd_update", "isgd_update.cu",
+         [("    replay_chunk(c, K, eta, lam, links);",
+           "    if (E < 0) replay_chunk(c, K, eta, lam, links);")]),
+        ("one_warp", "isgd_update", "isgd_update.cu",
+         [("  return (int)((unsigned)slot % kWarps);", "  return 0;")]),
+    ],
     "tiles": [],
     "strip": [
         ("scalar_mask", "masked_scores", "masked_scores.cu",
@@ -206,14 +255,16 @@ VARIANTS = {
           ("      turn_wait(wg);\n      pv_issue", "      pv_issue")]),
     ],
 }
-KERNELS = ("factor_update", "masked_scores", "dics_update", "dics_topn",
-           "swa_attention")
-# Rounds of chip_smoke.py's 8 DICS serve calls behind a checkout's serve p50.
+KERNELS = ("factor_update", "masked_scores", "fused_topn", "dics_update",
+           "dics_topn", "isgd_update", "swa_attention")
+# Rounds of chip_smoke.py's 8 serve calls behind a checkout's serve p50.
 SERVE_ROUNDS = 32
 # The name the profiler gives each kernel's __global__ function.
 PROFILE_KEY = {"factor_update": "factor_update_", "dics_update": "dics_update_",
                "masked_scores": "masked_scores_kernel",
+               "fused_topn": "fused_topn_kernel",
                "dics_topn": "dics_topn_kernel",
+               "isgd_update": "isgd_update_kernel",
                "swa_attention": "swa_bf16_kernel"}
 
 
@@ -241,9 +292,22 @@ def dics_topn_design(root: Path) -> str:
     return "query_group" if "kGroup" in src else "per_query"
 
 
+def fused_topn_design(root: Path) -> str:
+    """The design of the checkout's K3 kernel."""
+    src = (root / CSRC / "fused_topn.cu").read_text()
+    return "lane_lists" if "kGroup" in src else "row_warps"
+
+
+def isgd_design(root: Path) -> str:
+    """The design of the checkout's K6 kernel."""
+    src = (root / CSRC / "isgd_update.cu").read_text()
+    return "dataflow" if "replay_chunk" in src else "one_warp"
+
+
 def kernel_design(root: Path, kernel: str) -> str:
     return {"swa_attention": swa_design, "masked_scores": scores_design,
-            "dics_topn": dics_topn_design}.get(kernel, design)(root)
+            "dics_topn": dics_topn_design, "fused_topn": fused_topn_design,
+            "isgd_update": isgd_design}.get(kernel, design)(root)
 
 
 def variant_sources(root: Path, kernels=KERNELS
@@ -360,54 +424,86 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
         return {"root": str(root), "design": kernel_design(root, kernel),
                 "card": card, "kernel": kernel, "ms": ms}
 
-    def serve_p50_ms(states, cfg, batches):
-        """``chip_smoke.py``'s phase ``dics_serve`` (its calls and
-        measure), SERVE_ROUNDS times over: the median wall ms of a
-        ``grid_topn(algorithm="dics")`` call."""
-        lat, _, counts = cs.dics_serve_calls(
-            torch, rt, states, cs.dics_serve_kw(cfg), batches,
-            rounds=SERVE_ROUNDS)
-        if counts["dics_topn"] != len(lat):
-            raise SystemExit(f"time_split: dics_topn launched "
-                             f"{counts['dics_topn']} times in {len(lat)} "
-                             "serve calls")
+    def serve_p50_ms(states, cfg, batches, leaf):
+        """``chip_smoke.py``'s phase ``serve`` or ``dics_serve`` (its
+        calls and measure), SERVE_ROUNDS times over: the median wall ms
+        of a ``grid_topn`` call, which launches ``leaf`` once."""
+        lat, _, counts = cs.serve_calls(torch, rt, states, cs.serve_kw(cfg),
+                                        batches, rounds=SERVE_ROUNDS)
+        if counts[leaf] != len(lat):
+            raise SystemExit(f"time_split: {leaf} launched {counts[leaf]} "
+                             f"times in {len(lat)} serve calls")
         return 1e3 * statistics.median(lat)
 
-    for kernel, leaf, cfg, profile in (
-            ("factor_update", "masked_scores", cs.disgd_config(rt),
-             MOVIELENS_25M),
-            ("dics_update", "dics_topn", cs.dics_config(rt), NETFLIX)):
-        if kernel not in libs and leaf not in libs:
+    for kernel, leaves, cfg, profile in (
+            ("factor_update", ("masked_scores", "fused_topn", "isgd_update"),
+             cs.disgd_config(rt), MOVIELENS_25M),
+            ("dics_update", ("dics_topn",), cs.dics_config(rt), NETFLIX)):
+        if kernel not in libs and not set(leaves) & set(libs):
             continue
         users, items, _ = synth_stream(profile, seed=0)
         t0 = time.perf_counter()
         states = rt.run_stream(users, items, cfg).final_states
         train_s = time.perf_counter() - t0
-        if leaf == "masked_scores" and leaf in libs:
+        serve_q = cs.serve_batches(torch, np, users, torch.device("cuda"))
+        if "fused_topn" in leaves and "fused_topn" in libs:
+            args, kw = cs.fused_topn_inputs(torch, states, cfg, serve_q[0])
+            n_cand = args[2].sum(-1)
+            print(json.dumps({
+                **split("fused_topn", None,
+                        lambda: ops.fused_topn(*args, **kw)),
+                "batch": "serve", "train_s": train_s,
+                "serve_p50_ms": serve_p50_ms(states, cfg, serve_q,
+                                             "fused_topn"),
+                "shape": "W={} B={} I={} k={} N={top_n}".format(
+                    *args[2].shape, args[0].shape[2], **kw),
+                "rows_without_candidate": int((n_cand == 0).sum())}),
+                flush=True)
+        if "isgd_update" in leaves and "isgd_update" in libs:
+            h = cfg.resolved_hyper()
+            ev_u, _, u_slot, i_slot, _, _ = cs.kernel_batch(
+                torch, np, users, items, cfg, np.random.default_rng(1))
+            for case, (ut, it, us, is_, ok) in cs.isgd_cases(
+                    torch, np, states, u_slot, i_slot, ev_u, h.k):
+                ut, it = ut.clone(), it.clone()
+                print(json.dumps({
+                    **split("isgd_update", None,
+                            lambda: ops.isgd_update(ut, it, us, is_, ok,
+                                                    eta=h.eta, lam=h.lam)),
+                    "batch": case, "train_s": train_s,
+                    "shape": f"U={ut.shape[0]} I={it.shape[0]} "
+                             f"E={us.numel()} k={ut.shape[1]}",
+                    "valid": int(ok.sum()),
+                    "chain_depth": cs.chain_depth(np, us, is_, ok,
+                                                  ut.shape[0], it.shape[0])}),
+                    flush=True)
+        if "masked_scores" in leaves and "masked_scores" in libs:
             ev_u, _, u_slot, _, init_u, _ = cs.kernel_batch(
                 torch, np, users, items, cfg, np.random.default_rng(1))
             args = cs.masked_scores_inputs(torch, states, ev_u, u_slot,
                                            init_u)
             print(json.dumps({
-                **split(leaf, None, lambda: ops.masked_scores(*args)),
+                **split("masked_scores", None,
+                        lambda: ops.masked_scores(*args)),
                 "batch": "fresh", "train_s": train_s,
                 "shape": "W={} B={} I={} k={}".format(
                     *args[2].shape, args[0].shape[2])}), flush=True)
-        if leaf == "dics_topn" and leaf in libs:
-            batches = cs.serve_batches(torch, np, users, torch.device("cuda"))
-            args, kw = cs.dics_topn_inputs(torch, states, cfg, batches[0])
+        if "dics_topn" in leaves and "dics_topn" in libs:
+            args, kw = cs.dics_topn_inputs(torch, states, cfg, serve_q[0])
             hist = args[2]
             # The same call with its longest history cleared: that row's
             # share of the kernel.
             light = hist.clone()
             light.view(-1, hist.shape[-1])[hist.sum(-1).argmax()] = False
             print(json.dumps({
-                **split(leaf, None, lambda: ops.dics_topn(*args, **kw)),
+                **split("dics_topn", None,
+                        lambda: ops.dics_topn(*args, **kw)),
                 "ms_without_longest_history": time_ms(
                     None, lambda: ops.dics_topn(*args[:2], light, *args[3:],
                                                 **kw)),
                 "batch": "serve", "train_s": train_s,
-                "serve_p50_ms": serve_p50_ms(states, cfg, batches),
+                "serve_p50_ms": serve_p50_ms(states, cfg, serve_q,
+                                             "dics_topn"),
                 "shape": "W={} B={} I={} k_nn={k_nn} N={top_n}".format(
                     *hist.shape, **kw),
                 "mean_history": float(hist.sum(-1).float().mean()),
