@@ -25,7 +25,8 @@ DISGD (K1-K3):
   4. kernels against their plain versions on the main path's shapes: a
      real micro-batch from the middle of the stream on the trained
      state (one event in ten given an unseen id, so evictions run) for
-     ``factor_update`` (both modes) and ``masked_scores``, and ISGD
+     ``factor_update`` (both modes; pairwise with random negative slots)
+     and ``masked_scores``, and ISGD
      also on the same micro-batch without the fresh ids (the stream's own
      evictions); the staged kernels' CTAs per worker, staged chunk,
      dynamic shared memory and ptxas registers beside them; the serving
@@ -40,7 +41,26 @@ DISGD (K1-K3):
      registers, shared memory and stack per instance, and the instance
      each path runs must have no stack frame or spill;
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
-     stream with slot collisions.
+     stream with slot collisions, and the ``host`` loop equals ``scan``
+     (states and recall bits).
+
+BPR-MF (K1 pairwise, K2, K3), after the DISGD state is freed:
+
+  5a. ``bpr_path``: ``run_stream(algorithm="bpr")`` over the same whole
+     MovieLens-25M stream, grid and caps as phase 2 (``rated`` 4.2 GB);
+     counts zeroed just before, read just after (``factor_update`` and
+     ``masked_scores`` once a step); ``dropped`` must be 0; then
+     ``bpr_profile``: its first 64 micro-batches under ``torch.profiler``,
+     with the negative sampler's device operations and times a step;
+  5b. ``bpr_serve``: ``grid_topn(algorithm="bpr")`` for phase 3's queries,
+     equal to the plain path;
+  5c. ``factor_update`` in pairwise mode against its plain version on the
+     kernels line's mid-stream micro-batch of the BPR-trained state with
+     the worker's own negative slots (and without the fresh ids), timed
+     with its bound and ptxas's report; phase 4's random negatives on the
+     DISGD state ride along on the same row;
+  5d. ``bpr_backends_agree``: ``cuda``, ``scan`` and ``host`` on the card
+     and ``cuda`` on CPU tensors, on a small stream with slot collisions.
 
 DICS (K4, K5), after the DISGD state is freed:
 
@@ -58,7 +78,8 @@ DICS (K4, K5), after the DISGD state is freed:
      the same micro-batch timed;
   9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
      colliding item slots, and the card's ``cuda`` run equals the same run
-     on CPU tensors: state and recall bits.
+     on CPU tensors, and the ``host`` loop equals ``scan``: state and
+     recall bits.
 
 LLM serving (K7), after the DICS state is freed:
 
@@ -406,38 +427,21 @@ def main():
     _profile_steps(torch, rt, users, items, cfg, steps=64)
 
     # -- 3. serving ----------------------------------------------------------
-    kw = serve_kw(cfg)
-    qcap = kw["qcap"]
     batches = serve_batches(torch, np, users, dev)
-    lat, outs, serve_counts = serve_calls(torch, rt, states, kw, batches)
-    if serve_counts["fused_topn"] != len(batches):
-        fail(f"fused_topn launched {serve_counts['fused_topn']} times for "
-             f"{len(batches)} serve calls")
-    mismatched = 0
-    for q, (ids, sc, known, served) in zip(batches, outs):
-        p_ids, p_sc, p_known, p_served = rt.grid_topn(
-            states, q, use_kernel=False, **kw)
-        _close(sc, p_sc, "serve scores")
-        mismatched += _ids_mismatch(ids, p_ids, p_sc)
-        if not (torch.equal(known, p_known) and torch.equal(served, p_served)):
-            fail("serve known/served differ from the plain path")
-    if mismatched:
-        fail(f"{mismatched} served ids differ from the plain path away "
-             "from score ties")
-    served = sum(int(o[3].sum()) for o in outs)
-    emit("serve", queries=SERVE_USERS, batch=SERVE_BATCH, qcap=qcap,
-         served=served, qps=served / sum(lat),
-         p50_ms=1e3 * statistics.median(lat), max_ms=1e3 * max(lat),
-         known=sum(int(o[2].sum()) for o in outs), launches=serve_counts)
+    outs, serve_counts = _topn_serve(torch, rt, states, cfg, batches, "serve")
 
     # -- 4. kernels against their plain versions -----------------------------
-    kernels = _kernel_checks(torch, np, rt, users, items, states, cfg,
-                             batches[0], main_counts, serve_counts,
-                             infos)
+    kernels, random_j = _kernel_checks(torch, np, rt, users, items, states,
+                                       cfg, batches[0], main_counts,
+                                       serve_counts, infos)
     del states, res, outs, batches
 
     # -- 5. backends agree on the card ---------------------------------------
     _backends_agree(torch, np, rt)
+    torch.cuda.empty_cache()
+
+    # -- 5a-5e. BPR-MF -----------------------------------------------------------
+    kernels += _bpr_phases(torch, np, rt, dev, users, items, random_j, infos)
     torch.cuda.empty_cache()
 
     # -- 6-9. DICS -------------------------------------------------------------
@@ -454,11 +458,13 @@ def main():
 
 
 def _profile_steps(torch, rt, users, items, cfg, steps: int,
-                   phase: str = "profile"):
+                   phase: str = "profile", **extra):
     """Where the time goes: the first ``steps`` micro-batches of the main
     path again, under ``torch.profiler`` (device activity only, so the
     host loop is not slowed by CPU-side recording). Device busy share =
-    summed kernel time / the loop's wall time."""
+    summed kernel time / the loop's wall time; device operations (kernel
+    launches and copies) a step from the profiler's counts. ``extra``
+    rides along on the phase's line."""
     from torch.profiler import ProfilerActivity, profile
 
     n = steps * cfg.micro_batch
@@ -473,8 +479,9 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
          wall_ms_per_step=1e3 * res.wall_seconds / total_steps,
          device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (1e3 * res.wall_seconds),
+         device_ops_per_step=sum(r[1] for r in rows) / total_steps,
          top=[{"kernel": k[:90], "ms": us / 1e3, "count": c}
-              for us, c, k in rows[:10]])
+              for us, c, k in rows[:10]], **extra)
 
 
 def _device_rows(prof):
@@ -507,17 +514,18 @@ def _ptxas_entries(log: str) -> dict:
 
 
 def _staged_layout(name: str, events: int, width: int, log: str,
-                   entry: str) -> dict:
+                   entry: str, layout: str | None = None) -> dict:
     """A staged kernel's launch (``csrc/bucket_stage.cuh``) for a bucket
     of ``events``: CTAs per worker, events per staged chunk, dynamic
     shared memory per CTA (``width``: I for dics_update, k for
-    factor_update), and ptxas's registers / static shared memory."""
+    factor_update; ``layout`` the library's layout function, by default
+    ``<name>_layout``), and ptxas's registers / static shared memory."""
     import ctypes
 
     from repro_torch.kernels import build
 
     out = (ctypes.c_int * 3)()
-    fn = getattr(build.load(name), f"{name}_layout")
+    fn = getattr(build.load(name), layout or f"{name}_layout")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = None
     fn(events, width, out)
@@ -527,7 +535,8 @@ def _staged_layout(name: str, events: int, width: int, log: str,
     return {"ctas_per_worker": out[0], "chunk_events": out[1],
             "smem_dynamic_bytes": out[2], "registers": ptxas["registers"],
             "smem_static_bytes": ptxas["smem_bytes"],
-            "stack_bytes": ptxas["stack_bytes"]}
+            "stack_bytes": ptxas["stack_bytes"],
+            "spill_store_bytes": ptxas["spill_store_bytes"]}
 
 
 def _ptxas(log: str) -> dict:
@@ -684,9 +693,106 @@ def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
     return total
 
 
+def _k1_case(torch, states, events, hyper, plain=True):
+    """factor_update against its plain version on clones of ``states``
+    (integers exactly, floats within RTOL / ATOL), each timed on fresh
+    clones: (max abs error, ms, plain ms or None, device ms)."""
+    from repro_torch.core import state as state_lib
+    from repro_torch.kernels import ops, ref
+
+    mode = "isgd" if events[4] is None else "pairwise"
+    work = {}
+
+    def run(fn, name):
+        s = work[name]
+        fn(s.user_vecs, s.item_vecs, s.rated, tuple(s.tables), events,
+           eta=hyper.eta, lam=hyper.lam)
+
+    results = {}
+    for name, fn in (("kernel", ops.factor_update),
+                     ("plain", ref.factor_apply)):
+        work[name] = _clone(states)
+        run(fn, name)
+        torch.cuda.synchronize()
+        results[name] = work.pop(name)
+    got, want = results["kernel"], results["plain"]
+    for a, b, what in zip(got.tables, want.tables, state_lib.Tables._fields):
+        if not torch.equal(a, b):
+            fail(f"factor_update ({mode}): {what} differs")
+    if not torch.equal(got.rated, want.rated):
+        fail(f"factor_update ({mode}): rated differs")
+    err = max(_close(got.user_vecs, want.user_vecs, f"factor_update {mode} u"),
+              _close(got.item_vecs, want.item_vecs, f"factor_update {mode} i"))
+    del got, want, results
+
+    def fresh(name):
+        def setup():
+            work[name] = _clone(states)
+        return setup
+
+    ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"), reps=5,
+                  setup=fresh("kernel"))
+    device_ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"),
+                         reps=5, setup=fresh("kernel"), cover_enqueue=True)
+    plain_ms = None
+    if plain:
+        plain_ms = _time_ms(torch, lambda: run(ref.factor_apply, "plain"),
+                            reps=2, setup=fresh("plain"))
+    work.clear()
+    return err, ms, plain_ms, device_ms
+
+
+def _pairwise_steps(torch, np, states, events) -> int:
+    """How many events of a pairwise batch take the BPR step (neg_ok),
+    by the plain version's rule replayed on the host from the batch-start
+    tenants and rated bytes the batch reads: the data-dependent part of
+    K1's bound."""
+    ev_u, ev_i, u_slot, i_slot, j_slot, _, _ = events
+    t = states.tables
+    w = torch.arange(ev_u.shape[0], device=ev_u.device)[:, None]
+    uid0, iid0, jid0 = (tab.gather(1, s.long()).cpu().numpy() for tab, s in
+                        ((t.user_ids, u_slot), (t.item_ids, i_slot),
+                         (t.item_ids, j_slot)))
+    byte0 = states.rated[w, u_slot.long(), j_slot.long()].cpu().numpy()
+    ev_u, ev_i, u_slot, i_slot, j_slot = (
+        x.cpu().numpy() for x in (ev_u, ev_i, u_slot, i_slot, j_slot))
+    steps = 0
+    for wk in range(ev_u.shape[0]):
+        ten_u, ten_i, sets, row_clr, col_clr = {}, {}, {}, {}, {}
+        for e in np.flatnonzero(ev_u[wk] >= 0).tolist():
+            u, i = int(ev_u[wk, e]), int(ev_i[wk, e])
+            us, is_, js = (int(x[wk, e]) for x in (u_slot, i_slot, j_slot))
+            new_u = ten_u.get(us, uid0[wk, e]) != u
+            new_i = ten_i.get(is_, iid0[wk, e]) != i
+            tenant = ten_i.get(js, jid0[wk, e])
+            byte = 0
+            if not new_u:   # an event's clears (2e) come before its set (2e+1)
+                t_set = sets.get((us, js), -1)
+                t_clr = max(row_clr.get(us, -1), col_clr.get(js, -1))
+                byte = 1 if t_set > t_clr else (0 if t_clr >= 0
+                                                else int(byte0[wk, e]))
+            steps += bool(js != is_ and tenant >= 0 and tenant != i
+                          and not byte)
+            if new_i:
+                col_clr[is_] = 2 * e
+            if new_u:
+                row_clr[us] = 2 * e
+            sets[(us, is_)] = 2 * e + 1
+            ten_u[us], ten_i[is_] = u, i
+    return steps
+
+
+def _pairwise_bound(n_bytes, n_valid, n_steps, k):
+    """K1's pairwise bound: ISGD's bytes, plus each valid event's negative
+    slot, tenant and rated byte read once, plus the negative vector read
+    and written for each event that takes the BPR step; 18 k flops an
+    event that does (two dots, three updates)."""
+    return _bound_ms(n_bytes + n_valid * (4 + 4 + 1) + n_steps * 8 * k,
+                     18 * k * n_steps)
+
+
 def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
                    main_counts, serve_counts, infos):
-    from repro_torch.core import state as state_lib
     from repro_torch.kernels import ops, ref
 
     hyper = cfg.resolved_hyper()
@@ -698,9 +804,11 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
     t = states.tables
     rows = []
 
-    # K1 factor_update, both modes, on clones of the trained state; ISGD
-    # also on the same micro-batch without the fresh ids (the stream's own
-    # evictions: none at these caps).
+    # K1 factor_update (ISGD) on clones of the trained state, also on the
+    # same micro-batch without the fresh ids (the stream's own evictions:
+    # none at these caps); pairwise mode with random negative slots on
+    # this DISGD state too (the case K1's pairwise mode was first timed
+    # on, kept beside the BPR path's own batch, _bpr_kernel_row).
     n_bytes = _touched_bytes(np, (t.user_ids, t.item_ids), ev_u, ev_i, u_slot,
                              i_slot, hyper.u_cap, hyper.i_cap, k)
     n_valid = int((ev_u >= 0).sum())
@@ -714,58 +822,14 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
         "pairwise": (ev_u, ev_i, u_slot, i_slot, j_slot, init_u, init_i),
         "isgd_no_fresh": (nf_u, nf_i, nf_us, nf_is, None, nf_init_u,
                           nf_init_i)}
-    k1 = {}
-    for case, events in cases.items():
-        work = {}
-
-        def run(fn, name):
-            s = work[name]
-            fn(s.user_vecs, s.item_vecs, s.rated, tuple(s.tables), events,
-               eta=hyper.eta, lam=hyper.lam)
-
-        results = {}
-        for name, fn in (("kernel", ops.factor_update),
-                         ("plain", ref.factor_apply)):
-            work[name] = _clone(states)
-            run(fn, name)
-            torch.cuda.synchronize()
-            results[name] = work.pop(name)
-        got, want = results["kernel"], results["plain"]
-        for a, b, what in zip(got.tables, want.tables,
-                              state_lib.Tables._fields):
-            if not torch.equal(a, b):
-                fail(f"factor_update ({case}): {what} differs")
-        if not torch.equal(got.rated, want.rated):
-            fail(f"factor_update ({case}): rated differs")
-        err = max(_close(got.user_vecs, want.user_vecs, "factor_update u"),
-                  _close(got.item_vecs, want.item_vecs, "factor_update i"))
-        del got, want, results
-
-        def fresh(name):
-            def setup():
-                work[name] = _clone(states)
-            return setup
-
-        ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"),
-                      reps=5, setup=fresh("kernel"))
-        device_ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"),
-                             reps=5, setup=fresh("kernel"), cover_enqueue=True)
-        plain_ms = None
-        if case != "isgd_no_fresh":
-            plain_ms = _time_ms(torch, lambda: run(ref.factor_apply, "plain"),
-                                reps=2, setup=fresh("plain"))
-        work.clear()
-        k1[case] = (err, ms, plain_ms, device_ms)
+    k1 = {case: _k1_case(torch, states, events, hyper,
+                         plain=case != "isgd_no_fresh")
+          for case, events in cases.items()}
     bound, by = _bound_ms(n_bytes, 12 * k * n_valid)
-    # Pairwise mode also reads and writes each valid event's negative
-    # vector and reads its tenant id and rated byte; 18k flops an event.
-    p_bound, p_by = _bound_ms(n_bytes + n_valid * (8 * k + 4 + 1),
-                              18 * k * n_valid)
     err, ms, plain_ms, device_ms = k1["isgd"]
-    p_err, p_ms, p_plain_ms, p_device_ms = k1["pairwise"]
     log = infos["factor_update"].ptxas
     rows.append(dict(
-        name="factor_update", route="cuda", matched=True,
+        name="factor_update", route="cuda", matched=True, mode="isgd",
         source="src/repro_torch/kernels/csrc/factor_update.cu",
         replaces="src/repro/kernels/factor_update.py:41",
         launches=main_counts["factor_update"], max_abs_err=err, ms=ms,
@@ -775,12 +839,15 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
         device_ms=device_ms, device_ms_no_fresh=k1["isgd_no_fresh"][3],
         **_staged_layout("factor_update", cap, k, log,
                          "factor_update_isgd_kernel"),
-        pairwise={"max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain_ms,
-                  "device_ms": p_device_ms, "bound_ms": p_bound,
-                  "bound_by": p_by,
-                  **_ptxas_entries(log)["factor_update_pairwise_kernel"]},
         shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap} k={k}",
         valid_events=n_valid))
+    p_err, p_ms, p_plain_ms, p_device_ms = k1["pairwise"]
+    n_upd = _pairwise_steps(torch, np, states, cases["pairwise"])
+    p_bound, p_by = _pairwise_bound(n_bytes, n_valid, n_upd, k)
+    random_j = {"state": "DISGD main path", "negatives": "uniform random",
+                "max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain_ms,
+                "device_ms": p_device_ms, "bound_ms": p_bound,
+                "bound_by": p_by, "pairwise_steps": n_upd}
 
     # K2 masked_scores on the same micro-batch, as the cuda worker builds it.
     u_vecs, _, cand = masked_scores_inputs(torch, states, ev_u, u_slot,
@@ -868,7 +935,7 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
                           hyper, infos))
     emit("kernels_vs_plain", matched=[r["name"] for r in rows],
          rtol=RTOL, atol=ATOL, score_gap=SCORE_GAP)
-    return rows
+    return rows, random_j
 
 
 def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
@@ -957,6 +1024,279 @@ def _isgd_row(torch, np, cases, hyper, infos):
         bench=bench)
 
 
+def _topn_serve(torch, rt, states, cfg, batches, phase):
+    """Phases ``serve`` and ``bpr_serve``: ``serve_calls`` on the factor-
+    model ``states`` (one ``fused_topn`` a call), each call's lists held
+    to the plain path's (``use_kernel=False``): scores within RTOL /
+    ATOL, ids away from score ties, known / served equal. Returns (the
+    calls' outputs, their launch counts)."""
+    kw = serve_kw(cfg)
+    lat, outs, counts = serve_calls(torch, rt, states, kw, batches)
+    if counts["fused_topn"] != len(batches):
+        fail(f"{phase}: fused_topn launched {counts['fused_topn']} times "
+             f"for {len(batches)} serve calls")
+    mismatched = 0
+    for q, (ids, sc, known, served) in zip(batches, outs):
+        p_ids, p_sc, p_known, p_served = rt.grid_topn(
+            states, q, use_kernel=False, **kw)
+        _close(sc, p_sc, f"{phase} scores")
+        mismatched += _ids_mismatch(ids, p_ids, p_sc)
+        if not (torch.equal(known, p_known) and torch.equal(served, p_served)):
+            fail(f"{phase}: known/served differ from the plain path")
+    if mismatched:
+        fail(f"{phase}: {mismatched} served ids differ from the plain path "
+             "away from score ties")
+    served = sum(int(o[3].sum()) for o in outs)
+    emit(phase, algorithm=cfg.algorithm, queries=SERVE_USERS,
+         batch=SERVE_BATCH, qcap=kw["qcap"], served=served,
+         qps=served / sum(lat), p50_ms=1e3 * statistics.median(lat),
+         max_ms=1e3 * max(lat), known=sum(int(o[2].sum()) for o in outs),
+         launches=counts)
+    return outs, counts
+
+
+def bpr_config(rt):
+    """The BPR-MF path's ``StreamConfig``: the DISGD deployment
+    (MovieLens-25M caps) with the pairwise trainer."""
+    return rt.StreamConfig(
+        algorithm="bpr", grid=rt.GridSpec(n_i=N_I), micro_batch=MICRO_BATCH,
+        capacity_factor=2.0,
+        hyper=rt.BprHyper(k=10, u_cap=U_CAP, i_cap=I_CAP, top_n=10),
+        backend="cuda", device=DEVICE)
+
+
+def bpr_batch(torch, np, users, items, states, cfg, fresh_rate=0.1):
+    """K1's pairwise inputs on the kernels line: ``kernel_batch``'s mid-
+    stream micro-batch (rng seed 1) on the BPR-trained ``states``, with
+    the negative slots the BPR worker draws for it (clock at batch start
+    plus the valid events before each)."""
+    from repro_torch.algos import bpr
+    from repro_torch.core import prng
+
+    hyper = cfg.resolved_hyper()
+    ev_u, ev_i, u_slot, i_slot, init_u, init_i = kernel_batch(
+        torch, np, users, items, cfg, np.random.default_rng(1), fresh_rate)
+    clocks = bpr.event_clocks(states.tables.clock, ev_u >= 0)
+    j_slot = bpr.negative_slots(prng.key(cfg.seed, device=ev_u.device),
+                                clocks, ev_u, hyper.i_cap)
+    return ev_u, ev_i, u_slot, i_slot, j_slot, init_u, init_i
+
+
+def _sampler_cost(torch, np, users, items, states, cfg):
+    """The BPR worker's negative draws for one step (``negative_slots`` on
+    ``bpr_batch``'s events): device operations (profiler counts), their
+    device ms, and the host's ms to issue them, synchronised."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.algos import bpr
+    from repro_torch.core import prng
+
+    ev_u = bpr_batch(torch, np, users, items, states, cfg)[0]
+    key = prng.key(cfg.seed, device=ev_u.device)
+    clocks = bpr.event_clocks(states.tables.clock, ev_u >= 0)
+    i_cap = cfg.resolved_hyper().i_cap
+
+    def draw():
+        return bpr.negative_slots(key, clocks, ev_u, i_cap)
+
+    draw()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        draw()
+        torch.cuda.synchronize()
+    rows, busy_ms = _device_rows(prof)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        draw()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    return {"device_ops_per_step": sum(r[1] for r in rows),
+            "device_ms_per_step": busy_ms,
+            "host_ms_per_step": statistics.median(host)}
+
+
+def _bpr_phases(torch, np, rt, dev, users, items, random_j, infos):
+    """BPR-MF trained over the whole MovieLens-25M stream on K1's pairwise
+    mode and K2, profiled, served on K3, K1 pairwise held against its
+    plain version on its own batch, and the backends held to each other.
+    Returns K1's pairwise row of the kernels line."""
+    from repro_torch.kernels import ops
+
+    # -- 5a. bpr_path ----------------------------------------------------------
+    n = int(users.size)
+    cfg = bpr_config(rt)
+    grid = cfg.grid
+    steps = (math.ceil(n / MICRO_BATCH)
+             + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = rt.run_stream(users, items, cfg)
+    path_counts = ops.launch_counts()
+    if res.events_processed + res.dropped != n:
+        fail(f"bpr: events_processed {res.events_processed} + dropped "
+             f"{res.dropped} != {n}")
+    if res.dropped:
+        fail(f"bpr: {res.dropped} events dropped")
+    for name in ("factor_update", "masked_scores"):
+        if path_counts[name] != steps:
+            fail(f"{name} launched {path_counts[name]} times on the BPR "
+                 f"path, expected one per step ({steps})")
+    states = res.final_states
+    emit("bpr_path", stream="synth_stream(MOVIELENS_25M, seed=0)", events=n,
+         cut=None, grid=[grid.n_i, grid.g], u_cap=U_CAP, i_cap=I_CAP,
+         micro_batch=MICRO_BATCH, bucket_capacity=cfg.bucket_capacity,
+         steps=steps, wall_s=res.wall_seconds,
+         wall_ms_per_step=1e3 * res.wall_seconds / steps,
+         events_per_s=res.throughput, recall_at_10=res.recall.mean(),
+         events_processed=res.events_processed, dropped=res.dropped,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=path_counts)
+    _profile_steps(torch, rt, users, items, cfg, steps=64,
+                   phase="bpr_profile",
+                   sampler=_sampler_cost(torch, np, users, items, states,
+                                         cfg))
+
+    # -- 5b. bpr_serve -----------------------------------------------------------
+    batches = serve_batches(torch, np, users, dev)
+    _, serve_counts = _topn_serve(torch, rt, states, cfg, batches,
+                                  "bpr_serve")
+    del batches
+
+    # -- 5c. K1 pairwise on the BPR path's own batch ------------------------------
+    row = _bpr_kernel_row(torch, np, users, items, states, cfg, path_counts,
+                          infos, random_j)
+    del states, res
+    torch.cuda.empty_cache()
+
+    # -- 5d. backends agree on the card ---------------------------------------------
+    _bpr_backends_agree(torch, np, rt)
+    return [row]
+
+
+def _bpr_kernel_row(torch, np, users, items, states, cfg, path_counts, infos,
+                    random_j):
+    """K1 in pairwise mode against its plain version on ``bpr_batch`` (the
+    kernels line's fresh batch, and the same without the fresh ids) of the
+    BPR-trained state; ``random_j`` is the random-negative case on the
+    DISGD state."""
+    hyper = cfg.resolved_hyper()
+    k = hyper.k
+    rows = {}
+    for case, rate in (("fresh", 0.1), ("no_fresh", 0.0)):
+        events = bpr_batch(torch, np, users, items, states, cfg, rate)
+        ev_u, ev_i, u_slot, i_slot = events[:4]
+        n_valid = int((ev_u >= 0).sum())
+        n_steps = _pairwise_steps(torch, np, states, events)
+        n_bytes = _touched_bytes(np, (states.tables.user_ids,
+                                      states.tables.item_ids), ev_u, ev_i,
+                                 u_slot, i_slot, hyper.u_cap, hyper.i_cap, k)
+        bound, by = _pairwise_bound(n_bytes, n_valid, n_steps, k)
+        err, ms, plain_ms, device_ms = _k1_case(torch, states, events, hyper,
+                                                plain=case == "fresh")
+        rows[case] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          device_ms=device_ms, bound_ms=bound, bound_by=by,
+                          valid_events=n_valid, pairwise_steps=n_steps)
+    log = infos["factor_update"].ptxas
+    layout = _staged_layout("factor_update", events[0].shape[1], k, log,
+                            "factor_update_pairwise_kernel",
+                            layout="factor_update_pairwise_layout")
+    if layout["stack_bytes"] or layout["spill_store_bytes"]:
+        fail(f"factor_update pairwise: a stack frame or spills: {layout}")
+    fresh = rows["fresh"]
+    n_w, cap = events[0].shape
+    row = dict(
+        name="factor_update", route="cuda", matched=True, mode="pairwise",
+        source="src/repro_torch/kernels/csrc/factor_update.cu",
+        replaces="src/repro/kernels/factor_update.py:41",
+        launches=path_counts["factor_update"], **fresh, library_ms=None,
+        library="none: no single PyTorch call runs a chain of evicting "
+                "pairwise SGD steps",
+        no_fresh=rows["no_fresh"], random_j_on_disgd_state=random_j,
+        **layout,
+        shape=f"W={n_w} E={cap} U={hyper.u_cap} I={hyper.i_cap} k={k} "
+              "(BPR-trained state, the worker's own negatives)")
+    emit("bpr_kernels_vs_plain", matched=["factor_update (pairwise)"],
+         rtol=RTOL, atol=ATOL)
+    return row
+
+
+def _bpr_backends_agree(torch, np, rt):
+    """BPR on a small stream with slot collisions: ``cuda``, ``scan`` and
+    ``host`` on the card, and ``cuda`` on CPU tensors. ``scan`` and
+    ``host`` run the same eager worker: states and evaluated recall bits
+    equal. ``cuda`` against ``scan``: integers exactly, floats within
+    STREAM_RTOL / STREAM_ATOL. The card's ``cuda`` run against the same
+    run on CPU tensors (the plain versions, which the CPU tests hold to
+    JAX): integers and recall bits (the bucket-start contract) equal."""
+    from repro_torch.core import convert
+    from repro_torch.data.stream import MOVIELENS_25M, scaled, synth_stream
+
+    users, items, _ = synth_stream(scaled(MOVIELENS_25M, 0.003), seed=0)
+    # ~116 users per column and ~20 items per split: both tables collide.
+    hyper = rt.BprHyper(u_cap=32, i_cap=8)
+    cfg = rt.StreamConfig(algorithm="bpr", grid=rt.GridSpec(n_i=N_I),
+                          micro_batch=512, hyper=hyper, backend="cuda",
+                          device=DEVICE)
+    runs = {name: rt.run_stream(users, items, dataclasses.replace(cfg, **kw))
+            for name, kw in (("cuda", {}), ("scan", dict(backend="scan")),
+                             ("host", dict(backend="host")),
+                             ("cpu", dict(device="cpu")))}
+    counts = {(r.events_processed, r.dropped) for r in runs.values()}
+    if len(counts) != 1:
+        fail(f"bpr backends processed / dropped different counts: {counts}")
+    st = {name: convert.states_to_numpy(r.final_states)
+          for name, r in runs.items()}
+    err = 0.0
+    for name in st["cuda"]:
+        if not np.array_equal(st["scan"][name], st["host"][name]):
+            fail(f"bpr scan and host: {name} differs")
+        for other in ("scan", "cpu"):
+            a, b = st["cuda"][name], st[other][name]
+            if a.dtype.kind != "f":
+                if not np.array_equal(a, b):
+                    fail(f"bpr cuda and {other}: {name} differs")
+                continue
+            if not np.allclose(a, b, rtol=STREAM_RTOL, atol=STREAM_ATOL):
+                fail(f"bpr cuda and {other}: {name} beyond "
+                     f"rtol={STREAM_RTOL} atol={STREAM_ATOL}")
+            err = max(err, float(np.abs(a - b).max()))
+    bits = {name: r.recall.bits() for name, r in runs.items()}
+    scan_b, host_b = (bits[n][~np.isnan(bits[n])] for n in ("scan", "host"))
+    if not np.array_equal(scan_b, host_b):
+        fail("bpr scan and host: recall bits differ")
+    if not np.array_equal(bits["cuda"], bits["cpu"], equal_nan=True):
+        fail("bpr cuda on the card and on the cpu: recall bits differ")
+    emit("bpr_backends_agree",
+         stream="synth_stream(scaled(MOVIELENS_25M, 0.003))",
+         events=int(users.size), u_cap=hyper.u_cap, i_cap=hyper.i_cap,
+         max_abs_err=err, rtol=STREAM_RTOL, atol=STREAM_ATOL,
+         wall_s={name: r.wall_seconds for name, r in runs.items()},
+         recall={name: r.recall.mean() for name, r in runs.items()})
+
+
+def _host_agrees(np, rt, users, items, cfg, scan, what):
+    """The ``host`` loop on the card against the ``scan`` run ``scan`` of
+    the same stream and config: the same eager worker, so every state
+    array and every evaluated recall bit equal. Returns the host run."""
+    from repro_torch.core import convert
+
+    host = rt.run_stream(users, items, dataclasses.replace(cfg,
+                                                           backend="host"))
+    if ((host.events_processed, host.dropped)
+            != (scan.events_processed, scan.dropped)):
+        fail(f"{what}: host and scan processed / dropped different counts")
+    sh = convert.states_to_numpy(host.final_states)
+    ss = convert.states_to_numpy(scan.final_states)
+    for name in ss:
+        if not np.array_equal(sh[name], ss[name]):
+            fail(f"{what} host and scan: {name} differs")
+    hb, sb = host.recall.bits(), scan.recall.bits()
+    if not np.array_equal(hb[~np.isnan(hb)], sb[~np.isnan(sb)]):
+        fail(f"{what} host and scan: recall bits differ")
+    return host
+
+
 def _backends_agree(torch, np, rt):
     from repro_torch.core import convert
     from repro_torch.data.stream import MOVIELENS_25M, scaled, synth_stream
@@ -970,6 +1310,7 @@ def _backends_agree(torch, np, rt):
     b = rt.run_stream(users, items, dataclasses.replace(cfg, backend="scan"))
     if (a.events_processed, a.dropped) != (b.events_processed, b.dropped):
         fail("cuda and scan backends processed / dropped different counts")
+    h = _host_agrees(np, rt, users, items, cfg, b, "disgd")
     sa, sb = convert.states_to_numpy(a.final_states), \
         convert.states_to_numpy(b.final_states)
     err = 0.0
@@ -986,6 +1327,7 @@ def _backends_agree(torch, np, rt):
          events=int(users.size), u_cap=hyper.u_cap, i_cap=hyper.i_cap,
          max_abs_err=err, rtol=STREAM_RTOL, atol=STREAM_ATOL,
          cuda_wall_s=a.wall_seconds, scan_wall_s=b.wall_seconds,
+         host_wall_s=h.wall_seconds, host_equals_scan=True,
          recall_cuda=a.recall.mean(), recall_scan=b.recall.mean())
 
 
@@ -1257,6 +1599,7 @@ def _dics_backends_agree(torch, np, rt):
     # CPU tests hold to the JAX package bit for bit: the card's bucket-start
     # scoring and hit bits must equal it.
     c = rt.run_stream(users, items, dataclasses.replace(cfg, device="cpu"))
+    h = _host_agrees(np, rt, users, items, cfg, b, "dics")
     for r, what in ((b, "scan"), (c, "cpu")):
         if (a.events_processed, a.dropped) != (r.events_processed, r.dropped):
             fail(f"dics: cuda and {what} processed / dropped different counts")
@@ -1273,6 +1616,7 @@ def _dics_backends_agree(torch, np, rt):
          events=int(users.size), u_cap=hyper.u_cap, i_cap=hyper.i_cap,
          tolerance="exact", cuda_wall_s=a.wall_seconds,
          scan_wall_s=b.wall_seconds, cpu_wall_s=c.wall_seconds,
+         host_wall_s=h.wall_seconds, host_equals_scan=True,
          recall_bits_equal_cpu=True, recall_cuda=a.recall.mean(),
          recall_scan=b.recall.mean(), recall_cpu=c.recall.mean())
 

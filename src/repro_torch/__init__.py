@@ -5,12 +5,18 @@ and numpy, never jax and nothing of ``repro``. Its hot path runs on an
 NVIDIA H100 through hand-written kernels (``repro_torch/kernels``); CPU
 tensors take the plain PyTorch versions of those kernels.
 
-Ported so far: DISGD (Alg. 2) and DICS (Alg. 3) trained prequentially
-over the Splitting & Replication grid (``run_stream``, ``algorithm=
-"disgd"`` or ``"dics"``) and grid top-N serving (``grid_topn``); and the
-LLM zoo's serving path for h2o-danube-1.8b (``repro_torch.launch.serve``,
+Ported so far: DISGD (Alg. 2), DICS (Alg. 3) and BPR-MF
+(``repro_torch.algos.bpr``) trained prequentially over the Splitting &
+Replication grid (``run_stream``, ``algorithm="disgd"``, ``"dics"`` or
+``"bpr"``; backends ``cuda``, ``scan`` and the ``host`` reference loop)
+and grid top-N serving (``grid_topn``); and the LLM zoo's serving path
+for h2o-danube-1.8b (``repro_torch.launch.serve``,
 ``repro_torch.models.factory.build``).
 """
+
+# Registers the plugins (BPR-MF) before anything looks an algorithm up.
+from repro_torch import algos  # noqa: F401
+from repro_torch.algos import BprHyper
 
 from repro_torch.core.dics import DicsHyper
 from repro_torch.core.disgd import DisgdHyper
@@ -20,4 +26,5 @@ from repro_torch.core.serve import recommend_topn
 from repro_torch.serve.plane import grid_topn
 
 __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
-           "DisgdHyper", "DicsHyper", "grid_topn", "recommend_topn"]
+           "DisgdHyper", "DicsHyper", "BprHyper", "grid_topn",
+           "recommend_topn"]

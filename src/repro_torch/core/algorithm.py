@@ -1,8 +1,11 @@
-"""Registry of streaming-recommender algorithms: DISGD and DICS.
+"""Registry of streaming-recommender algorithms: DISGD, DICS and plugins.
 
-Port of the registry in ``repro/core/algorithm.py``, modelled on
-``DisgdAlgorithm`` / ``DicsAlgorithm`` (:242-308). The engine, the
-pipeline and the serving plane look an algorithm up by its
+Port of the registry in ``repro/core/algorithm.py``: ``register`` (:161),
+``get_algorithm`` (:174), ``registered`` (:191) and the two in-tree
+algorithms ``DisgdAlgorithm`` / ``DicsAlgorithm`` (:242-308). Plugins
+(BPR-MF, ``repro_torch/algos``) register themselves when that package
+is imported, which ``repro_torch/__init__.py`` does eagerly. The engine,
+the pipeline and the serving plane look an algorithm up by its
 ``StreamConfig.algorithm`` key here and call its hooks; nothing outside
 this module compares algorithm names.
 """
@@ -18,7 +21,8 @@ from repro_torch.core import disgd as disgd_lib
 from repro_torch.core import serve as serve_lib
 from repro_torch.core import state as state_lib
 
-__all__ = ["DisgdAlgorithm", "DicsAlgorithm", "get_algorithm"]
+__all__ = ["DisgdAlgorithm", "DicsAlgorithm", "register", "get_algorithm",
+           "registered"]
 
 
 class DisgdAlgorithm:
@@ -99,7 +103,16 @@ class DicsAlgorithm:
         return leaf
 
 
-_REGISTRY = {algo.name: algo for algo in (DisgdAlgorithm(), DicsAlgorithm())}
+_REGISTRY: dict = {}
+
+
+def register(algo):
+    """Register an algorithm instance under ``algo.name`` (latest wins);
+    returns it."""
+    if not getattr(algo, "name", ""):
+        raise ValueError(f"{type(algo).__name__} has no name")
+    _REGISTRY[algo.name] = algo
+    return algo
 
 
 def get_algorithm(name: str):
@@ -107,6 +120,15 @@ def get_algorithm(name: str):
     algo = _REGISTRY.get(name)
     if algo is None:
         raise KeyError(f"no registered algorithm {name!r}; registered: "
-                       f"{sorted(_REGISTRY)} (BPR comes in a later slice of "
-                       "the port)")
+                       f"{sorted(_REGISTRY)}. Plug one in via "
+                       "repro_torch.core.algorithm.register(...)")
     return algo
+
+
+def registered() -> tuple[str, ...]:
+    """Registered algorithm names (plugins included), sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+register(DisgdAlgorithm())
+register(DicsAlgorithm())

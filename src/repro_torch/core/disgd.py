@@ -16,7 +16,8 @@ deployment size; a functional copy per micro-batch would dominate):
     the live state;
   * ``make_cuda_worker`` — the fast path (``make_pallas_worker``,
     ``disgd.py:189``): one ``masked_scores`` launch scores every bucket at
-    its start, the hit bits are rank counts over those scores, then one
+    its start, the hit bits are rank counts over those scores
+    (``bucket_start``, which BPR's kernel worker shares), then one
     ``factor_update`` launch trains every worker. Final states equal the
     reference's (integers exactly); recall bits follow the bucket-start
     contract of the JAX fast path.
@@ -34,7 +35,8 @@ from repro_torch.core.state import DisgdState
 from repro_torch.kernels import ops
 
 __all__ = ["DisgdHyper", "init_vector", "score_items", "disgd_worker_step",
-           "make_cuda_worker", "bucket_start_hits"]
+           "make_cuda_worker", "bucket_start", "bucket_start_hits",
+           "recommend_hit"]
 
 
 class DisgdHyper(NamedTuple):
@@ -66,7 +68,7 @@ def score_items(u_vec, item_vecs, item_ids, rated_row):
     return scores.masked_fill(~valid, float("-inf"))
 
 
-def _recommend_hit(u_vec, item_vecs, item_ids, rated_row, i_id, top_n: int):
+def recommend_hit(u_vec, item_vecs, item_ids, rated_row, i_id, top_n: int):
     """Is ``i_id`` in the top-N list (``disgd.py:69``)? A rank count: fewer
     than N candidates outrank the target (strictly greater score, or an
     equal score at a lower slot, as ``lax.top_k`` breaks ties)."""
@@ -115,8 +117,8 @@ def disgd_worker_step(state: DisgdState, events, hyper: DisgdHyper,
         rated_row[w, si] &= ~new_i
 
         # --- recommend, then evaluate (Alg. 4 lines 1-5) ---
-        hits[:, e] = _recommend_hit(u_vec, state.item_vecs, t.item_ids,
-                                    rated_row, i_id, hyper.top_n) & valid & ~new_i
+        hits[:, e] = recommend_hit(u_vec, state.item_vecs, t.item_ids,
+                                   rated_row, i_id, hyper.top_n) & valid & ~new_i
 
         # --- incremental SGD update (Alg. 2) ---
         err = 1.0 - (u_vec * i_vec).sum(-1, keepdim=True)
@@ -159,42 +161,52 @@ def bucket_start_hits(scores, i_slots, known_i, top_n: int):
             & (ahead < min(top_n, scores.shape[-1])))
 
 
+def bucket_start(st: DisgdState, ev_u, ev_i, hyper, key: torch.Tensor):
+    """The bucket-start half of the factor-model kernel workers (DISGD
+    here, BPR in ``repro_torch/algos/bpr.py``): the events' slots and
+    init vectors, then one ``ops.masked_scores`` launch scoring every
+    worker's bucket against the state at bucket start and the hit bits
+    as rank counts at the target slot (``bucket_start_hits``). Returns
+    ``(valid, u_slot, i_slot, init_u, init_i, hits)``."""
+    cap = ev_u.shape[1]
+    valid = ev_u >= 0
+    t = st.tables
+    u_slot = state_lib.slot_of(ev_u, hyper.g, hyper.u_cap)
+    i_slot = state_lib.slot_of(ev_i, hyper.n_i, hyper.i_cap)
+    us = u_slot.long()
+    # "Known at bucket start": the slot already holds this exact id.
+    known_u = t.user_ids.gather(1, us) == ev_u
+    known_i = t.item_ids.gather(1, i_slot.long()) == ev_i
+    init = init_vector(key, torch.cat([ev_u, ev_i], 1), hyper.k,
+                       hyper.init_scale)
+    init_u = init[:, :cap].contiguous()
+    init_i = init[:, cap:].contiguous()
+
+    w = torch.arange(ev_u.shape[0], device=ev_u.device)[:, None]
+    u_vecs_b = torch.where(known_u[..., None], st.user_vecs[w, us], init_u)
+    rated_rows = st.rated[w, us] & known_u[..., None]
+    cand = (t.item_ids >= 0)[:, None, :] & ~rated_rows & valid[..., None]
+    scores = ops.masked_scores(u_vecs_b, st.item_vecs, cand)
+    hits = bucket_start_hits(scores, i_slot, known_i & valid, hyper.top_n)
+    return valid, u_slot, i_slot, init_u, init_i, hits
+
+
 def make_cuda_worker(hyper: DisgdHyper, key: torch.Tensor):
     """DISGD worker step on the kernels (``disgd.py:189``).
 
-    One ``ops.masked_scores`` launch scores every worker's bucket against
-    the state at bucket start, the hit bits are rank counts at the
-    target slot (``bucket_start_hits``), then one ``ops.factor_update``
-    launch trains every worker, event by event. Returns ``step(state,
-    (ev_u, ev_i)) -> (state, hits, evaluated)`` like ``disgd_worker_step``.
+    ``bucket_start`` scores every worker's bucket in one
+    ``ops.masked_scores`` launch and takes the hit bits from it, then one
+    ``ops.factor_update`` launch trains every worker, event by event.
+    Returns ``step(state, (ev_u, ev_i)) -> (state, hits, evaluated)``
+    like ``disgd_worker_step``.
     """
-    u_cap, i_cap, k = hyper.u_cap, hyper.i_cap, hyper.k
-
     def step(st: DisgdState, events):
         ev_u, ev_i = events
-        cap = ev_u.shape[1]
-        valid = ev_u >= 0
-        t = st.tables
-        u_slot = state_lib.slot_of(ev_u, hyper.g, u_cap)
-        i_slot = state_lib.slot_of(ev_i, hyper.n_i, i_cap)
-        us = u_slot.long()
-        # "Known at bucket start": the slot already holds this exact id.
-        known_u = t.user_ids.gather(1, us) == ev_u
-        known_i = t.item_ids.gather(1, i_slot.long()) == ev_i
-        init = init_vector(key, torch.cat([ev_u, ev_i], 1), k, hyper.init_scale)
-        init_u = init[:, :cap].contiguous()
-        init_i = init[:, cap:].contiguous()
-
-        # --- recommend (one masked-scoring launch over all workers) ---
-        w = torch.arange(ev_u.shape[0], device=ev_u.device)[:, None]
-        u_vecs_b = torch.where(known_u[..., None], st.user_vecs[w, us], init_u)
-        rated_rows = st.rated[w, us] & known_u[..., None]
-        cand = (t.item_ids >= 0)[:, None, :] & ~rated_rows & valid[..., None]
-        scores = ops.masked_scores(u_vecs_b, st.item_vecs, cand)
-        hits = bucket_start_hits(scores, i_slot, known_i & valid, hyper.top_n)
-
+        valid, u_slot, i_slot, init_u, init_i, hits = bucket_start(
+            st, ev_u, ev_i, hyper, key)
         # --- train (one fused update launch: exact reference semantics) ---
-        ops.factor_update(st.user_vecs, st.item_vecs, st.rated, tuple(t),
+        ops.factor_update(st.user_vecs, st.item_vecs, st.rated,
+                          tuple(st.tables),
                           (ev_u, ev_i, u_slot, i_slot, None, init_u, init_i),
                           eta=hyper.eta, lam=hyper.lam)
         return st, hits, valid

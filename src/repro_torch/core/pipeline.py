@@ -2,31 +2,38 @@
 
 Port of ``repro/core/pipeline.py``: ``StreamConfig`` (:49) with the same
 fields and ``bucket_capacity`` plus a ``device``, ``StreamResult`` (:88),
-``init_states`` (:178) and ``run_stream`` (:188). ``run_stream`` runs
-the device loop of ``core/engine.py`` for a registered algorithm
-(``"disgd"`` or ``"dics"``, ``core/algorithm.py``) with one of two
-workers:
+``init_states`` (:178) and ``run_stream`` (:188) for a registered
+algorithm (``"disgd"``, ``"dics"`` or ``"bpr"``, ``core/algorithm.py``),
+on one of three backends:
 
   * ``backend="cuda"`` (alias ``"pallas"``, the JAX package's name) —
-    the kernel worker (``disgd.make_cuda_worker``,
-    ``dics.make_cuda_worker``);
-  * ``backend="scan"`` — the eager reference worker
-    (``disgd.disgd_worker_step``, ``dics.dics_worker_step``), inside the
-    same loop.
+    the device loop of ``core/engine.py`` with the kernel worker
+    (``disgd.make_cuda_worker``, ``dics.make_cuda_worker``,
+    ``algos/bpr.make_cuda_worker``);
+  * ``backend="scan"`` — the same device loop with the eager reference
+    worker (``disgd_worker_step``, ``dics_worker_step``,
+    ``bpr_worker_step``);
+  * ``backend="host"`` — the reference loop of ``pipeline.py:188-475``
+    (``_run_host``): numpy bucketing (``routing.bucket_dispatch_np``), an
+    unbounded host re-queue drained at the end of the stream, and the
+    eager reference worker on ``cfg.device``, one micro-batch at a time
+    with a host round trip each.
 
 What later slices of the port bring raises ``ValueError`` naming the
-slice: the ``host`` and ``shard_map`` backends, forgetting policies,
-drift control and storage policies; BPR is not registered yet.
-``telemetry`` is accepted; the result's ``telemetry`` is ``None`` until
-the observability slice.
+slice: the ``shard_map`` backend, forgetting policies, drift control and
+storage policies; the publish hooks are not ported. ``telemetry`` is
+accepted; the result's ``telemetry`` is ``None`` until the
+observability slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import algorithm as algorithm_lib
 from repro_torch.core import routing
@@ -34,11 +41,9 @@ from repro_torch.core.evaluator import RecallAccumulator
 
 __all__ = ["StreamConfig", "StreamResult", "init_states", "run_stream"]
 
-_BACKENDS = {"cuda": "cuda", "pallas": "cuda", "scan": "scan"}
-_LATER = {
-    "host": "the host-loop slice (ROADMAP Queue 1, after this slice)",
-    "shard_map": "the multi-GPU slice (ROADMAP Queue 1 item 14)",
-}
+_BACKENDS = {"cuda": "cuda", "pallas": "cuda", "scan": "scan",
+             "host": "host"}
+_LATER = {"shard_map": "the multi-GPU slice (ROADMAP Queue 1 item 14)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +54,10 @@ class StreamConfig:
     micro_batch: int = 2048
     capacity_factor: float = 2.0             # bucket capacity vs fair share
     forgetting: Any = None                   # None / policy "none" only
-    hyper: Any = None                        # DisgdHyper / DicsHyper (caps etc.)
+    hyper: Any = None                        # DisgdHyper / DicsHyper / BprHyper
     seed: int = 0
     record_every: int = 4                    # occupancy snapshot cadence
-    backend: str = "cuda"                    # "cuda" (= "pallas") | "scan"
+    backend: str = "cuda"                    # "cuda" (= "pallas") | "scan" | "host"
     carry_slots: int = 0                     # overflow re-queue size (0 = micro_batch)
     drift: Any = None                        # not in this slice
     telemetry: bool = True                   # accepted; no counters yet
@@ -145,6 +150,111 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     from repro_torch.core import engine
 
     backend = _resolve_backend(cfg)
+    users, items = np.asarray(users), np.asarray(items)
+    if backend == "host":
+        return _run_host(users, items, cfg, initial_states, initial_carry)
     return engine.run_stream_device(
-        np.asarray(users), np.asarray(items), cfg, backend,
+        users, items, cfg, backend,
         initial_states=initial_states, initial_carry=initial_carry)
+
+
+def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
+              initial_states, initial_carry) -> StreamResult:
+    """The host reference loop (``repro/core/pipeline.py:260-475``, without
+    forgetting, drift, telemetry or publishing): per micro-batch, bucket
+    the carried and fresh events on the host, run the eager reference
+    worker on ``cfg.device``, scatter the recall bits back to stream
+    order and re-queue the overflow, unbounded. After the stream, empty
+    batches drain the re-queue, up to ``n_batches + ceil(carry /
+    capacity) + 1`` batches in all; what is left then is dropped."""
+    from repro_torch.core import engine, state as state_lib
+
+    if users.shape != items.shape:
+        raise ValueError(f"users {users.shape} and items {items.shape} differ")
+    n = users.shape[0]
+    grid = cfg.grid
+    cap = cfg.bucket_capacity
+    device = torch.device(cfg.device)
+    worker = engine.make_worker_fn(cfg, "scan")
+    states = initial_states if initial_states is not None else init_states(cfg)
+
+    acc = RecallAccumulator()
+    user_occ, item_occ, loads = [], [], []
+    dropped = processed = 0
+    carry_u, carry_i = (np.asarray(c, np.int64) if c is not None
+                        else np.empty(0, np.int64) for c in initial_carry)
+
+    def occupancy():
+        u_occ, i_occ = state_lib.occupancy(states.tables)
+        return u_occ.cpu().numpy(), i_occ.cpu().numpy()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # Warm the step before the clock starts, as JAX compiles it there: a
+    # bucket of padding changes no state.
+    dummy = torch.full((grid.n_c, cap), -1, dtype=torch.int32, device=device)
+    worker(states, dummy, dummy)
+    occupancy()
+    sync()
+
+    t0 = time.perf_counter()
+    n_batches = int(np.ceil(n / cfg.micro_batch))
+    empty = np.empty(0, dtype=np.int64)
+    b = 0
+    max_drain = None
+    while True:
+        if b < n_batches:
+            lo, hi = b * cfg.micro_batch, min((b + 1) * cfg.micro_batch, n)
+            fresh_u, fresh_i = users[lo:hi], items[lo:hi]
+        elif carry_u.size == 0:
+            break
+        else:
+            if max_drain is None:
+                max_drain = n_batches + int(np.ceil(carry_u.size / cap)) + 1
+            if b >= max_drain:
+                dropped += carry_u.size
+                break
+            fresh_u, fresh_i = empty, empty
+        bu = np.concatenate([carry_u, fresh_u])
+        bi = np.concatenate([carry_i, fresh_i])
+        keys = (bi % grid.n_i) * grid.g + (bu % grid.g)
+        buckets, kept, load = routing.bucket_dispatch_np(
+            keys.astype(np.int64), grid.n_c, cap)
+        # Overflow events re-queue into the next micro-batch (not lost).
+        carry_u, carry_i = bu[~kept], bi[~kept]
+
+        src = np.clip(buckets, 0, None)
+        ev_u = np.where(buckets >= 0, bu[src], -1)
+        ev_i = np.where(buckets >= 0, bi[src], -1)
+        states, hits, evaluated = worker(
+            states, torch.as_tensor(ev_u, dtype=torch.int32, device=device),
+            torch.as_tensor(ev_i, dtype=torch.int32, device=device))
+
+        acc.add_batch(buckets, hits.cpu().numpy(), evaluated.cpu().numpy(),
+                      bu.shape[0])
+        processed += int(kept.sum())
+        loads.append(load)
+        if b % cfg.record_every == 0:
+            u_occ, i_occ = occupancy()
+            user_occ.append((processed, u_occ))
+            item_occ.append((processed, i_occ))
+        b += 1
+
+    # Final occupancy snapshot, unless the last batch recorded this point.
+    if n_batches and (not user_occ or user_occ[-1][0] != processed):
+        u_occ, i_occ = occupancy()
+        user_occ.append((processed, u_occ))
+        item_occ.append((processed, i_occ))
+    sync()
+    return StreamResult(
+        recall=acc,
+        user_occupancy=user_occ,
+        item_occupancy=item_occ,
+        events_processed=processed,
+        dropped=dropped,
+        wall_seconds=time.perf_counter() - t0,
+        load_history=loads,
+        final_states=states,
+    )

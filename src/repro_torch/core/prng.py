@@ -7,9 +7,16 @@ on:
 
   * ``key(seed)``      — ``threefry_seed``: the key words ``(seed >> 32,
     seed & 0xFFFFFFFF)``;
-  * ``fold_in(k, d)``  — ``threefry_2x32(k, (0, d))``, bit for bit;
+  * ``fold_in(k, d)``  — ``threefry_2x32(k, (0, d))``, bit for bit, for
+    one key or a batch of keys;
+  * ``split(k, n)``    — ``_threefry_split_foldlike``: new key ``m`` is
+    ``threefry_2x32(k, (0, m))``, both words kept (so ``fold_in(k, m)``);
   * ``bits(k, n)``     — ``b1 ^ b2`` of the hash over counters
     ``(0, iota(n))``, bit for bit;
+  * ``randint(k, lo, hi)`` — ``jax.random.randint(k, (), lo, hi)`` for
+    int32, one draw per key: two keys by ``split``, 32 bits from each,
+    combined modulo the span with every product and sum wrapped to 32
+    bits as JAX's uint32 arithmetic wraps them;
   * ``normal(k, n)``   — ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``
     with XLA's f32 ``erfinv`` (the Giles polynomial). The polynomial
     runs as separate float32 ops, so it matches XLA to within a few ulp
@@ -28,7 +35,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key", "fold_in", "bits", "normal", "threefry2x32"]
+__all__ = ["key", "fold_in", "split", "bits", "randint", "normal",
+           "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -71,10 +79,18 @@ def key(seed: int, device="cpu") -> torch.Tensor:
 
 def fold_in(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """``jax.random.fold_in(k, data.astype(uint32))`` for every entry of
-    ``data``; returns keys of shape ``data.shape + (2,)``."""
+    ``data``: ``k`` is one key ``[2]`` or keys ``[..., 2]`` broadcasting
+    against ``data``; returns keys of the broadcast shape ``+ (2,)``."""
     d = data.to(torch.int64) & _MASK
-    y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
+
+
+def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, n)`` for each key of ``keys[..., 2]``;
+    returns ``keys.shape[:-1] + (n, 2)``."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return fold_in(keys[..., None, :], idx)
 
 
 def bits(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -84,6 +100,26 @@ def bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2],
                           torch.zeros_like(counts), counts)
     return b1 ^ b2
+
+
+def randint(keys: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``jax.random.randint(k, (), lo, hi, int32)`` for each key of
+    ``keys[..., 2]``: int64 draws in ``[lo, hi)`` of shape
+    ``keys.shape[:-1]`` (``lo`` when ``hi <= lo``)."""
+    span = hi - lo if hi > lo else 1
+    # Two keys, 32 bits from each (counter (0, 0)), in one hash call.
+    sub = split(keys)
+    b1, b2 = threefry2x32(sub[..., 0], sub[..., 1],
+                          torch.zeros_like(sub[..., 0]),
+                          torch.zeros_like(sub[..., 0]))
+    bits_ = b1 ^ b2
+    hi_bits, lo_bits = bits_[..., 0], bits_[..., 1]
+    # 2**32 mod span from its halves; uint32 products wrap (for a span
+    # above 2**16 the multiplier's square wraps to 0).
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = ((((hi_bits % span) * mult) & _MASK) + lo_bits % span) & _MASK
+    return lo + off % span
 
 
 # f32 constants of jax.random.uniform / normal, as Python floats: scalars

@@ -1,7 +1,9 @@
 """Splitting & Replication routing (paper Algorithm 1), on tensors.
 
 Port of ``repro/core/routing.py``: ``GridSpec`` (:53), ``route_key``
-(:96) and the capacity-bucketed dispatch ``bucket_dispatch`` (:131).
+(:96), the capacity-bucketed dispatch ``bucket_dispatch`` (:131) and
+its numpy version ``bucket_dispatch_np`` (:164), which the ``host``
+loop buckets with.
 Every event ``<u, i>`` goes to exactly one of ``n_c = n_i * g`` workers,
 ``key = (i mod n_i) * g + (u mod g)``; a micro-batch is grouped into
 fixed-capacity per-worker buckets, so each worker processes a static
@@ -12,9 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["GridSpec", "route_key", "bucket_dispatch"]
+__all__ = ["GridSpec", "route_key", "bucket_dispatch", "bucket_dispatch_np"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +86,22 @@ def bucket_dispatch(keys: torch.Tensor, n_workers: int, capacity: int):
     flat = torch.full((size + 1,), -1, dtype=torch.int32, device=keys.device)
     flat[slot] = torch.arange(b, dtype=torch.int32, device=keys.device)
     return flat[:size].reshape(n_workers, capacity), kept, load
+
+
+def bucket_dispatch_np(keys: np.ndarray, n_workers: int, capacity: int):
+    """Host (numpy) version of ``bucket_dispatch`` for the ``host`` loop:
+    the same ``(buckets, kept, load)`` for in-range ``keys``, with
+    ``kept`` False for every event past its bucket's capacity (the
+    caller re-queues those)."""
+    keys = np.asarray(keys, dtype=np.int64)
+    load = np.bincount(keys, minlength=n_workers).astype(np.int32)
+    # Position of each event in its bucket: its rank among same-key
+    # events in stream order (a stable sort by key).
+    order = np.argsort(keys, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(load)[:-1]])
+    pos = np.empty(keys.shape[0], dtype=np.int64)
+    pos[order] = np.arange(keys.shape[0]) - starts[keys[order]]
+    kept = pos < capacity
+    buckets = np.full((n_workers, capacity), -1, dtype=np.int32)
+    buckets[keys[kept], pos[kept]] = np.flatnonzero(kept)
+    return buckets, kept, load

@@ -176,11 +176,13 @@ def factor_update(user_vecs, item_vecs, rated, tabs, events, *, eta: float,
     """Complete factor-model micro-batch update of every worker, IN PLACE
     (ISGD, or pairwise BPR when ``events`` carries ``j_slots``).
 
-    See ``ref.factor_apply`` for the contract; any bucket width ``E``.
-    Kernel: ``csrc/factor_update.cu``: ISGD stages each worker's bucket on
-    a cluster of CTAs and replays it in shared memory
-    (``csrc/bucket_stage.cuh``); pairwise runs one CTA per worker. Returns
-    the (mutated) ``(user_vecs, item_vecs, rated, tabs)``.
+    See ``ref.factor_apply`` for the contract; any bucket width ``E``;
+    ``j_slots`` within ``[0, I)``. Kernel: ``csrc/factor_update.cu``, both
+    modes staging each worker's bucket on a cluster of CTAs and replaying
+    it in shared memory (``csrc/bucket_stage.cuh``); pairwise mode (the
+    BPR-MF path) also works out each negative's live tenant and rated
+    byte before the replay. Returns the (mutated) ``(user_vecs,
+    item_vecs, rated, tabs)``.
     """
     ev_u, ev_i, u_slots, i_slots, j_slots, init_u, init_i = events
     if _on_cpu(user_vecs, item_vecs, rated, ev_u, init_u, *tabs):

@@ -101,8 +101,9 @@ def alias_clears(monkeypatch):
     return fired
 
 
-@pytest.mark.parametrize("backends", [("scan", "scan"), ("cuda", "pallas")],
-                         ids=["scan", "cuda"])
+@pytest.mark.parametrize("backends", [("scan", "scan"), ("cuda", "pallas"),
+                                      ("host", "host")],
+                         ids=["scan", "cuda", "host"])
 def test_run_stream_matches_jax(stream, jax_pallas, alias_clears, backends):
     users, items = stream
     t_cfg, j_cfg = _cfgs(*backends)

@@ -23,7 +23,8 @@ from tests.test_torch_kernels_gpu import (  # noqa: E402
     ATOL, ISGD_NAMES, RTOL, SWA_TOL, TABLE_NAMES, _EV_NAMES,
     _assert_state_equal, _dics_events, _dics_state, _dics_topn_inputs,
     _events, _isgd_inputs, _late_candidates, _score_inputs, _swa_inputs,
-    _torch_dics_apply, _torch_factor_apply, _worker_state)
+    _factor_case, _negatives, _torch_dics_apply, _torch_factor_apply,
+    _worker_state)
 
 
 # -- CPU parity against the JAX kernels (interpret mode) ------------------
@@ -804,7 +805,40 @@ def test_swa_tile_classes_at_the_serving_shape():
 # card.
 
 
-def _staged_chunk(st, w, ev, lo, hi, dics, rng, eta=0.0, lam=0.0):
+def _negatives_pass(ev_i, us, is_, js, valid, flags, iid, rated, stale):
+    """The pairwise analysis of csrc/factor_update.cu on one chunk: each
+    valid event's neg_ok from the chunk-start tenant iid[js] and byte
+    rated[us, js] (the tables are still at chunk start here), replayed
+    against the chunk's earlier events: the last earlier i event on js
+    is its tenant; the event's own new user zeroes the byte, else the
+    last earlier op on the cell (a set of (us, js): 1; a clear of row us
+    or column js: 0) decides. ``stale`` reads the staged byte alone."""
+    upd = np.zeros(len(js), bool)
+    for e in np.flatnonzero(valid):
+        tenant, t_found = iid[js[e]], False
+        r_found = bool(flags[e][0]) and not stale
+        byte = 0 if r_found else rated[us[e], js[e]]
+        for f in range(e - 1, -1, -1):
+            if stale or (t_found and r_found):
+                break
+            if not valid[f]:
+                continue
+            col = is_[f] == js[e]
+            if not t_found and col:
+                tenant, t_found = ev_i[f], True
+            if not r_found:
+                row = us[f] == us[e]
+                if row and col:
+                    byte, r_found = 1, True
+                elif (row and flags[f][0]) or (col and flags[f][1]):
+                    byte, r_found = 0, True
+        upd[e] = (js[e] != is_[e] and tenant >= 0 and tenant != ev_i[e]
+                  and not byte)
+    return upd
+
+
+def _staged_chunk(st, w, ev, lo, hi, dics, rng, eta=0.0, lam=0.0,
+                  stale=False):
     ev_u, ev_i = ev["ev_u"][w, lo:hi], ev["ev_i"][w, lo:hi]
     us, is_ = ev["u_slots"][w, lo:hi], ev["i_slots"][w, lo:hi]
     n = hi - lo
@@ -843,15 +877,32 @@ def _staged_chunk(st, w, ev, lo, hi, dics, rng, eta=0.0, lam=0.0):
                 snaps[e] = np.flatnonzero(rows[us[e]])
                 rows[us[e]][is_[e]] = True
     else:      # the SGD chain, on staged rows
-        k = st["user_vecs"].shape[-1]
+        eta_, lam_ = np.float32(eta), np.float32(lam)
+        js = None if ev["j_slots"] is None else ev["j_slots"][w, lo:hi]
+        upd = (np.zeros(n, bool) if js is None
+               else _negatives_pass(ev_i, us, is_, js, valid, flags, iid,
+                                    rated, stale))
         uv = {s: st["user_vecs"][w, s].copy() for s in us[valid]}
-        iv = {s: st["item_vecs"][w, s].copy() for s in is_[valid]}
+        # One staged row a slot: an i and a j step on a slot share it.
+        iv = {s: st["item_vecs"][w, s].copy()
+              for s in np.concatenate([is_[valid], [] if js is None
+                                       else js[upd]]).astype(int)}
         for e in np.flatnonzero(valid):
             u = ev["init_u"][w, lo + e] if flags[e][0] else uv[us[e]]
             i = ev["init_i"][w, lo + e] if flags[e][1] else iv[is_[e]]
-            err = np.float32(1.0) - np.dot(u, i)
-            uv[us[e]] = u + np.float32(eta) * (err * i - np.float32(lam) * u)
-            iv[is_[e]] = i + np.float32(eta) * (err * u - np.float32(lam) * i)
+            if js is None:
+                err = np.float32(1.0) - np.dot(u, i)
+                uv[us[e]] = u + eta_ * (err * i - lam_ * u)
+                iv[is_[e]] = i + eta_ * (err * u - lam_ * i)
+            elif upd[e]:
+                j = iv[js[e]]
+                x = np.dot(u, i) - np.dot(u, j)
+                sg = np.float32(1.0) / (np.float32(1.0) + np.exp(x))
+                iv[js[e]] = j + eta_ * (-sg * u - lam_ * j)
+                uv[us[e]] = u + eta_ * (sg * (i - j) - lam_ * u)
+                iv[is_[e]] = i + eta_ * (sg * u - lam_ * i)
+            else:      # the negative fails: u and i written unchanged
+                uv[us[e]], iv[is_[e]] = u, i
         for s, v in uv.items():
             st["user_vecs"][w, s] = v
         for s, v in iv.items():
@@ -892,14 +943,15 @@ def _staged_chunk(st, w, ev, lo, hi, dics, rng, eta=0.0, lam=0.0):
     st["clock"][w] = clock[-1]
 
 
-def _staged_apply(st, ev, *, dics, chunk, seed=0, eta=0.0, lam=0.0):
+def _staged_apply(st, ev, *, dics, chunk, seed=0, eta=0.0, lam=0.0,
+                  stale=False):
     st = {n: v.copy() for n, v in st.items()}
     rng = np.random.default_rng(seed)
     n_w, n_ev = ev["ev_u"].shape
     for w in range(n_w):
         for lo in range(0, n_ev, chunk):
             _staged_chunk(st, w, ev, lo, min(n_ev, lo + chunk), dics, rng,
-                          eta, lam)
+                          eta, lam, stale)
     return st
 
 
@@ -917,6 +969,41 @@ def test_staged_schedule_matches_factor_apply(seed, chunk):
                                use_ops=False)
     got = _staged_apply(st, ev, dics=False, chunk=chunk, eta=0.05, lam=0.01)
     _assert_state_equal(got, want)
+
+
+@pytest.mark.parametrize("negatives", ["mixed", "alias", "empty"])
+@pytest.mark.parametrize("chunk", [5, 13, 64])
+@pytest.mark.parametrize("seed", range(3))
+def test_staged_pairwise_schedule_matches_factor_apply(seed, chunk,
+                                                       negatives):
+    """Pairwise mode at ISGD's collision density: negatives among the
+    bucket's own item slots (so on evicted columns and on bytes the
+    bucket set), on the event's own slot, or on empty tenants (see
+    ``_negatives``). Integers exactly; floats as the card tests hold
+    them (the model steps in numpy, the plain version in torch)."""
+    rng = np.random.default_rng(300 + seed)
+    n_w, u_cap, i_cap, k, n_ev = 2, 6, 5, 4, 60
+    st = _worker_state(rng, n_w, u_cap, i_cap, k)
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, True)
+    st, ev = _negatives(rng, st, ev, negatives)
+    want = _torch_factor_apply(st, ev, "cpu", eta=0.05, lam=0.01,
+                               use_ops=False)
+    got = _staged_apply(st, ev, dics=False, chunk=chunk, eta=0.05, lam=0.01)
+    _assert_state_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", ["dense_mixed", "wide_mixed", "alias"])
+def test_staged_pairwise_schedule_needs_the_live_rated_byte(shape):
+    """The card cases of the pairwise mode: the schedule holds at the
+    kernel's chunk of 256, and a schedule that reads the rated byte and
+    the tenant as staged, without the chunk's earlier events, does not."""
+    st, ev = _factor_case(shape, True)
+    want = _torch_factor_apply(st, ev, "cpu", eta=0.05, lam=0.01,
+                               use_ops=False)
+    kw = dict(dics=False, chunk=256, eta=0.05, lam=0.01)
+    _assert_state_equal(_staged_apply(st, ev, **kw), want)
+    with pytest.raises(AssertionError):
+        _assert_state_equal(_staged_apply(st, ev, stale=True, **kw), want)
 
 
 @pytest.mark.parametrize("chunk", [5, 13, 64])

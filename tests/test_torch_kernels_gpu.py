@@ -83,6 +83,31 @@ _EV_NAMES = ("ev_u", "ev_i", "u_slots", "i_slots", "j_slots", "init_u",
              "init_i")
 
 
+def _negatives(rng, st, ev, kind):
+    """Re-draws the pairwise cases' negative slots (in place): ``"random"``
+    keeps ``_events``' uniform slots; ``"mixed"`` takes half of them from
+    the bucket's own item slots (collisions make many of those evicted
+    columns, or slots rated earlier in the bucket) and a tenth from the
+    event's own item slot; ``"alias"`` sets every other one to the
+    event's own item slot; ``"empty"`` leaves the slots and empties 80%
+    of the item tenants. Returns ``(st, ev)``."""
+    if kind == "random" or ev["j_slots"] is None:
+        return st, ev
+    js, is_ = ev["j_slots"], ev["i_slots"]
+    n_w, n_ev = js.shape
+    if kind == "mixed":
+        pick = rng.random((n_w, n_ev))
+        other = np.take_along_axis(is_, rng.integers(0, n_ev, (n_w, n_ev)), 1)
+        js[:] = np.where(pick < 0.5, other, np.where(pick < 0.6, is_, js))
+    elif kind == "alias":
+        js[:, ::2] = is_[:, ::2]
+    elif kind == "empty":
+        st["item_ids"][rng.random(st["item_ids"].shape) < 0.8] = -1
+    else:
+        raise ValueError(kind)
+    return st, ev
+
+
 def _torch_factor_apply(st, ev, device, *, eta, lam, use_ops):
     t = {n: torch.tensor(v, device=device) for n, v in st.items()}
     e = tuple(None if ev[n] is None else torch.tensor(ev[n], device=device)
@@ -204,26 +229,42 @@ def _swa_inputs(rng, b, hq, hkv, s, d):
 # user and five item slots sixty times a worker (a slot hit many times, an
 # eviction between two uses of a slot, a user evicted and re-added in one
 # bucket); "wide" is a bucket of 600 events, over two staged chunks of
-# 256; padding interleaved, at the tail, or everywhere. (n_w, u_cap, i_cap,
-# k, n_ev), padding.
+# 256; padding interleaved, at the tail, or everywhere. The pairwise
+# mode's own (negative slots by ``_negatives``): "alias" (j == i on every
+# other event), "empty_tenants" (most negatives on empty slots),
+# "dense_mixed" (negatives on the bucket's own item slots, whose tenants
+# and rated bytes the bucket changes) and "wide_mixed" (the same over
+# three chunks, so a chunk reads bytes the previous one wrote); a kernel
+# that read the rated byte or the tenant as staged, without the chunk's
+# earlier events, fails them. (n_w, u_cap, i_cap, k, n_ev), padding,
+# negatives.
 FACTOR_CASES = {
-    "tiny": ((2, 16, 8, 6, 24), "random"),
-    "small": ((4, 300, 70, 10, 64), "random"),
-    "dense": ((2, 6, 5, 4, 60), "random"),
-    "wide": ((3, 40, 24, 10, 600), "random"),
-    "tail_padding": ((2, 12, 9, 10, 40), "tail"),
-    "all_padding": ((2, 12, 9, 10, 40), "all"),
+    "tiny": ((2, 16, 8, 6, 24), "random", "random"),
+    "small": ((4, 300, 70, 10, 64), "random", "random"),
+    "dense": ((2, 6, 5, 4, 60), "random", "random"),
+    "wide": ((3, 40, 24, 10, 600), "random", "random"),
+    "tail_padding": ((2, 12, 9, 10, 40), "tail", "random"),
+    "all_padding": ((2, 12, 9, 10, 40), "all", "random"),
+    "alias": ((2, 6, 5, 4, 60), "random", "alias"),
+    "empty_tenants": ((2, 12, 9, 10, 40), "random", "empty"),
+    "dense_mixed": ((2, 6, 5, 4, 60), "random", "mixed"),
+    "wide_mixed": ((2, 8, 6, 10, 700), "random", "mixed"),
 }
+
+
+def _factor_case(shape, pairwise, seed=11):
+    (n_w, u_cap, i_cap, k, n_ev), padding, negs = FACTOR_CASES[shape]
+    rng = np.random.default_rng(seed)
+    st = _worker_state(rng, n_w, u_cap, i_cap, k)
+    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise, padding)
+    return _negatives(rng, st, ev, negs)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pairwise", [False, True], ids=["isgd", "bpr"])
 @pytest.mark.parametrize("shape", list(FACTOR_CASES))
 def test_factor_update_kernel_matches_plain(cuda_device, pairwise, shape):
-    (n_w, u_cap, i_cap, k, n_ev), padding = FACTOR_CASES[shape]
-    rng = np.random.default_rng(11)
-    st = _worker_state(rng, n_w, u_cap, i_cap, k)
-    ev = _events(rng, n_w, n_ev, u_cap, i_cap, k, pairwise, padding)
+    st, ev = _factor_case(shape, pairwise)
     before = ops.launch_counts()["factor_update"]
     got = _torch_factor_apply(st, ev, cuda_device, eta=0.05, lam=0.01,
                               use_ops=True)
@@ -583,9 +624,7 @@ def _factor_main_state(device, n_w=16, u_cap=38_912, i_cap=6_784, k=10,
     return st, events
 
 
-@pytest.mark.gpu
-def test_factor_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
-    st, events = _factor_main_state(cuda_device)
+def _main_path_compare(st, events):
     out = {}
     for name, fn in (("kernel", ops.factor_update),
                      ("plain", ref.factor_apply)):
@@ -600,6 +639,30 @@ def test_factor_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
             torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         else:
             assert torch.equal(got, want), n
+
+
+@pytest.mark.gpu
+def test_factor_update_kernel_matches_plain_at_main_path_shapes(cuda_device):
+    _main_path_compare(*_factor_main_state(cuda_device))
+
+
+@pytest.mark.gpu
+def test_factor_update_pairwise_kernel_matches_plain_at_main_path_shapes(
+        cuda_device):
+    """Pairwise mode on the same state, half the negatives on the
+    bucket's own item slots."""
+    st, events = _factor_main_state(cuda_device)
+    ev_u, ev_i, us, is_, _, init_u, init_i = events
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    n_w, n_ev = ev_u.shape
+    i_cap = st["item_ids"].shape[1]
+    js = torch.randint(0, i_cap, (n_w, n_ev), generator=gen,
+                       device=cuda_device, dtype=torch.int32)
+    other = is_.gather(1, torch.randint(0, n_ev, (n_w, n_ev), generator=gen,
+                                        device=cuda_device))
+    js = torch.where(torch.rand((n_w, n_ev), generator=gen,
+                                device=cuda_device) < 0.5, other, js)
+    _main_path_compare(st, (ev_u, ev_i, us, is_, js, init_u, init_i))
 
 
 @pytest.mark.gpu

@@ -85,8 +85,8 @@ def _assert_results_match(tr, jr, n):
 
 
 @pytest.mark.parametrize("backends", [("scan", "scan"), ("cuda", "pallas"),
-                                      ("pallas", "pallas")],
-                         ids=["scan", "cuda", "pallas_alias"])
+                                      ("pallas", "pallas"), ("host", "host")],
+                         ids=["scan", "cuda", "pallas_alias", "host"])
 def test_run_stream_matches_jax(stream, backends):
     users, items = stream
     t_cfg, j_cfg = _cfgs(*backends)
@@ -106,6 +106,43 @@ def test_overflow_requeue_and_drops_match_jax(stream):
     jr = jpipe.run_stream(users, items, j_cfg)
     assert tr.dropped > 0
     _assert_results_match(tr, jr, users.size)
+
+
+def test_host_overflow_requeue_and_drain_match_jax(stream):
+    """The host loop's unbounded re-queue: buckets at a quarter of the
+    fair share carry events across batches and past the stream's end,
+    where empty batches drain them (nothing dropped), as in JAX."""
+    users, items = (x[:1200] for x in stream)
+    t_cfg, j_cfg = _cfgs("host", "host", capacity_factor=0.25)
+    tr = rt.run_stream(users, items, t_cfg)
+    jr = jpipe.run_stream(users, items, j_cfg)
+    assert len(tr.load_history) > -(-users.size // 256)   # drain batches
+    assert tr.dropped == 0
+    _assert_results_match(tr, jr, users.size)
+
+
+def test_host_resumed_carry_and_states_match_jax(stream):
+    """The host loop resumes from carried states and a re-queue, which it
+    takes first, as JAX's host loop does; its evaluated recall bits
+    equal the device loop's ``scan`` run on the same input (whose rows
+    also hold the carry buffer's NaN slots)."""
+    users, items = (x[:600] for x in stream)
+    carry = tuple(x[600:640] for x in stream)
+    t_cfg, j_cfg = _cfgs("host", "host")
+    first = jpipe.run_stream(users[:300], items[:300], j_cfg)
+    flat = convert.flatten_state(jax.tree.map(np.asarray, first.final_states))
+    tr = rt.run_stream(users[300:], items[300:], t_cfg,
+                       initial_states=convert.states_from_numpy(
+                           flat, device="cpu"), initial_carry=carry)
+    jr = jpipe.run_stream(users[300:], items[300:], j_cfg,
+                          initial_states=first.final_states,
+                          initial_carry=carry)
+    _assert_results_match(tr, jr, users.size - 300 + 40)
+    scan = rt.run_stream(users, items, _cfgs("scan", "scan")[0])
+    host = rt.run_stream(users, items, t_cfg)
+    h_bits, s_bits = host.recall.bits(), scan.recall.bits()
+    np.testing.assert_array_equal(h_bits[~np.isnan(h_bits)],
+                                  s_bits[~np.isnan(s_bits)])
 
 
 @pytest.mark.parametrize("first", ["jax", "torch"])
@@ -148,7 +185,6 @@ def test_resumed_carry_matches_jax(stream):
 
 
 @pytest.mark.parametrize("over,needle", [
-    (dict(backend="host"), "host-loop slice"),
     (dict(backend="shard_map"), "multi-GPU slice"),
     (dict(backend="tpu"), "unknown backend"),
     (dict(forgetting="lru"), "forgetting"),

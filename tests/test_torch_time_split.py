@@ -27,9 +27,11 @@ def test_every_cut_variant_of_this_checkout_finds_its_text():
     assert tool.dics_topn_design(ROOT) == "query_group"
     assert tool.fused_topn_design(ROOT) == "lane_lists"
     assert tool.isgd_design(ROOT) == "dataflow"
+    assert tool.factor_design(ROOT) == "staged_pairwise"
     got = {(v, k) for v, k, _, _ in tool.variant_sources(ROOT)}
-    assert got == {(v, k) for d in ("staged", "wgmma", "strip", "query_group",
-                                    "lane_lists", "dataflow")
+    assert got == {(v, k) for d in ("staged", "staged_pairwise", "wgmma",
+                                    "strip", "query_group", "lane_lists",
+                                    "dataflow")
                    for v, k, _, _ in tool.VARIANTS[d]}
     only_k7 = tool.variant_sources(ROOT, ("swa_attention",))
     assert {v for v, _, _, _ in only_k7} == {
@@ -126,3 +128,47 @@ def test_the_earlier_k2_and_k5_designs_have_no_variants(tmp_path):
     assert tool.isgd_design(tmp_path) == "one_warp"
     assert tool.variant_sources(tmp_path, ("masked_scores", "dics_topn",
                                            "fused_topn", "isgd_update")) == []
+
+
+def test_the_k1_variants_edit_the_staged_pairwise_sources():
+    """This checkout's K1 takes the ``staged_pairwise`` variants, each an
+    edit of its own source; a checkout whose pairwise mode is still the
+    sequential body takes the ``staged`` ones."""
+    tool = _tool()
+    got = tool.variant_sources(ROOT, ("factor_update",))
+    assert [v for v, _, _, _ in got] == [
+        "no_column_clear", "no_rated_clears", "empty", "stage_only",
+        "no_replay", "replay_only"]
+    for variant, kernel, file, text in got:
+        assert kernel == "factor_update"
+        assert text != (ROOT / tool.CSRC / file).read_text(), variant
+
+
+def test_a_checkout_with_the_sequential_pairwise_body_is_staged(tmp_path):
+    tool = _tool()
+    csrc = tmp_path / tool.CSRC
+    csrc.parent.mkdir(parents=True)
+    shutil.copytree(ROOT / tool.CSRC, csrc)
+    src = csrc / "factor_update.cu"
+    src.write_text(src.read_text().replace("analyse_negatives", "x"))
+    assert tool.factor_design(tmp_path) == "staged"
+    assert tool.kernel_design(tmp_path, "factor_update") == "staged"
+    assert tool.kernel_design(ROOT, "factor_update") == "staged_pairwise"
+
+
+@pytest.mark.parametrize("variant,text", [
+    ("stage_only", "if (kPair && lead) analyse_negatives("),
+    ("replay_only", "lead ? nt - 32 : nt);"),
+    ("no_replay", "continue;  // uniform over the warp")])
+def test_a_k1_variant_whose_text_is_gone_stops_the_tool(tmp_path, variant,
+                                                         text):
+    tool = _tool()
+    csrc = tmp_path / tool.CSRC
+    csrc.parent.mkdir(parents=True)
+    shutil.copytree(ROOT / tool.CSRC, csrc)
+    src = csrc / "factor_update.cu"
+    body = src.read_text()
+    # Keep the design detectable: only the variant's anchor goes.
+    src.write_text(body.replace(text, "x") + "\n// analyse_negatives\n")
+    with pytest.raises(SystemExit, match=variant):
+        tool.variant_sources(tmp_path, ("factor_update",))

@@ -31,7 +31,14 @@ Per checkout, in a process of its own. K1 / K4: ``chip_smoke.py``'s
 DISGD and DICS paths trained at full size, then each kernel timed on
 three batches made by ``chip_smoke._middle_batch``: ``fresh`` (one id in
 ten unseen, the kernels line's batch), ``no_fresh`` (the stream's own
-ids) and ``padding`` (every event padding). K2 on the same trained DISGD
+ids) and ``padding`` (every event padding); K1 also in pairwise mode on
+``pairwise_fresh`` and ``pairwise_no_fresh`` (the same batches with the
+kernels line's uniform random negative slots on the DISGD state, which a
+checkout without BPR can run too). K1's design is ``staged_pairwise``
+where both of its modes are staged (``factor_design``); its variants
+then cut both modes, ``stage_only`` after the staging and analysis
+(the negatives' included) and ``replay_only`` after the replay, without
+the clears and write-back. K2 on the same trained DISGD
 state and ``fresh`` batch, K5 on the trained DICS state and the first
 serve call's queries: the kernels line's inputs
 (``chip_smoke.kernel_batch`` / ``masked_scores_inputs`` /
@@ -84,6 +91,11 @@ _SEQ_COL = ("for (int r = tid; r < U; r += kThreads) "
 _STAGED_CLEAR = "                            const Bucket& b, int t, int nt) {"
 _STAGED_START = "  const int rank = blockIdx.x % kBucketCtas;\n"
 _STAGED_SYNC = "    analyse_bucket(b, n, {});\n    cluster_sync();\n"
+_K1_SYNC = ("    if (kPair && lead) analyse_negatives(b, g, n, iv, irow, K);\n"
+            "    cluster_sync();\n")
+_K1_CLEARS = ("    } else {\n      clear_rated(rated, I, lo, hi, b, lead ? tid - 32 "
+              ": tid,\n                  lead ? nt - 32 : nt);\n    }\n"
+              "    __syncthreads();\n")
 # K7, wgmma design: the consumers only wait for each tile and release it.
 _K7_CONSUMER = "    asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\");\n"
 _K7_LOADS_ONLY = """    if (n_tiles > 0) mbar_wait(bar.q, 0);
@@ -222,6 +234,24 @@ VARIANTS = {
          [("        if (b.ev_u[e] < 0 || b.cclr[b.li[e]] > e) continue;",
            "        continue;")]),
     ],
+    # K1 with both modes staged: the staged design's K1 variants (the
+    # staging and analysis of both modes, the negatives' included, end at
+    # "stage_only"), and the chain without the clears and write-back.
+    "staged_pairwise": [
+        ("no_column_clear", "factor_update", "bucket_stage.cuh",
+         [("  if (ncols == 0) return;", "  return;")]),
+        ("no_rated_clears", "factor_update", "bucket_stage.cuh",
+         [(_STAGED_CLEAR, _STAGED_CLEAR + "\n  if (I > 0) return;")]),
+        ("empty", "factor_update", "factor_update.cu",
+         [(_STAGED_START, "  if (E > 0) return;\n" + _STAGED_START)]),
+        ("stage_only", "factor_update", "factor_update.cu",
+         [(_K1_SYNC, _K1_SYNC + "    if (E > 0) return;\n")]),
+        ("no_replay", "factor_update", "factor_update.cu",
+         [("        if (b.ev_u[e] < 0) continue;  // uniform over the warp",
+           "        continue;")]),
+        ("replay_only", "factor_update", "factor_update.cu",
+         [(_K1_CLEARS, "    }\n    __syncthreads();\n    if (E > 0) return;\n")]),
+    ],
     "mma_sync": [
         ("no_mask", "swa_attention", "swa_attention.cu",
          [("s[n][e] = visible(r, c, S, window, causal) ? s[n][e] * scale "
@@ -274,6 +304,15 @@ def design(root: Path) -> str:
     return "staged" if staged else "sequential"
 
 
+def factor_design(root: Path) -> str:
+    """The design of the checkout's K1: ``design``'s, or
+    ``staged_pairwise`` where its pairwise mode is staged too."""
+    src = root / CSRC / "factor_update.cu"
+    if design(root) == "staged" and "analyse_negatives" in src.read_text():
+        return "staged_pairwise"
+    return design(root)
+
+
 def swa_design(root: Path) -> str:
     """The design of the checkout's K7 bf16 kernel."""
     src = (root / CSRC / "swa_attention.cu").read_text()
@@ -307,7 +346,8 @@ def isgd_design(root: Path) -> str:
 def kernel_design(root: Path, kernel: str) -> str:
     return {"swa_attention": swa_design, "masked_scores": scores_design,
             "dics_topn": dics_topn_design, "fused_topn": fused_topn_design,
-            "isgd_update": isgd_design}.get(kernel, design)(root)
+            "isgd_update": isgd_design,
+            "factor_update": factor_design}.get(kernel, design)(root)
 
 
 def variant_sources(root: Path, kernels=KERNELS
@@ -317,7 +357,8 @@ def variant_sources(root: Path, kernels=KERNELS
     is not there."""
     out = []
     entries = [e for d in sorted({kernel_design(root, k) for k in kernels})
-               for e in VARIANTS[d] if e[1] in kernels]
+               for e in VARIANTS[d]
+               if e[1] in kernels and kernel_design(root, e[1]) == d]
     for variant, kernel, file, edits in entries:
         src = (root / CSRC / file).read_text()
         for old, new in edits:
@@ -518,6 +559,17 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
                    for name, rate in (("fresh", 0.1), ("no_fresh", 0.0))}
         batches["padding"] = tuple(torch.full_like(x, -1)
                                    for x in batches["fresh"])
+        negatives = {}
+        if kernel == "factor_update":
+            # Pairwise mode on the same batches, with the kernels line's
+            # random negative slots (rng seed 1 after the batch's draws).
+            for name, rate in (("fresh", 0.1), ("no_fresh", 0.0)):
+                rng = np.random.default_rng(1)
+                ev = cs._middle_batch(torch, np, users, items, cfg, rng, rate)
+                batches[f"pairwise_{name}"] = ev
+                negatives[f"pairwise_{name}"] = torch.as_tensor(
+                    rng.integers(0, h.i_cap, tuple(ev[0].shape)),
+                    dtype=torch.int32, device="cuda")
         for name, (ev_u, ev_i) in batches.items():
             u_slot = state_lib.slot_of(ev_u, h.g, h.u_cap)
             i_slot = state_lib.slot_of(ev_i, h.n_i, h.i_cap)
@@ -526,7 +578,7 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
                 init = disgd.init_vector(prng.key(cfg.seed, device="cuda"),
                                          torch.cat([ev_u, ev_i], 1), h.k,
                                          h.init_scale)
-                events = (ev_u, ev_i, u_slot, i_slot, None,
+                events = (ev_u, ev_i, u_slot, i_slot, negatives.get(name),
                           init[:, :cap].contiguous(),
                           init[:, cap:].contiguous())
 
