@@ -22,6 +22,23 @@ DISGD (K1-K3):
      for the device busy share and the kernel time by name;
   3. serving: ``grid_topn`` for 8,192 stream users in calls of 1,024,
      against the plain path (``use_kernel=False``);
+  3a. ``session_path``: the user's lifecycle on the same deployment.
+     ``StreamSession(cfg, publish=PublishPolicy(every=64, mode="async"))``
+     ingests the whole stream in one call (12 publish boundaries, each a
+     copy of the 4.26 GB states timed on the card); ``dropped`` 0,
+     Recall@10 and the final states equal to phase 2's (bit for bit),
+     ``async_rotations + coalesced`` equal to the boundaries and the front
+     the last snapshot; then ``recommend`` on phase 3's first call's
+     1,024 users plus 256 ids no worker knows, twice: known rows equal to
+     ``grid_topn`` on the final states (K3; ids and score bits), unknown
+     rows to a numpy popularity head, the second call all cache hits;
+     and the p50 of recommend calls that miss and that hit;
+  3b. ``session_concurrent``: a second session ingests the first 128
+     micro-batches (publishing every 16) while a reader thread holds the
+     front snapshot, calls ``grid_topn`` on it, waits for two more
+     publishes and calls it again (equal answers), then calls
+     ``recommend`` in a loop (versions never go down, no exception
+     escapes the thread): the recommend p50 during ingest;
   4. kernels against their plain versions on the main path's shapes: a
      real micro-batch from the middle of the stream on the trained
      state (one event in ten given an unseen id, so evictions run) for
@@ -76,6 +93,12 @@ DICS (K4, K5), after the DISGD state is freed:
      ``dics_topn`` on one serve call's inputs, each equal to its plain
      version, timed beside it with its bound; the bucket-start scoring of
      the same micro-batch timed;
+  8a. ``dics_session``: DICS through ``StreamSession`` at the full Netflix
+     width on the first 64 micro-batches (cut: a second whole stream
+     would take ~73 s), publishing every 16, a reader thread calling
+     ``recommend`` (K5) during the ingest; states and recall bits equal
+     to a plain ``run_stream`` over the same events, and phase 3a's
+     publish and recommend checks;
   9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
      colliding item slots, and the card's ``cuda`` run equals the same run
      on CPU tensors, and the ``host`` loop equals ``scan``: state and
@@ -109,6 +132,7 @@ the last line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -140,6 +164,17 @@ U_CAP, I_CAP = 38_912, 6_784
 DICS_U_CAP, DICS_I_CAP, K_NN = 98_560, 768, 10
 MICRO_BATCH = 2048
 SERVE_USERS, SERVE_BATCH = 8192, 1024
+# The session phases: publish cadences in micro-batches (DISGD's whole
+# stream: 12 boundaries), the cuts of the concurrent DISGD run and of the
+# DICS run, and the ids no worker knows added to recommend's queries.
+SESSION_EVERY = 64
+CONCURRENT_BATCHES, CONCURRENT_EVERY = 128, 16
+DICS_SESSION_BATCHES, DICS_SESSION_EVERY = 64, 16
+UNKNOWN_QUERIES = 256
+# The reader's pause between recommend calls during an ingest: a paced
+# client, so that cache hits (pure host work) do not take the trainer's
+# host thread for themselves.
+RECOMMEND_GAP_S = 0.005
 DEVICE = "cuda"
 
 # Card cycles of the busy wait that _time_ms(cover_enqueue=True) queues
@@ -357,6 +392,13 @@ def serve_calls(torch, rt, states, kw, batches, rounds=1):
     return lat, outs, ops.launch_counts()
 
 
+def _steps(n: int, cfg) -> int:
+    """Micro-batch steps of a device-loop stream of ``n`` events: the
+    batches plus the static drain tail."""
+    return (math.ceil(n / cfg.micro_batch)
+            + math.ceil(cfg.micro_batch / cfg.bucket_capacity))
+
+
 def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -406,7 +448,7 @@ def main():
     ops.reset_launch_counts()
     res = rt.run_stream(users, items, cfg)
     main_counts = ops.launch_counts()
-    steps = math.ceil(n / MICRO_BATCH) + math.ceil(MICRO_BATCH / cfg.bucket_capacity)
+    steps = _steps(n, cfg)
     if res.events_processed + res.dropped != n:
         fail(f"events_processed {res.events_processed} + dropped "
              f"{res.dropped} != {n}")
@@ -428,7 +470,12 @@ def main():
 
     # -- 3. serving ----------------------------------------------------------
     batches = serve_batches(torch, np, users, dev)
-    outs, serve_counts = _topn_serve(torch, rt, states, cfg, batches, "serve")
+    outs, serve_counts, serve_p50 = _topn_serve(torch, rt, states, cfg,
+                                                batches, "serve")
+
+    # -- 3a-3b. the session runtime ------------------------------------------
+    _session_phases(torch, np, rt, users, items, cfg, res, batches,
+                    serve_p50)
 
     # -- 4. kernels against their plain versions -----------------------------
     kernels, random_j = _kernel_checks(torch, np, rt, users, items, states,
@@ -472,8 +519,7 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
         res = rt.run_stream(users[:n], items[:n], cfg)
     rows, busy_ms = _device_rows(prof)
     events = int(min(n, users.size))
-    total_steps = (math.ceil(events / cfg.micro_batch)
-                   + math.ceil(cfg.micro_batch / cfg.bucket_capacity))
+    total_steps = _steps(events, cfg)
     emit(phase, steps=total_steps, events=events,
          wall_ms=1e3 * res.wall_seconds,
          wall_ms_per_step=1e3 * res.wall_seconds / total_steps,
@@ -662,13 +708,6 @@ def _middle_batch(torch, np, users, items, cfg, rng, fresh_rate=0.1):
     return ev_u, ev_i
 
 
-def _clone(state):
-    from repro_torch.core.state import Tables
-
-    return type(state)(Tables(*(t.clone() for t in state.tables)),
-                       *(x.clone() for x in state[1:]))
-
-
 def _touched_bytes(np, st_ids, ev_u, ev_i, u_slot, i_slot, u_cap, i_cap, k):
     """Bytes factor_update must move for this batch: its event inputs
     read once, and every table entry it touches read and written once
@@ -711,7 +750,7 @@ def _k1_case(torch, states, events, hyper, plain=True):
     results = {}
     for name, fn in (("kernel", ops.factor_update),
                      ("plain", ref.factor_apply)):
-        work[name] = _clone(states)
+        work[name] = state_lib.clone_state(states)
         run(fn, name)
         torch.cuda.synchronize()
         results[name] = work.pop(name)
@@ -727,7 +766,7 @@ def _k1_case(torch, states, events, hyper, plain=True):
 
     def fresh(name):
         def setup():
-            work[name] = _clone(states)
+            work[name] = state_lib.clone_state(states)
         return setup
 
     ms = _time_ms(torch, lambda: run(ops.factor_update, "kernel"), reps=5,
@@ -1047,12 +1086,369 @@ def _topn_serve(torch, rt, states, cfg, batches, phase):
         fail(f"{phase}: {mismatched} served ids differ from the plain path "
              "away from score ties")
     served = sum(int(o[3].sum()) for o in outs)
+    p50_ms = 1e3 * statistics.median(lat)
     emit(phase, algorithm=cfg.algorithm, queries=SERVE_USERS,
          batch=SERVE_BATCH, qcap=kw["qcap"], served=served,
-         qps=served / sum(lat), p50_ms=1e3 * statistics.median(lat),
+         qps=served / sum(lat), p50_ms=p50_ms,
          max_ms=1e3 * max(lat), known=sum(int(o[2].sum()) for o in outs),
          launches=counts)
-    return outs, counts
+    return outs, counts, p50_ms
+
+
+@contextlib.contextmanager
+def _copy_times(torch):
+    """Card time of every publish copy made in the block: a pair of CUDA
+    events around each ``state.clone_state`` call (the engine's boundary
+    copy and the session's final one), read after the block."""
+    from repro_torch.core import state as state_lib
+
+    real, pairs, out = state_lib.clone_state, [], []
+
+    def timed(state):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        copy = real(state)
+        end.record()
+        pairs.append((start, end))
+        return copy
+
+    state_lib.clone_state = timed
+    try:
+        yield out
+    finally:
+        state_lib.clone_state = real
+    torch.cuda.synchronize()
+    out.extend(a.elapsed_time(b) for a, b in pairs)
+
+
+def _wait_for(cond, what: str, timeout: float = 120.0):
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > t_end:
+            raise TimeoutError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def _serve_while_ingesting(torch, rt, session, users, items, queries,
+                           held_kw=None):
+    """``session.ingest(users, items)`` on this thread while a reader
+    thread serves: it waits for the first snapshot, then (with
+    ``held_kw``) holds it, calls ``grid_topn`` on it, waits until the
+    trainer has published twice more and calls it again; then it calls
+    ``session.recommend(queries)`` every RECOMMEND_GAP_S until the
+    ingest returns.
+    Fails if any exception escapes the reader. Returns (the ingest's
+    result, its wall seconds, the recommend calls' fields, each call's
+    snapshot version, the held snapshot's (version, latest version,
+    equal)). A call after a rotation misses the cache and waits for
+    ``grid_topn`` behind the training steps queued on the stream; a call
+    between rotations is answered from the cache."""
+    import threading
+    import traceback
+
+    done = threading.Event()
+    errors, lat, versions, held = [], [], [], []
+    store = session.store
+    q_dev = torch.as_tensor(queries, dtype=torch.int32, device=DEVICE)
+
+    def reader():
+        try:
+            _wait_for(lambda: store.latest_version >= 1, "a first snapshot")
+            if held_kw is not None:
+                snap = store.acquire()
+                first = rt.grid_topn(snap.states, q_dev, **held_kw)
+                torch.cuda.synchronize()
+                v0 = store.latest_version
+                _wait_for(lambda: store.latest_version >= v0 + 2,
+                          "two more publishes")
+                again = rt.grid_topn(snap.states, q_dev, **held_kw)
+                held.extend([snap.version, store.latest_version,
+                             all(torch.equal(a, b)
+                                 for a, b in zip(first, again))])
+            while not done.wait(RECOMMEND_GAP_S):
+                t0 = time.perf_counter()
+                resp = session.recommend(queries)
+                lat.append((time.perf_counter() - t0,
+                            resp.cache_hits < queries.size))
+                versions.append(resp.snapshot_version)
+        except BaseException:
+            errors.append(traceback.format_exc())
+
+    thread = threading.Thread(target=reader, name="reader")
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        res = session.ingest(users, items)
+        wall = time.perf_counter() - t0
+    finally:
+        done.set()
+        thread.join(timeout=300)
+    if thread.is_alive():
+        fail("the reader thread did not finish")
+    if errors:
+        fail(f"an exception escaped the reader thread:\n{errors[0]}")
+    if any(b < a for a, b in zip(versions, versions[1:])):
+        fail(f"recommend's snapshot versions went down: {versions}")
+    if not lat:
+        fail("no recommend call ran during the ingest")
+
+    def p50(sel):
+        got = [1e3 * t for t, miss in lat if sel(miss)]
+        return statistics.median(got) if got else None
+
+    calls = dict(recommend_calls_during_ingest=len(lat),
+                 recommend_misses_during_ingest=sum(m for _, m in lat),
+                 recommend_gap_ms=1e3 * RECOMMEND_GAP_S,
+                 recommend_p50_during_ingest_ms=p50(lambda m: True),
+                 recommend_miss_p50_during_ingest_ms=p50(lambda m: m),
+                 recommend_hit_p50_during_ingest_ms=p50(lambda m: not m),
+                 recommend_max_during_ingest_ms=1e3 * max(t for t, _ in lat))
+    return res, wall, calls, versions, held
+
+
+def _host_popularity(np, item_ids, weight, top_n):
+    """The popularity head on the host, by ``np.bincount`` over global
+    ids: (ids, float32 mass), mass descending, ids ascending on ties."""
+    ids, w = item_ids.reshape(-1), weight.reshape(-1).astype(np.float64)
+    mass = np.bincount(ids[ids >= 0], weights=w[ids >= 0])
+    head = np.lexsort((np.arange(mass.size), -mass))[:top_n]
+    if not (mass[head] > 0).all():
+        fail("the popularity head has fewer live items than top_n")
+    return head, mass[head].astype(np.float32)
+
+
+def _recommend_checks(torch, np, rt, session, cfg, batches, weight, phase):
+    """After an ingest: ``recommend`` on ``batches[0]`` plus
+    UNKNOWN_QUERIES ids no worker knows, twice. Known rows must equal
+    ``grid_topn`` on the final states (ids exact, scores bit for bit),
+    unknown rows the host popularity head of ``weight`` (the per-slot
+    popularity weight), the second call must be all cache hits. Then
+    the p50 of recommend calls that miss (``batches[1:]``, each
+    unseen) and that hit (the same calls again). Returns the phase's
+    serve fields."""
+    kw = serve_kw(cfg)
+    known_q = batches[0].cpu().numpy()
+    unknown = np.arange(UNKNOWN_QUERIES) + 10**7
+    q = np.concatenate([known_q, unknown])
+    first = session.recommend(q)
+    second = session.recommend(q)
+    ids, scores, known, served = (t.cpu().numpy() for t in rt.grid_topn(
+        session.states, batches[0], **kw))
+    k = known_q.size
+    if not (served.all() and known.all() and first.known[:k].all()):
+        fail(f"{phase}: the known users were not served as known")
+    if first.known[k:].any() or first.fallbacks != UNKNOWN_QUERIES:
+        fail(f"{phase}: unknown ids were answered as known")
+    if not (np.array_equal(first.ids[:k], ids)
+            and np.array_equal(first.scores[:k].view(np.uint32),
+                               scores.view(np.uint32))):
+        fail(f"{phase}: recommend's known rows differ from grid_topn on "
+             "the final states")
+    head, mass = _host_popularity(
+        np, session.states.tables.item_ids.cpu().numpy(),
+        weight(session.states).cpu().numpy(), cfg.resolved_hyper().top_n)
+    if not (np.array_equal(first.ids[k:], np.broadcast_to(
+            head, (UNKNOWN_QUERIES, head.size)))
+            and np.array_equal(first.scores[k:], np.broadcast_to(
+                mass, (UNKNOWN_QUERIES, mass.size)))):
+        fail(f"{phase}: unknown rows differ from the host popularity head")
+    if second.cache_hits != q.size or not (
+            np.array_equal(second.ids, first.ids)
+            and np.array_equal(second.scores, first.scores)):
+        fail(f"{phase}: the repeated call was not answered from the cache")
+    lat = {"miss": [], "hit": []}
+    for kind in ("miss", "hit"):
+        for qb in batches[1:]:
+            t0 = time.perf_counter()
+            resp = session.recommend(qb.cpu().numpy())
+            lat[kind].append(time.perf_counter() - t0)
+            if resp.cache_hits != (qb.numel() if kind == "hit" else 0):
+                fail(f"{phase}: a {kind} call had {resp.cache_hits} hits")
+    return dict(recommend_queries=q.size, unknown_queries=UNKNOWN_QUERIES,
+                recommend_calls=len(batches) - 1,
+                recommend_miss_p50_ms=1e3 * statistics.median(lat["miss"]),
+                recommend_hit_p50_ms=1e3 * statistics.median(lat["hit"]),
+                frontend=session.frontend.stats_snapshot())
+
+
+def _publish_checks(store, n, boundaries, phase):
+    """Every async boundary rotated or was coalesced, the final publish
+    rotated synchronously, and the front is the last snapshot."""
+    stats = store.stats_snapshot()
+    if stats["async_rotations"] + stats["coalesced"] != boundaries:
+        fail(f"{phase}: {stats} does not account for {boundaries} "
+             "publish boundaries")
+    front = store.acquire()
+    if (stats["sync_rotations"] != 1 or front.version != store.latest_version
+            or front.events_processed != n):
+        fail(f"{phase}: the front snapshot (v{front.version}, "
+             f"{front.events_processed} events) is not the last one")
+    return dict(boundaries=boundaries, publishes=boundaries + 1,
+                rotations=stats["rotations"],
+                async_rotations=stats["async_rotations"],
+                coalesced=stats["coalesced"], front_version=front.version)
+
+
+def _ingest_checks(res, n, steps, counts, kernels, phase):
+    if res.events_processed + res.dropped != n or res.dropped:
+        fail(f"{phase}: events_processed {res.events_processed} + dropped "
+             f"{res.dropped} != {n}, or dropped != 0")
+    for name in kernels:
+        if counts[name] != steps:
+            fail(f"{phase}: {name} launched {counts[name]} times, expected "
+                 f"one per step ({steps})")
+
+
+def _states_equal(torch, got, want) -> bool:
+    from repro_torch.core import convert
+
+    want = convert.flatten_state(want)
+    return all(torch.equal(t, want[k])
+               for k, t in convert.flatten_state(got).items())
+
+
+def _session_phases(torch, np, rt, users, items, cfg, main, batches,
+                    serve_p50):
+    """``session_path`` and ``session_concurrent`` on the DISGD
+    deployment. ``main`` holds the main path's result (final states,
+    recall, events/s)."""
+    from repro_torch.kernels import ops
+
+    # -- session_path -----------------------------------------------------------
+    n = int(users.size)
+    steps = _steps(n, cfg)
+    serve_cfg = rt.ServeConfig.from_stream(
+        cfg, batch_size=SERVE_BATCH,
+        cache_capacity=SERVE_USERS + UNKNOWN_QUERIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    session = rt.StreamSession(cfg, serve=serve_cfg, publish=rt.PublishPolicy(
+        every=SESSION_EVERY, mode="async"))
+    ops.reset_launch_counts()
+    with _copy_times(torch) as copy_ms:
+        t0 = time.perf_counter()
+        res = session.ingest(users, items)
+        ingest_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _ingest_checks(res, n, steps, counts, ("factor_update", "masked_scores"),
+                   "session_path")
+    if not (res.recall.mean() == main.recall.mean() and np.array_equal(
+            res.recall.bits(), main.recall.bits(), equal_nan=True)):
+        fail(f"session_path: Recall@10 {res.recall.mean()} differs from the "
+             f"main path's {main.recall.mean()}")
+    if not _states_equal(torch, session.states, main.final_states):
+        fail("session_path: the final states differ from the main path's")
+    publish = _publish_checks(session.store, n, math.ceil(
+        steps / SESSION_EVERY), "session_path")
+    serve = _recommend_checks(torch, np, rt, session, cfg, batches,
+                              lambda st: st.tables.item_freq, "session_path")
+    emit("session_path", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, cut=None, publish_every=SESSION_EVERY, mode="async",
+         steps=steps, wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
+         events_per_s=res.throughput, main_path_events_per_s=main.throughput,
+         ingest_events_per_s=n / ingest_s, recall_at_10=res.recall.mean(),
+         events_processed=res.events_processed, dropped=res.dropped,
+         **publish, copy_ms=copy_ms, copy_bytes=_state_bytes(session.states),
+         memory_allocated_before=before, max_memory_allocated=peak,
+         serve_p50_ms=serve_p50, **serve,
+         recommend_p50_during_ingest_ms=None,
+         during_ingest="phase session_concurrent", launches=counts)
+    del session, res
+    torch.cuda.empty_cache()
+
+    # -- session_concurrent -----------------------------------------------------
+    n = CONCURRENT_BATCHES * MICRO_BATCH
+    steps = _steps(n, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    session = rt.StreamSession(cfg, serve=serve_cfg, publish=rt.PublishPolicy(
+        every=CONCURRENT_EVERY, mode="async"))
+    with _copy_times(torch) as copy_ms:
+        res, ingest_s, calls, versions, held = _serve_while_ingesting(
+            torch, rt, session, users[:n], items[:n],
+            batches[0].cpu().numpy(), held_kw=serve_kw(cfg))
+    peak = torch.cuda.max_memory_allocated()
+    if not held[2]:
+        fail("session_concurrent: grid_topn on a held snapshot changed "
+             "while training published")
+    publish = _publish_checks(session.store, n, math.ceil(
+        steps / CONCURRENT_EVERY), "session_concurrent")
+    _ingest_checks(res, n, steps, {}, (), "session_concurrent")
+    emit("session_concurrent", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, cut=f"first {CONCURRENT_BATCHES} micro-batches",
+         publish_every=CONCURRENT_EVERY, mode="async", steps=steps,
+         wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
+         events_per_s=res.throughput, main_path_events_per_s=main.throughput,
+         dropped=res.dropped, **publish, copy_ms=copy_ms,
+         memory_allocated_before=before, max_memory_allocated=peak,
+         held_snapshot={"version": held[0], "latest_at_recheck": held[1],
+                        "answers_equal": held[2]},
+         **calls, versions_seen=sorted(set(versions)),
+         serve_p50_ms=serve_p50)
+    del session, res
+    torch.cuda.empty_cache()
+
+
+def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
+    """``dics_session``: DICS through the session on the first
+    DICS_SESSION_BATCHES micro-batches at the full Netflix width, a
+    reader serving during the ingest; states equal to a plain run over
+    the same events. Its queries are users of those events."""
+    from repro_torch.kernels import ops
+
+    n = DICS_SESSION_BATCHES * MICRO_BATCH
+    u, i = users[:n], items[:n]
+    steps = _steps(n, cfg)
+    batches = serve_batches(torch, np, u, DEVICE)
+    plain = rt.run_stream(u, i, cfg)
+    serve_cfg = rt.ServeConfig.from_stream(
+        cfg, batch_size=SERVE_BATCH,
+        cache_capacity=SERVE_USERS + UNKNOWN_QUERIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    session = rt.StreamSession(cfg, serve=serve_cfg, publish=rt.PublishPolicy(
+        every=DICS_SESSION_EVERY, mode="async"))
+    ops.reset_launch_counts()
+    with _copy_times(torch) as copy_ms:
+        res, ingest_s, calls, versions, _ = _serve_while_ingesting(
+            torch, rt, session, u, i, batches[0].cpu().numpy())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _ingest_checks(res, n, steps, counts, ("dics_update",), "dics_session")
+    if not counts["dics_topn"]:
+        fail("dics_session: no recommend ran on dics_topn during the ingest")
+    if not (_states_equal(torch, session.states, plain.final_states)
+            and np.array_equal(res.recall.bits(), plain.recall.bits(),
+                               equal_nan=True)):
+        fail("dics_session: states or recall differ from a plain run")
+    publish = _publish_checks(session.store, n, math.ceil(
+        steps / DICS_SESSION_EVERY), "dics_session")
+    serve = _recommend_checks(torch, np, rt, session, cfg, batches,
+                              lambda st: st.item_cnt, "dics_session")
+    emit("dics_session", stream="synth_stream(NETFLIX, seed=0)", events=n,
+         cut=f"first {DICS_SESSION_BATCHES} micro-batches of "
+             f"{math.ceil(users.size / MICRO_BATCH)} (at ~106 ms a step a "
+             "second whole stream would take ~73 s of the run)",
+         publish_every=DICS_SESSION_EVERY, mode="async", steps=steps,
+         wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
+         events_per_s=res.throughput, plain_events_per_s=plain.throughput,
+         dics_path_events_per_s=dics_path.throughput,
+         recall_at_10=res.recall.mean(), dropped=res.dropped, **publish,
+         copy_ms=copy_ms, copy_bytes=_state_bytes(session.states),
+         memory_allocated_before=before, max_memory_allocated=peak,
+         serve_p50_ms=serve_p50, **serve, **calls, launches=counts)
+    del session, res, plain
+    torch.cuda.empty_cache()
+
+
+def _state_bytes(states) -> int:
+    from repro_torch.core import storage
+
+    return storage.total_nbytes(states)
 
 
 def bpr_config(rt):
@@ -1127,8 +1523,7 @@ def _bpr_phases(torch, np, rt, dev, users, items, random_j, infos):
     n = int(users.size)
     cfg = bpr_config(rt)
     grid = cfg.grid
-    steps = (math.ceil(n / MICRO_BATCH)
-             + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
+    steps = _steps(n, cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = rt.run_stream(users, items, cfg)
@@ -1159,8 +1554,8 @@ def _bpr_phases(torch, np, rt, dev, users, items, random_j, infos):
 
     # -- 5b. bpr_serve -----------------------------------------------------------
     batches = serve_batches(torch, np, users, dev)
-    _, serve_counts = _topn_serve(torch, rt, states, cfg, batches,
-                                  "bpr_serve")
+    _, serve_counts, _ = _topn_serve(torch, rt, states, cfg, batches,
+                                     "bpr_serve")
     del batches
 
     # -- 5c. K1 pairwise on the BPR path's own batch ------------------------------
@@ -1344,8 +1739,7 @@ def _dics_phases(torch, np, rt, dev, infos):
     n = int(users.size)
     cfg = dics_config(rt)
     grid = cfg.grid
-    steps = (math.ceil(n / MICRO_BATCH)
-             + math.ceil(MICRO_BATCH / cfg.bucket_capacity))
+    steps = _steps(n, cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = rt.run_stream(users, items, cfg)
@@ -1375,8 +1769,7 @@ def _dics_phases(torch, np, rt, dev, infos):
     kw = serve_kw(cfg)
     qcap = kw["qcap"]
     batches = serve_batches(torch, np, users, dev)
-    lat, outs, serve_counts = serve_calls(torch, rt, states, kw,
-                                               batches)
+    lat, outs, serve_counts = serve_calls(torch, rt, states, kw, batches)
     if serve_counts["dics_topn"] != len(batches):
         fail(f"dics_topn launched {serve_counts['dics_topn']} times for "
              f"{len(batches)} serve calls")
@@ -1387,9 +1780,10 @@ def _dics_phases(torch, np, rt, dev, infos):
             if not torch.equal(a, b):
                 fail(f"dics serve {what} differ from the plain path")
     served = sum(int(o[3].sum()) for o in outs)
+    serve_p50 = 1e3 * statistics.median(lat)
     emit("dics_serve", queries=SERVE_USERS, batch=SERVE_BATCH, qcap=qcap,
          served=served, qps=served / sum(lat),
-         p50_ms=1e3 * statistics.median(lat), max_ms=1e3 * max(lat),
+         p50_ms=serve_p50, max_ms=1e3 * max(lat),
          known=sum(int(o[2].sum()) for o in outs),
          listed=sum(int(torch.isfinite(o[1]).sum()) for o in outs),
          launches=serve_counts)
@@ -1397,8 +1791,12 @@ def _dics_phases(torch, np, rt, dev, infos):
     # -- 8. kernels against their plain versions ---------------------------------
     rows = _dics_kernel_checks(torch, np, users, items, states, cfg,
                                batches[0], path_counts, serve_counts, infos)
-    del states, res, outs, batches
+    del states, outs, batches
     torch.cuda.empty_cache()
+
+    # -- 8a. dics_session ----------------------------------------------------------
+    _dics_session(torch, np, rt, users, items, cfg, res, serve_p50)
+    del res
 
     # -- 9. backends agree on the card -------------------------------------------
     _dics_backends_agree(torch, np, rt)
@@ -1488,7 +1886,7 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q,
         results = {}
         for name, fn in (("kernel", ops.dics_update),
                          ("plain", ref.dics_apply)):
-            work[name] = _clone(states)
+            work[name] = state_lib.clone_state(states)
             run(fn, name)
             torch.cuda.synchronize()
             results[name] = work.pop(name)
@@ -1502,7 +1900,7 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q,
 
         def fresh(name):
             def setup():
-                work[name] = _clone(states)
+                work[name] = state_lib.clone_state(states)
             return setup
 
         ms = _time_ms(torch, lambda: run(ops.dics_update, "kernel"), reps=5,

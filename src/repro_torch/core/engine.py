@@ -2,7 +2,8 @@
 
 Port of the device loop of ``repro/core/engine.py``: ``_make_batch_step``
 (:146, its ``live`` branch :181-278 without forgetting, drift or
-telemetry), ``init_scan_carry`` (:300) and ``run_stream_device`` (:405).
+telemetry), ``init_scan_carry`` (:300), ``PublishEvent`` (:345) and
+``run_stream_device`` (:405) with its publish hooks (:440-509).
 The JAX engine is one jitted ``lax.scan``; here it is a Python loop over
 micro-batches that only enqueues work on the device:
 
@@ -15,14 +16,16 @@ micro-batches that only enqueues work on the device:
 
 The loop does not synchronise with the host until the end of the stream:
 no ``.item()``, no ``nonzero``, no boolean indexing. The overflow
-compaction is a ``cumsum`` and a scatter.
+compaction is a ``cumsum`` and a scatter. A publish boundary in sync
+mode (``publish_sync=True``) is the one exception: it reads the progress
+scalars once the segment's work is done.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,7 +34,8 @@ from repro_torch.core import algorithm as algorithm_lib
 from repro_torch.core import prng, routing, state as state_lib
 from repro_torch.core.evaluator import RecallAccumulator
 
-__all__ = ["make_worker_fn", "init_scan_carry", "run_stream_device"]
+__all__ = ["make_worker_fn", "init_scan_carry", "PublishEvent",
+           "run_stream_device"]
 
 # Backend name -> the algorithm hook that builds its worker step.
 _WORKERS = {"scan": "make_worker_step", "cuda": "make_cuda_worker_step"}
@@ -131,13 +135,79 @@ def init_scan_carry(cfg, states=None, carry=(None, None)):
     return (states, cu, ci, zero, zero + lost)
 
 
+class PublishEvent(NamedTuple):
+    """Snapshot-boundary payload handed to ``on_publish``.
+
+    ``states`` is a copy of the worker states at a micro-batch boundary,
+    made on their device and enqueued on the loop's stream: the loop
+    updates its states in place, so only a copy keeps JAX's contract
+    that holding the event's states IS a consistent snapshot, for every
+    subscriber. ``forgets`` counts forgetting triggers (always 0 until
+    the forgetting slice).
+
+    The progress scalars come in two modes:
+
+    * ``publish_sync=True`` (the default): ``events_processed`` /
+      ``dropped`` / ``forgets`` are Python ints, read after the segment's
+      work is done.
+    * ``publish_sync=False``: they are 0-d tensors on the states' device,
+      copied at the boundary; the subscriber (e.g.
+      ``SnapshotStore.publish_async``) reads them off the training loop.
+      :meth:`as_ints` resolves them (waiting for the segment's work).
+
+    ``detector`` and ``telemetry`` are ``None``: drift detection and the
+    device telemetry vector come with later slices.
+    """
+
+    states: Any
+    events_processed: Any  # int, or 0-d tensor when publish_sync=False
+    dropped: Any
+    forgets: Any
+    segment: int          # 0-based index of the segment just finished
+    steps_done: int       # micro-batch steps completed so far (padded)
+    detector: Any = None
+    telemetry: Any = None
+
+    def as_ints(self) -> "PublishEvent":
+        """A copy with the progress scalars as Python ints (reading a
+        tensor waits for the work that produced it)."""
+        return self._replace(events_processed=int(self.events_processed),
+                             dropped=int(self.dropped),
+                             forgets=int(self.forgets))
+
+
+def _publish_event(carry, publish_sync: bool, segment: int,
+                   steps_done: int) -> PublishEvent:
+    """The boundary's event: a copy of the states, then the progress
+    scalars, as ints read after the segment's work (sync) or as 0-d
+    tensor copies (async: no host sync)."""
+    states, _, _, processed, dropped = carry
+    snapshot = state_lib.clone_state(states)
+    if publish_sync:
+        scalars = int(processed), int(dropped), 0
+    else:
+        scalars = processed.clone(), dropped.clone(), torch.zeros_like(dropped)
+    return PublishEvent(snapshot, *scalars, segment=segment,
+                        steps_done=steps_done)
+
+
 def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
+                      publish_every: int = 0, on_publish=None,
+                      publish_sync: bool = True,
                       initial_states=None, initial_carry=(None, None)):
     """Run the whole prequential stream on ``cfg.device``.
 
     ``backend`` is ``"cuda"`` (kernel worker) or ``"scan"`` (eager
     reference worker). ``initial_states``, when given, is updated in
     place and returned as ``final_states``.
+
+    With ``on_publish``, the stream runs in segments of ``publish_every``
+    steps (the whole stream when 0) and ``on_publish(PublishEvent)``
+    fires after each. As in JAX, the step count is padded to a whole
+    number of segments, so ``segment`` and ``steps_done`` equal JAX's;
+    the padded steps change no state and are not launched. The state
+    copy is the trainer's work and counts in ``wall_seconds``; the
+    subscriber's time does not.
     """
     from repro_torch.core.pipeline import StreamResult
     from repro_torch.kernels import build
@@ -174,15 +244,25 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
             build.build_all()
         torch.cuda.synchronize(device)
 
+    seg = publish_every if publish_every > 0 else max(steps, 1)
+    n_segments = max(math.ceil(steps / seg), 1)
+
     t0 = time.perf_counter()
+    publish_time = 0.0
     outs = []
-    for s in range(steps):
-        carry, out = batch_step(carry, xs_u[s], xs_i[s])
-        outs.append(out)
+    for seg_i in range(n_segments):
+        for s in range(seg_i * seg, min((seg_i + 1) * seg, steps)):
+            carry, out = batch_step(carry, xs_u[s], xs_i[s])
+            outs.append(out)
+        if on_publish is not None:
+            ev = _publish_event(carry, publish_sync, seg_i, (seg_i + 1) * seg)
+            tp = time.perf_counter()
+            on_publish(ev)
+            publish_time += time.perf_counter() - tp
     states, cu, _, processed, dropped = carry
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - publish_time
 
     if outs:
         bits, loads, kept_n, u_occ, i_occ = (

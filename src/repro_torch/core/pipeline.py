@@ -19,11 +19,14 @@ on one of three backends:
     eager reference worker on ``cfg.device``, one micro-batch at a time
     with a host round trip each.
 
+``run_stream``'s publish hooks (``publish_every``, ``on_publish``,
+``publish_sync``) hand a copy of the states to the serving plane's
+snapshot store at micro-batch boundaries (``engine.PublishEvent``).
+
 What later slices of the port bring raises ``ValueError`` naming the
 slice: the ``shard_map`` backend, forgetting policies, drift control and
-storage policies; the publish hooks are not ported. ``telemetry`` is
-accepted; the result's ``telemetry`` is ``None`` until the
-observability slice.
+storage policies. ``telemetry`` is accepted; the result's ``telemetry``
+is ``None`` until the observability slice.
 """
 
 from __future__ import annotations
@@ -139,9 +142,19 @@ def _resolve_backend(cfg: StreamConfig) -> str:
 
 
 def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
-               initial_states=None,
+               publish_every: int = 0, on_publish=None,
+               publish_sync: bool = True, initial_states=None,
                initial_carry=(None, None)) -> StreamResult:
     """Run the full prequential stream; returns curves + paper metrics.
+
+    ``publish_every``/``on_publish`` expose state snapshots at
+    micro-batch boundaries for the serving plane
+    (``repro_torch.serve.snapshot``): every ``publish_every`` steps,
+    ``on_publish(PublishEvent)`` fires with a copy of the worker states
+    at that boundary. ``publish_sync=False`` makes the device loop's
+    boundary non-blocking (0-d tensors for the progress scalars — see
+    ``engine.run_stream_device``); the host reference loop is synchronous
+    by construction and ignores it.
 
     ``initial_states``/``initial_carry`` resume mid-stream (for example
     from ``core.convert.states_from_numpy``); the states must be shaped
@@ -152,21 +165,27 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     backend = _resolve_backend(cfg)
     users, items = np.asarray(users), np.asarray(items)
     if backend == "host":
-        return _run_host(users, items, cfg, initial_states, initial_carry)
+        return _run_host(users, items, cfg, publish_every, on_publish,
+                         initial_states, initial_carry)
     return engine.run_stream_device(
-        users, items, cfg, backend,
+        users, items, cfg, backend, publish_every=publish_every,
+        on_publish=on_publish, publish_sync=publish_sync,
         initial_states=initial_states, initial_carry=initial_carry)
 
 
 def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
-              initial_states, initial_carry) -> StreamResult:
+              publish_every: int, on_publish, initial_states,
+              initial_carry) -> StreamResult:
     """The host reference loop (``repro/core/pipeline.py:260-475``, without
-    forgetting, drift, telemetry or publishing): per micro-batch, bucket
-    the carried and fresh events on the host, run the eager reference
-    worker on ``cfg.device``, scatter the recall bits back to stream
-    order and re-queue the overflow, unbounded. After the stream, empty
-    batches drain the re-queue, up to ``n_batches + ceil(carry /
-    capacity) + 1`` batches in all; what is left then is dropped."""
+    forgetting, drift or telemetry): per micro-batch, bucket the carried
+    and fresh events on the host, run the eager reference worker on
+    ``cfg.device``, scatter the recall bits back to stream order and
+    re-queue the overflow, unbounded. After the stream, empty batches
+    drain the re-queue, up to ``n_batches + ceil(carry / capacity) + 1``
+    batches in all; what is left then is dropped. Every
+    ``publish_every`` batches, and once more after the last batch when
+    it was not a boundary (the tail publish), ``on_publish`` gets a copy
+    of the states with int progress scalars."""
     from repro_torch.core import engine, state as state_lib
 
     if users.shape != items.shape:
@@ -192,6 +211,16 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def publish(segment, steps_done):
+        # The copy is the trainer's work; only the subscriber's time is
+        # left out of the wall clock, as in the device loop.
+        ev = engine.PublishEvent(state_lib.clone_state(states), processed,
+                                 dropped, 0, segment, steps_done)
+        sync()
+        tp = time.perf_counter()
+        on_publish(ev)
+        return time.perf_counter() - tp
+
     # Warm the step before the clock starts, as JAX compiles it there: a
     # bucket of padding changes no state.
     dummy = torch.full((grid.n_c, cap), -1, dtype=torch.int32, device=device)
@@ -200,6 +229,8 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     sync()
 
     t0 = time.perf_counter()
+    publish_time = 0.0
+    published_steps = 0
     n_batches = int(np.ceil(n / cfg.micro_batch))
     empty = np.empty(0, dtype=np.int64)
     b = 0
@@ -236,6 +267,10 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
                       bu.shape[0])
         processed += int(kept.sum())
         loads.append(load)
+        if (publish_every and on_publish is not None
+                and (b + 1) % publish_every == 0):
+            publish_time += publish((b + 1) // publish_every - 1, b + 1)
+            published_steps = b + 1
         if b % cfg.record_every == 0:
             u_occ, i_occ = occupancy()
             user_occ.append((processed, u_occ))
@@ -247,6 +282,10 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         u_occ, i_occ = occupancy()
         user_occ.append((processed, u_occ))
         item_occ.append((processed, i_occ))
+    # Tail publish, as the device loop publishes after its last segment.
+    if (publish_every and on_publish is not None and n_batches
+            and published_steps != b):
+        publish_time += publish(published_steps // publish_every, b)
     sync()
     return StreamResult(
         recall=acc,
@@ -254,7 +293,7 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         item_occupancy=item_occ,
         events_processed=processed,
         dropped=dropped,
-        wall_seconds=time.perf_counter() - t0,
+        wall_seconds=time.perf_counter() - t0 - publish_time,
         load_history=loads,
         final_states=states,
     )

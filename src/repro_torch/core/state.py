@@ -3,11 +3,12 @@
 Port of ``repro/core/state.py``: ``slot_of`` (:43), ``user_slot`` /
 ``item_slot``, ``Tables`` (:64), ``DisgdState`` (:76), ``DicsState``
 (:85), ``init_disgd_state`` (:120), ``init_dics_state`` (:131),
-``occupancy`` (:151) and ``item_stats`` (:159). Each worker holds
-fixed-capacity id-slotted tables, ``slot(id) = (id // n_splits) %
-capacity``; empty slots carry id ``-1``. Ids and bookkeeping are int32
-as in JAX (indexing casts to int64); ``rated`` is ``torch.bool`` and a
-kernel reads it through ``.view(torch.uint8)`` without a copy.
+``occupancy`` (:151) and ``item_stats`` (:159), plus ``clone_state``
+(the port's snapshot copy). Each worker holds fixed-capacity id-slotted
+tables, ``slot(id) = (id // n_splits) % capacity``; empty slots carry id
+``-1``. Ids and bookkeeping are int32 as in JAX (indexing casts to
+int64); ``rated`` is ``torch.bool`` and a kernel reads it through
+``.view(torch.uint8)`` without a copy.
 
 The state containers are shape-agnostic: one worker, or a stacked grid
 with a leading ``[n_c]`` axis (``init_disgd_state(..., batch=(n_c,))``),
@@ -22,7 +23,7 @@ import torch
 
 __all__ = ["Tables", "DisgdState", "DicsState", "init_disgd_state",
            "init_dics_state", "slot_of", "user_slot", "item_slot",
-           "occupancy", "item_stats"]
+           "occupancy", "item_stats", "clone_state"]
 
 
 def slot_of(ids: torch.Tensor, n_splits: int, capacity: int) -> torch.Tensor:
@@ -136,3 +137,12 @@ def item_stats(state):
     if isinstance(state, DisgdState):
         return state.tables.item_ids, state.tables.item_freq.float()
     raise TypeError(f"unknown state type {type(state)}")
+
+
+def clone_state(state):
+    """A copy of a (stacked) worker state on its device, enqueued on the
+    current stream. The port updates states in place, so a snapshot that
+    must not change under its reader is a copy (a JAX state is immutable
+    and needs none)."""
+    return type(state)(Tables(*(t.clone() for t in state.tables)),
+                       *(t.clone() for t in state[1:]))

@@ -1,0 +1,198 @@
+"""StreamSession — one public facade over training and serving.
+
+Port of ``repro/session.py:54-291``: the ``ingest`` / ``recommend``
+lifecycle over the snapshot store and the query front-end:
+
+    cfg = repro_torch.StreamConfig(algorithm="disgd",
+                                   grid=repro_torch.GridSpec(2))
+    session = repro_torch.StreamSession(
+        cfg, publish=repro_torch.PublishPolicy(every=8, mode="async"))
+    session.ingest(users, items)        # incremental; call repeatedly
+    session.recommend(user_ids)         # snapshot-backed grid top-N
+
+The session owns the plumbing — carrying states across calls and the
+serving snapshot — never the math. Algorithms resolve through the
+registry (``repro_torch.core.algorithm``), so a session drives any
+registered algorithm (``"disgd"``, ``"dics"``, ``"bpr"``) the same way.
+Publishing is governed by one :class:`~repro_torch.serve.policy.
+PublishPolicy`: cadence (``every`` micro-batches), sync vs async
+rotation, and the read-side staleness bound.
+
+Not here yet: ``checkpoint`` / ``restore`` / ``rescale`` raise
+``NotImplementedError`` until regrid and checkpoints (ROADMAP Queue 1
+item 12); there is no drift detector (item 9) and no device telemetry
+fold (item 10), so the store's telemetry sink stays ``None``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import pipeline as pipeline_lib
+from repro_torch.core import state as state_lib
+from repro_torch.core import storage as storage_lib
+from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
+from repro_torch.core.routing import GridSpec
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import trace as trace_lib
+from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
+                               ServeResponse, SnapshotStore)
+
+__all__ = ["StreamSession"]
+
+_LATER = ("regrid and checkpoints are not ported yet; they come with "
+          "ROADMAP Queue 1 item 12")
+
+
+class StreamSession:
+    """A live streaming recommender: states + serving plane.
+
+    Construction allocates zero states for ``cfg.grid`` on ``cfg.device``.
+    The session is single-writer: ``ingest`` mutates it, ``recommend``
+    reads the last published snapshot (so it can run from other threads
+    while ``ingest`` runs, the same contract as ``SnapshotStore``).
+    """
+
+    def __init__(self, cfg: StreamConfig, *, serve: ServeConfig | None = None,
+                 publish: PublishPolicy | None = None,
+                 snapshot_slots: int = 2,
+                 metrics: metrics_lib.MetricsRegistry | None = None):
+        self.cfg = cfg
+        self.algorithm = algorithm_lib.get_algorithm(cfg.algorithm)
+        # One registry spans the session: snapshot store, query front-end
+        # and stage spans all land here.
+        self.metrics = (metrics if metrics is not None
+                        else metrics_lib.MetricsRegistry())
+        self.store = SnapshotStore(slots=snapshot_slots,
+                                   registry=self.metrics)
+        # One policy governs both halves: the session's ingest cadence
+        # and the front-end's staleness bound. An explicit ``publish``
+        # wins; otherwise adopt the ServeConfig's (or the default).
+        if serve is None:
+            serve = ServeConfig.from_stream(cfg)
+        if publish is None:
+            publish = serve.publish
+        else:
+            serve = dataclasses.replace(serve, publish=publish)
+        self.publish_policy = publish
+        self._frontend = QueryFrontend(self.store, serve)
+        self._states = pipeline_lib.init_states(cfg)
+        self.events_processed = 0
+        self.forgets = 0
+        self._table_bytes = self.metrics.gauge(
+            "table_bytes", "Exact resident bytes of a live state table",
+            labels=("algorithm", "table", "dtype"))
+        self._update_table_bytes()
+
+    def _update_table_bytes(self) -> None:
+        # Tensor metadata only (shape x itemsize) — no device sync.
+        for table, (dtype, nbytes) in storage_lib.state_nbytes(
+                self._states).items():
+            self._table_bytes.labels(
+                algorithm=self.cfg.algorithm, table=table,
+                dtype=dtype).set(nbytes)
+
+    # -- introspection ----------------------------------------------------
+
+    @property
+    def states(self):
+        """Current stacked ``[n_c, ...]`` worker states (live: the next
+        ``ingest`` updates them in place)."""
+        return self._states
+
+    @property
+    def grid(self) -> GridSpec:
+        return self.cfg.grid
+
+    @property
+    def frontend(self) -> QueryFrontend:
+        """The session's query front-end (read path; shares the store)."""
+        return self._frontend
+
+    # -- train ------------------------------------------------------------
+
+    def ingest(self, users, items) -> StreamResult:
+        """Stream a batch of ``<user, item>`` events through the engine.
+
+        Incremental: each call continues from the states the previous
+        call left behind. With ``policy.every = k > 0`` the engine
+        publishes a copy of the states into this session's store every
+        ``k`` micro-batches, asynchronously when ``policy.mode ==
+        "async"``. The final state is always published (synchronously,
+        so ``recommend`` right after ``ingest`` sees it). Returns the
+        call's ``StreamResult``.
+        """
+        policy = self.publish_policy
+        hook = None
+        if policy.every > 0:
+            base = self.events_processed
+            base_forgets = self.forgets
+            publish = (self.store.publish_async if policy.is_async
+                       else self.store.publish)
+
+            def hook(ev):
+                publish(ev.states, base + ev.events_processed,
+                        base_forgets + ev.forgets, telemetry=ev.telemetry)
+
+        with trace_lib.span("ingest", self.metrics):
+            res = run_stream(
+                np.asarray(users), np.asarray(items), self.cfg,
+                publish_every=policy.every, on_publish=hook,
+                publish_sync=not policy.is_async,
+                initial_states=self._states)
+        self._states = res.final_states
+        self.events_processed += res.events_processed
+        self.forgets += res.forgets
+        self._publish()
+        return res
+
+    def _publish(self) -> None:
+        # Drain in-flight async rotations first: a mid-stream snapshot
+        # rotating after this final one would move the front back to an
+        # older stream position. The live states change at the next
+        # ingest, so the snapshot is a copy.
+        with trace_lib.span("publish", self.metrics):
+            self.store.flush()
+            self.store.publish(state_lib.clone_state(self._states),
+                               self.events_processed, self.forgets)
+            self._update_table_bytes()
+
+    # -- serve ------------------------------------------------------------
+
+    def recommend(self, user_ids, n: int | None = None) -> ServeResponse:
+        """Grid-wide top-N for a batch of users, from the last snapshot.
+
+        Runs the full serving plane: column fan-out + cross-split merge
+        (``grid_topn``), LRU response cache, and the popularity fallback
+        for unknown users. ``n`` overrides the list length (a fresh
+        front-end on the same store); default is the serving config's
+        ``top_n``.
+        """
+        if self.store.latest_version == 0:
+            self._publish()     # cold session: serve the zero state
+        if n is not None and n != self._frontend.cfg.top_n:
+            # The fresh frontend shares the store's registry (idempotent
+            # get-or-create), so the serve counters keep accumulating.
+            self._frontend = QueryFrontend(
+                self.store, dataclasses.replace(self._frontend.cfg, top_n=n))
+        with trace_lib.span("serve", self.metrics):
+            return self._frontend.serve(user_ids)
+
+    # -- checkpoint / restore / elasticity ----------------------------------
+
+    def checkpoint(self, directory: str) -> str:
+        """Not ported yet (ROADMAP Queue 1 item 12)."""
+        raise NotImplementedError(_LATER)
+
+    @classmethod
+    def restore(cls, directory: str, cfg: StreamConfig, step=None,
+                **kwargs) -> "StreamSession":
+        """Not ported yet (ROADMAP Queue 1 item 12)."""
+        raise NotImplementedError(_LATER)
+
+    def rescale(self, grid: GridSpec, **kwargs) -> None:
+        """Not ported yet (ROADMAP Queue 1 item 12)."""
+        raise NotImplementedError(_LATER)
