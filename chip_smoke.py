@@ -19,7 +19,12 @@ DISGD (K1-K3):
      collisions (the ``rated`` tables alone are 4.2 GB); launch counts
      are zeroed just before and read just after;
      then its first 64 micro-batches again under ``torch.profiler``
-     for the device busy share and the kernel time by name;
+     for the device busy share and the kernel time by name; the run folds
+     the telemetry vector (on by default): its events equal
+     ``events_processed`` and its hits / evals the Recall@10;
+  2a. ``telemetry_cost``: the first 128 micro-batches with telemetry off
+     and on, twice each (events/s), and once each under
+     ``torch.profiler`` (device operations and card busy ms a step);
   3. serving: ``grid_topn`` for 8,192 stream users in calls of 1,024,
      against the plain path (``use_kernel=False``);
   3a. ``session_path``: the user's lifecycle on the same deployment.
@@ -32,7 +37,9 @@ DISGD (K1-K3):
      1,024 users plus 256 ids no worker knows, twice: known rows equal to
      ``grid_topn`` on the final states (K3; ids and score bits), unknown
      rows to a numpy popularity head, the second call all cache hits;
-     and the p50 of recommend calls that miss and that hit;
+     the session's ``stream_*`` registry counters equal to phase 2's
+     telemetry vector; and the p50 of recommend calls that miss and that
+     hit;
   3b. ``session_concurrent``: a second session ingests the first 128
      micro-batches (publishing every 16) while a reader thread holds the
      front snapshot, calls ``grid_topn`` on it, waits for two more
@@ -59,7 +66,18 @@ DISGD (K1-K3):
      each path runs must have no stack frame or spill;
   5. the ``cuda`` and ``scan`` backends agree on the card on a smaller
      stream with slot collisions, and the ``host`` loop equals ``scan``
-     (states and recall bits).
+     (states and recall bits);
+  5f. ``forgetting_path``: the whole stream of phase 2 again under each
+     of the repo's forgetting presets (LRU every 2,048 events with age
+     3,000, LFU with min frequency 2, gradual with gamma 0.9): ``forgets``
+     = floor(events / 2,048), ``dropped`` 0, one K1 and one K2 launch a
+     step, occupancy below phase 2's for LRU / LFU, peak memory within
+     phase 2's + 1 GiB; events/s and Recall@10 beside phase 2's; the card
+     ms of one forgetting pass on a copy of the final states, with its
+     bound;
+  5g. ``forgetting_serve``: K3 on the LRU run's final states for phase
+     3's queries, equal to the plain path; no id of an emptied slot
+     served.
 
 BPR-MF (K1 pairwise, K2, K3), after the DISGD state is freed:
 
@@ -103,6 +121,21 @@ DICS (K4, K5), after the DISGD state is freed:
      colliding item slots, and the card's ``cuda`` run equals the same run
      on CPU tensors, and the ``host`` loop equals ``scan``: state and
      recall bits.
+
+Drift control, after the DICS state is freed:
+
+  9a. ``drift_path``: the DICS deployment of phase 6 on
+     ``make_scenario("abrupt", events=131_072, profile=Netflix with item
+     zipf 1.3, at=0.3)`` under no policy, the fixed LRU cadence and the
+     adaptive ``DriftPolicy()``: ``recovery_report``, fires, forgets,
+     events/s, ``dropped`` 0;
+  9b. ``drift_backends_agree``: ``benchmarks/bench_drift.py``'s small
+     configuration (DEFAULT_PROFILE, abrupt at 0.3) for DISGD, BPR-MF and
+     DICS under the fixed cadence and the adaptive policy on ``cuda``,
+     ``scan`` and ``host`` on the card and ``cuda`` on CPU tensors
+     (``_drift_agree`` says what each pair must equal); DICS adaptive
+     fires and recovers faster than the fixed cadence on ``cuda`` and
+     ``scan``.
 
 LLM serving (K7), after the DICS state is freed:
 
@@ -456,6 +489,7 @@ def main():
         if main_counts[name] != steps:
             fail(f"{name} launched {main_counts[name]} times on the main "
                  f"path, expected one per step ({steps})")
+    main_tel = _telemetry_checks(np, res, "main_path")
     emit("main_path", stream="synth_stream(MOVIELENS_25M, seed=0)", events=n,
          cut=None, generate_s=round(gen_s, 3), grid=[grid.n_i, grid.g],
          u_cap=U_CAP, i_cap=I_CAP, micro_batch=MICRO_BATCH,
@@ -464,9 +498,14 @@ def main():
          recall_at_10=res.recall.mean(),
          events_processed=res.events_processed, dropped=res.dropped,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
+         precision_at_10=res.precision, telemetry=main_tel,
          launches=main_counts)
+    main = dict(events_per_s=res.throughput, recall=res.recall.mean(),
+                occupancy=res.occupancy_summary(),
+                peak=torch.cuda.max_memory_allocated())
     states = res.final_states
     _profile_steps(torch, rt, users, items, cfg, steps=64)
+    _telemetry_cost(torch, rt, users, items, cfg)
 
     # -- 3. serving ----------------------------------------------------------
     batches = serve_batches(torch, np, users, dev)
@@ -474,17 +513,22 @@ def main():
                                                 batches, "serve")
 
     # -- 3a-3b. the session runtime ------------------------------------------
-    _session_phases(torch, np, rt, users, items, cfg, res, batches,
-                    serve_p50)
+    _session_phases(torch, np, rt, users, items, cfg, res, main_tel,
+                    batches, serve_p50)
 
     # -- 4. kernels against their plain versions -----------------------------
     kernels, random_j = _kernel_checks(torch, np, rt, users, items, states,
                                        cfg, batches[0], main_counts,
                                        serve_counts, infos)
+    batches_q = batches
     del states, res, outs, batches
 
     # -- 5. backends agree on the card ---------------------------------------
     _backends_agree(torch, np, rt)
+    torch.cuda.empty_cache()
+
+    # -- 5f-5g. forgetting on the DISGD deployment -------------------------------
+    _forgetting_phases(torch, np, rt, users, items, cfg, main, batches_q)
     torch.cuda.empty_cache()
 
     # -- 5a-5e. BPR-MF -----------------------------------------------------------
@@ -493,6 +537,10 @@ def main():
 
     # -- 6-9. DICS -------------------------------------------------------------
     kernels += _dics_phases(torch, np, rt, dev, infos)
+    torch.cuda.empty_cache()
+
+    # -- 9a-9b. drift control ------------------------------------------------------
+    _drift_phases(torch, np, rt)
     torch.cuda.empty_cache()
 
     # -- 10-12. LLM serving ------------------------------------------------------
@@ -512,6 +560,12 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
     summed kernel time / the loop's wall time; device operations (kernel
     launches and copies) a step from the profiler's counts. ``extra``
     rides along on the phase's line."""
+    emit(phase, **_profiled(torch, rt, users, items, cfg, steps), **extra)
+
+
+def _profiled(torch, rt, users, items, cfg, steps: int) -> dict:
+    """``_profile_steps``'s fields: the first ``steps`` micro-batches of
+    ``users`` / ``items`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     n = steps * cfg.micro_batch
@@ -520,14 +574,14 @@ def _profile_steps(torch, rt, users, items, cfg, steps: int,
     rows, busy_ms = _device_rows(prof)
     events = int(min(n, users.size))
     total_steps = _steps(events, cfg)
-    emit(phase, steps=total_steps, events=events,
-         wall_ms=1e3 * res.wall_seconds,
-         wall_ms_per_step=1e3 * res.wall_seconds / total_steps,
-         device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / (1e3 * res.wall_seconds),
-         device_ops_per_step=sum(r[1] for r in rows) / total_steps,
-         top=[{"kernel": k[:90], "ms": us / 1e3, "count": c}
-              for us, c, k in rows[:10]], **extra)
+    return dict(steps=total_steps, events=events,
+                wall_ms=1e3 * res.wall_seconds,
+                wall_ms_per_step=1e3 * res.wall_seconds / total_steps,
+                device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / (1e3 * res.wall_seconds),
+                device_ops_per_step=sum(r[1] for r in rows) / total_steps,
+                top=[{"kernel": k[:90], "ms": us / 1e3, "count": c}
+                     for us, c, k in rows[:10]])
 
 
 def _device_rows(prof):
@@ -1307,11 +1361,11 @@ def _states_equal(torch, got, want) -> bool:
                for k, t in convert.flatten_state(got).items())
 
 
-def _session_phases(torch, np, rt, users, items, cfg, main, batches,
-                    serve_p50):
+def _session_phases(torch, np, rt, users, items, cfg, main, main_tel,
+                    batches, serve_p50):
     """``session_path`` and ``session_concurrent`` on the DISGD
     deployment. ``main`` holds the main path's result (final states,
-    recall, events/s)."""
+    recall, events/s), ``main_tel`` its telemetry vector."""
     from repro_torch.kernels import ops
 
     # -- session_path -----------------------------------------------------------
@@ -1340,6 +1394,10 @@ def _session_phases(torch, np, rt, users, items, cfg, main, batches,
              f"main path's {main.recall.mean()}")
     if not _states_equal(torch, session.states, main.final_states):
         fail("session_path: the final states differ from the main path's")
+    counters = _stream_counters(session.metrics)
+    if counters != {f: main_tel[f] for f in counters}:
+        fail(f"session_path: registry counters {counters} differ from the "
+             f"main path's telemetry vector {main_tel}")
     publish = _publish_checks(session.store, n, math.ceil(
         steps / SESSION_EVERY), "session_path")
     serve = _recommend_checks(torch, np, rt, session, cfg, batches,
@@ -1352,7 +1410,7 @@ def _session_phases(torch, np, rt, users, items, cfg, main, batches,
          events_processed=res.events_processed, dropped=res.dropped,
          **publish, copy_ms=copy_ms, copy_bytes=_state_bytes(session.states),
          memory_allocated_before=before, max_memory_allocated=peak,
-         serve_p50_ms=serve_p50, **serve,
+         serve_p50_ms=serve_p50, **serve, stream_counters=counters,
          recommend_p50_during_ingest_ms=None,
          during_ingest="phase session_concurrent", launches=counts)
     del session, res
@@ -1724,6 +1782,372 @@ def _backends_agree(torch, np, rt):
          cuda_wall_s=a.wall_seconds, scan_wall_s=b.wall_seconds,
          host_wall_s=h.wall_seconds, host_equals_scan=True,
          recall_cuda=a.recall.mean(), recall_scan=b.recall.mean())
+
+
+# -- telemetry, forgetting and drift control -------------------------------------
+
+# The registry counters a session's TelemetryFolder keeps, by vector field.
+STREAM_COUNTERS = {"events": "stream_events_total",
+                   "dropped": "stream_dropped_total",
+                   "requeued": "stream_requeued_total",
+                   "evictions": "stream_evictions_total",
+                   "hits": "stream_recall_hits_total",
+                   "evals": "stream_recall_evals_total",
+                   "list_len": "stream_list_len_total"}
+# The repo's forgetting presets for the paper's Figs. 5-7
+# (benchmarks/common.py:80-81, benchmarks/bench_forgetting.py:18).
+FORGETTING_PRESETS = {
+    "lru": dict(policy="lru", trigger_every=2048, lru_max_age=3000),
+    "lfu": dict(policy="lfu", trigger_every=2048, lfu_min_freq=2),
+    "gradual": dict(policy="gradual", trigger_every=2048,
+                    gradual_gamma=0.9)}
+TELEMETRY_COST_BATCHES = 128
+# drift_path: the DICS deployment on an abrupt drift of Netflix's
+# profile with the scenarios' steeper popularity (DEFAULT_PROFILE's
+# item_zipf), cut to DRIFT_EVENTS raw events for the run's time limit.
+DRIFT_EVENTS, DRIFT_AT = 131_072, 0.3
+# drift_backends_agree: benchmarks/bench_drift.py's small configuration;
+# BPR-MF cut to the stream's first events (its eager worker, on scan and
+# host, takes ~45 s over the whole stream on the card: ~1.3 s a step of
+# 128 events a worker).
+DRIFT_SMALL_EVENTS = 32_768
+DRIFT_SMALL_CUT = {"bpr": 2048}
+
+
+def _stream_counters(registry) -> dict:
+    return {f: int(registry.counter(name).value)
+            for f, name in STREAM_COUNTERS.items()}
+
+
+def _telemetry_checks(np, res, phase) -> dict:
+    """The run's telemetry vector as ints: its events equal
+    ``events_processed``, its hits / evals the recall bits' mean."""
+    from repro_torch.obs.telemetry import telemetry_ints
+
+    tel = telemetry_ints(res.telemetry)
+    bits = res.recall.bits()
+    bits = bits[~np.isnan(bits)]
+    if tel["events"] != res.events_processed or tel["evals"] != bits.size:
+        fail(f"{phase}: telemetry events {tel['events']} / evals "
+             f"{tel['evals']} differ from events_processed "
+             f"{res.events_processed} / evaluated bits {bits.size}")
+    if tel["hits"] != int(bits.sum()) or (
+            tel["hits"] / tel["evals"] != res.recall.mean()):
+        fail(f"{phase}: telemetry hits / evals {tel['hits']} / "
+             f"{tel['evals']} differ from the recall bits' mean "
+             f"{res.recall.mean()}")
+    return tel
+
+
+def _telemetry_cost(torch, rt, users, items, cfg):
+    """``telemetry_cost``: the main path's first TELEMETRY_COST_BATCHES
+    micro-batches with telemetry off and on, twice each, alternating
+    (events/s of each run), then once each under ``torch.profiler``
+    (device operations a step and card busy ms)."""
+    n = TELEMETRY_COST_BATCHES * cfg.micro_batch
+    u, i = users[:n], items[:n]
+    cfgs = {"off": dataclasses.replace(cfg, telemetry=False), "on": cfg}
+    rt.run_stream(u, i, cfg)                         # warm the allocator
+    rates = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off"):
+        res = rt.run_stream(u, i, cfgs[name])
+        rates[name].append(res.throughput)
+        del res
+    steps = _steps(n, cfg)
+    prof = {name: _profiled(torch, rt, u, i, c, steps)
+            for name, c in cfgs.items()}
+    emit("telemetry_cost", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         cut=f"first {TELEMETRY_COST_BATCHES} micro-batches", events=n,
+         steps=steps, events_per_s=rates,
+         wall_ms_per_step={k: 1e3 * n / statistics.mean(v) / steps
+                           for k, v in rates.items()},
+         device_ops_per_step={k: p["device_ops_per_step"]
+                              for k, p in prof.items()},
+         device_busy_ms_per_step={k: p["device_busy_ms"] / steps
+                                  for k, p in prof.items()},
+         profiled_wall_ms_per_step={k: p["wall_ms_per_step"]
+                                    for k, p in prof.items()})
+
+
+def _forgetting_bytes(states, policy) -> int:
+    """Bytes one ``apply_forgetting`` pass must move: every table it
+    writes read and written once (``gradual``: the factor vectors; an
+    eviction pass: every table but the clock, which it only reads)."""
+    from repro_torch.core import storage
+
+    tabs = storage.table_arrays(states)
+    if policy == "gradual":
+        return 2 * sum(tabs[k].numel() * tabs[k].element_size()
+                       for k in ("user_vecs", "item_vecs"))
+    return sum((1 if k == "clock" else 2) * t.numel() * t.element_size()
+               for k, t in tabs.items())
+
+
+def _forgetting_phases(torch, np, rt, users, items, cfg, main, batches):
+    """``forgetting_path``: the main path's deployment, whole stream, under
+    each of the repo's presets; ``forgetting_serve``: K3 on the LRU run's
+    final states against the plain path."""
+    from repro_torch.core import forgetting, state as state_lib
+    from repro_torch.kernels import ops
+
+    n = int(users.size)
+    steps = _steps(n, cfg)
+    lru_states = None
+    main_occ = main["occupancy"]["user_total"] + main["occupancy"][
+        "item_total"]
+    for name, preset in FORGETTING_PRESETS.items():
+        fcfg = forgetting.ForgettingConfig(**preset)
+        run_cfg = dataclasses.replace(cfg, forgetting=fcfg)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = rt.run_stream(users, items, run_cfg)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        phase = f"forgetting_path.{name}"
+        _ingest_checks(res, n, steps, counts,
+                       ("factor_update", "masked_scores"), phase)
+        if res.forgets != res.events_processed // fcfg.trigger_every:
+            fail(f"{phase}: forgets {res.forgets} != floor("
+                 f"{res.events_processed} / {fcfg.trigger_every})")
+        if peak - before > main["peak"] + 2**30:
+            fail(f"{phase}: peak {peak - before} B over the main path's "
+                 f"{main['peak']} B + 1 GiB")
+        tel = _telemetry_checks(np, res, phase)
+        occ = res.occupancy_summary()
+        occ_total = occ["user_total"] + occ["item_total"]
+        if name != "gradual" and not occ_total < main_occ:
+            fail(f"{phase}: occupancy {occ_total} not below the main "
+                 f"path's {main_occ}")
+        if name != "gradual" and tel["evictions"] <= 0:
+            fail(f"{phase}: no eviction counted")
+        # One pass on a copy of the final states, with its trigger set:
+        # the card time every step of this run paid.
+        copy = state_lib.clone_state(res.final_states)
+        gate = torch.ones((), dtype=torch.bool, device=DEVICE)
+        pass_ms = _time_ms(torch, lambda: forgetting.apply_forgetting(
+            copy, fcfg, gate=gate), reps=5)
+        n_bytes = _forgetting_bytes(copy, name)
+        del copy
+        emit("forgetting_path", policy=name, config=preset,
+             source="benchmarks/common.py:80-81 (lru, lfu), "
+                    "benchmarks/bench_forgetting.py:18 (gradual)",
+             stream="synth_stream(MOVIELENS_25M, seed=0)", events=n,
+             cut=None, steps=steps, wall_s=res.wall_seconds,
+             events_per_s=res.throughput,
+             main_path_events_per_s=main["events_per_s"],
+             recall_at_10=res.recall.mean(),
+             main_path_recall_at_10=main["recall"],
+             events_processed=res.events_processed, dropped=res.dropped,
+             forgets=res.forgets, occupancy=occ,
+             main_path_occupancy=main["occupancy"],
+             telemetry_evictions=tel["evictions"], telemetry=tel,
+             memory_allocated_before=before, max_memory_allocated=peak,
+             main_path_max_memory_allocated=main["peak"],
+             pass_ms=pass_ms, pass_bytes=n_bytes,
+             pass_bound_ms=_bound_ms(n_bytes, 0)[0], launches=counts)
+        if name == "lru":
+            lru_states = res.final_states
+        del res
+        torch.cuda.empty_cache()
+        if name == "lru":
+            # Where the time goes with a pass every step.
+            _profile_steps(torch, rt, users, items, run_cfg, steps=64,
+                           phase="forgetting_profile", policy=name)
+
+    # -- forgetting_serve ------------------------------------------------------
+    kw = serve_kw(cfg)
+    live = set()
+    ids_all = lru_states.tables.item_ids
+    for w in range(ids_all.shape[0]):
+        live |= set(ids_all[w][ids_all[w] >= 0].tolist())
+    empty_slots = int((ids_all < 0).sum())
+    lat, outs, counts = serve_calls(torch, rt, lru_states, kw, batches)
+    if counts["fused_topn"] != len(batches):
+        fail(f"forgetting_serve: fused_topn launched {counts['fused_topn']} "
+             f"times for {len(batches)} serve calls")
+    listed = 0
+    for q, out in zip(batches, outs):
+        plain = rt.grid_topn(lru_states, q, use_kernel=False, **kw)
+        for a, b, what in zip(out, plain, ("ids", "scores", "known",
+                                           "served")):
+            if not torch.equal(a, b):
+                fail(f"forgetting_serve: {what} differ from the plain path")
+        ids = out[0][out[0] >= 0].tolist()
+        listed += len(ids)
+        if not set(ids) <= live:
+            fail("forgetting_serve: an id on an empty slot was served")
+        if not torch.equal(out[0] < 0, torch.isneginf(out[1])):
+            fail("forgetting_serve: a -1 id with a finite score")
+    emit("forgetting_serve", policy="lru", queries=SERVE_USERS,
+         batch=SERVE_BATCH, empty_item_slots=empty_slots, listed=listed,
+         known=sum(int(o[2].sum()) for o in outs),
+         p50_ms=1e3 * statistics.median(lat), tolerance="exact",
+         launches=counts)
+    del lru_states, outs
+
+
+def _drift_cfgs(base):
+    """The three drift policies on ``base``: none, bench_drift's fixed
+    LRU cadence (benchmarks/bench_drift.py:56-57), adaptive."""
+    from repro_torch.core import forgetting
+    from repro_torch.drift import DriftPolicy
+
+    return {"none": base,
+            "fixed": dataclasses.replace(base, forgetting=(
+                forgetting.ForgettingConfig(policy="lru", trigger_every=2048,
+                                            lru_max_age=512))),
+            "adaptive": dataclasses.replace(base, drift=DriftPolicy())}
+
+
+def _drift_phases(torch, np, rt):
+    """``drift_path`` on the DICS deployment and ``drift_backends_agree``
+    on bench_drift's small configuration."""
+    from repro_torch.data.stream import NETFLIX
+    from repro_torch.drift import make_scenario, recovery_report
+    from repro_torch.kernels import ops
+
+    # -- drift_path -------------------------------------------------------------
+    t0 = time.perf_counter()
+    sc = make_scenario("abrupt", events=DRIFT_EVENTS, seed=0,
+                       profile=dataclasses.replace(NETFLIX, item_zipf=1.3),
+                       at=DRIFT_AT)
+    gen_s = time.perf_counter() - t0
+    d = sc.drift_events[0]
+    cfg = dics_config(rt)
+    steps = _steps(sc.n, cfg)
+    reports = {}
+    for name, run_cfg in _drift_cfgs(cfg).items():
+        ops.reset_launch_counts()
+        res = rt.run_stream(sc.users, sc.items, run_cfg)
+        counts = ops.launch_counts()
+        phase = f"drift_path.{name}"
+        _ingest_checks(res, sc.n, steps, counts, ("dics_update",), phase)
+        rep = recovery_report(res.recall.bits(), d)
+        fires = (int(res.drift_flags.sum()) if res.drift_flags is not None
+                 else 0)
+        reports[name] = rep
+        emit("drift_path", policy=name,
+             stream=f"make_scenario('abrupt', events={DRIFT_EVENTS}, "
+                    f"seed=0, profile=replace(NETFLIX, item_zipf=1.3), "
+                    f"at={DRIFT_AT})",
+             events=sc.n, drift_event=d, generate_s=round(gen_s, 3),
+             cut=f"{DRIFT_EVENTS} raw events (the run's time limit)",
+             steps=steps, wall_s=res.wall_seconds,
+             events_per_s=res.throughput, recall_at_10=res.recall.mean(),
+             dropped=res.dropped, fires=fires, forgets=res.forgets,
+             recovery=dataclasses.asdict(rep),
+             recovery_or_censored=rep.recovery_or_censored,
+             telemetry_evictions=int(res.telemetry.evictions),
+             launches=counts)
+        del res
+    torch.cuda.empty_cache()
+
+    # -- drift_backends_agree ------------------------------------------------------
+    sc = make_scenario("abrupt", events=DRIFT_SMALL_EVENTS, seed=0, at=0.3)
+    d = sc.drift_events[0]
+    rows = {}
+    for algo in ("disgd", "bpr", "dics"):
+        cut = DRIFT_SMALL_CUT.get(algo, sc.n)
+        hyper = rt.get_algorithm(algo).default_hyper()._replace(
+            u_cap=256, i_cap=64)
+        base = rt.StreamConfig(algorithm=algo, grid=rt.GridSpec(2),
+                               micro_batch=256, hyper=hyper, backend="cuda",
+                               device=DEVICE)
+        for policy, run_cfg in _drift_cfgs(base).items():
+            if policy == "none":
+                continue
+            runs = _drift_agree(np, rt, sc.users[:cut], sc.items[:cut], d,
+                                run_cfg, f"drift_backends_agree.{algo}."
+                                f"{policy}")
+            rows[f"{algo}.{policy}"] = dict(events=min(cut, sc.n), **runs)
+    for what in ("cuda", "scan"):
+        fixed, adaptive = (rows[f"dics.{p}"][what] for p in ("fixed",
+                                                             "adaptive"))
+        if adaptive["fires"] < 1:
+            fail(f"drift_backends_agree: DICS adaptive on {what} never fired")
+        if not adaptive["recovery_or_censored"] < fixed[
+                "recovery_or_censored"]:
+            fail(f"drift_backends_agree: DICS adaptive recovery on {what} "
+                 f"({adaptive['recovery_or_censored']}) does not beat the "
+                 f"fixed cadence's ({fixed['recovery_or_censored']})")
+    emit("drift_backends_agree",
+         stream=f"make_scenario('abrupt', events={DRIFT_SMALL_EVENTS}, "
+                "seed=0, at=0.3)", events=sc.n, drift_event=d,
+         cut={algo: f"first {n} events" for algo, n in
+              DRIFT_SMALL_CUT.items()},
+         grid=[2, 2], u_cap=256, i_cap=64, micro_batch=256,
+         rtol=STREAM_RTOL, atol=STREAM_ATOL, runs=rows)
+
+
+def _drift_agree(np, rt, users, items, d, cfg, what) -> dict:
+    """One policy of one algorithm on ``cuda``, ``scan`` and ``host`` on
+    the card and ``cuda`` on CPU tensors. ``host`` = ``scan`` (the same
+    eager worker): flags, forgets, evaluated recall bits, every state
+    array and the telemetry vector exactly. The card's ``cuda`` = ``cuda``
+    on CPU tensors (the plain versions the CPU tests hold to JAX): flags,
+    forgets, recall bits, integers and the telemetry vector exactly,
+    floats within STREAM_RTOL / STREAM_ATOL. ``cuda`` against ``scan``
+    under the fixed cadence, whose passes do not read the recall bits:
+    forgets, integers and the telemetry vector but its hits exactly,
+    floats within the tolerance (the cuda worker scores at bucket start,
+    the scan worker live: their recall bits, and so an adaptive run's
+    flags, differ by design in both packages)."""
+    from repro_torch.core import convert
+    from repro_torch.drift import recovery_report
+    from repro_torch.obs.telemetry import telemetry_ints
+
+    runs = {name: rt.run_stream(users, items, dataclasses.replace(cfg, **kw))
+            for name, kw in (("cuda", {}), ("scan", dict(backend="scan")),
+                             ("host", dict(backend="host")),
+                             ("cpu", dict(device="cpu")))}
+    st = {k: convert.states_to_numpy(r.final_states) for k, r in runs.items()}
+    tel = {k: telemetry_ints(r.telemetry) for k, r in runs.items()}
+    flags = {k: (r.drift_flags if r.drift_flags is not None
+                 else np.zeros(0, np.int32)) for k, r in runs.items()}
+    adaptive = cfg.drift is not None
+    pairs = [("host", "scan", True), ("cuda", "cpu", True)]
+    if not adaptive:
+        pairs.append(("cuda", "scan", False))
+    for a, b, same_bits in pairs:
+        ra, rb = runs[a], runs[b]
+        if (ra.events_processed, ra.dropped, ra.forgets) != (
+                rb.events_processed, rb.dropped, rb.forgets):
+            fail(f"{what}: {a} and {b} processed / dropped / forgets differ")
+        if ra.dropped:
+            fail(f"{what}: {a} dropped {ra.dropped} events")
+        if not np.array_equal(flags[a], flags[b]):
+            fail(f"{what}: {a} and {b} drift flags differ")
+        ta, tb = dict(tel[a]), dict(tel[b])
+        if not same_bits:
+            ta.pop("hits"), tb.pop("hits")
+        if ta != tb:
+            fail(f"{what}: {a} and {b} telemetry differs: {ta} / {tb}")
+        exact_floats = a == "host"
+        for name in st[a]:
+            x, y = st[a][name], st[b][name]
+            if x.dtype.kind != "f" or exact_floats:
+                if not np.array_equal(x, y):
+                    fail(f"{what}: {a} and {b}: {name} differs")
+            elif not np.allclose(x, y, rtol=STREAM_RTOL, atol=STREAM_ATOL):
+                fail(f"{what}: {a} and {b}: {name} beyond rtol="
+                     f"{STREAM_RTOL} atol={STREAM_ATOL}")
+        if same_bits:
+            xb, yb = ra.recall.bits(), rb.recall.bits()
+            if a == "host":
+                xb, yb = xb[~np.isnan(xb)], yb[~np.isnan(yb)]
+            if not np.array_equal(xb, yb, equal_nan=True):
+                fail(f"{what}: {a} and {b} recall bits differ")
+    out = {}
+    for k, r in runs.items():
+        rep = recovery_report(r.recall.bits(), d)
+        out[k] = dict(wall_s=r.wall_seconds, recall=r.recall.mean(),
+                      fires=int(flags[k].sum()), forgets=r.forgets,
+                      recovery_events=rep.recovery_events,
+                      recovery_or_censored=rep.recovery_or_censored,
+                      evictions=tel[k]["evictions"])
+    return out
 
 
 def _dics_phases(torch, np, rt, dev, infos):

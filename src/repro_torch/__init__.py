@@ -9,10 +9,14 @@ Ported so far: DISGD (Alg. 2), DICS (Alg. 3) and BPR-MF
 (``repro_torch.algos.bpr``) trained prequentially over the Splitting &
 Replication grid (``run_stream``, ``algorithm="disgd"``, ``"dics"`` or
 ``"bpr"``; backends ``cuda``, ``scan`` and the ``host`` reference loop)
-and grid top-N serving (``grid_topn``); the session and serving runtime
-(``StreamSession`` ingest / recommend over a ``SnapshotStore`` of copies
-published at micro-batch boundaries, the ``QueryFrontend`` and its
-``PublishPolicy``, the ``MetricsRegistry``); and the LLM zoo's serving
+and grid top-N serving (``grid_topn``); forgetting (``ForgettingConfig``:
+LRU, LFU, gradual decay), closed-loop drift control (``DriftPolicy``,
+``repro_torch.drift``) and the loop's telemetry vector
+(``repro_torch.obs.telemetry``) on every backend; the session and
+serving runtime (``StreamSession`` ingest / recommend over a
+``SnapshotStore`` of copies published at micro-batch boundaries, the
+``QueryFrontend`` and its ``PublishPolicy``, the ``MetricsRegistry``
+with the folded ``stream_*`` counters); and the LLM zoo's serving
 path for h2o-danube-1.8b (``repro_torch.launch.serve``,
 ``repro_torch.models.factory.build``).
 """
@@ -24,9 +28,11 @@ from repro_torch.algos import BprHyper
 from repro_torch.core.algorithm import get_algorithm, register, registered
 from repro_torch.core.dics import DicsHyper
 from repro_torch.core.disgd import DisgdHyper
+from repro_torch.core.forgetting import ForgettingConfig
 from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
 from repro_torch.core.routing import GridSpec
 from repro_torch.core.serve import recommend_topn
+from repro_torch.drift import DriftPolicy
 from repro_torch.obs import MetricsRegistry, ScopedRegistry
 from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
                                ServeResponse, SnapshotStore,
@@ -34,6 +40,7 @@ from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
 from repro_torch.session import StreamSession
 
 __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
+           "ForgettingConfig", "DriftPolicy",
            "DisgdHyper", "DicsHyper", "BprHyper", "grid_topn",
            "recommend_topn", "StreamSession", "PublishPolicy",
            "ServeConfig", "ServeResponse", "QueryFrontend", "SnapshotStore",

@@ -1,24 +1,33 @@
 """Device-resident S&R streaming loop.
 
 Port of the device loop of ``repro/core/engine.py``: ``_make_batch_step``
-(:146, its ``live`` branch :181-278 without forgetting, drift or
-telemetry), ``init_scan_carry`` (:300), ``PublishEvent`` (:345) and
-``run_stream_device`` (:405) with its publish hooks (:440-509).
-The JAX engine is one jitted ``lax.scan``; here it is a Python loop over
-micro-batches that only enqueues work on the device:
+(:146, its ``live`` branch :181-278), ``init_scan_carry`` (:300),
+``PublishEvent`` (:345) and ``run_stream_device`` (:405) with its
+publish hooks (:440-509). The JAX engine is one jitted ``lax.scan``;
+here it is a Python loop over micro-batches that only enqueues work on
+the device:
 
   * routing and capacity bucketing on the device (``bucket_dispatch``);
   * overflow events re-queued, in stream order, into a fixed-size carry
     buffer (``carry_slots``); whatever does not fit is counted as dropped;
   * a static drain tail of ``ceil(carry_cap / capacity)`` empty steps
     flushes the re-queue at the end of the stream;
+  * forgetting at the fixed ``trigger_every`` cadence (the remainder
+    carried), or, with ``StreamConfig.drift``, the drift detector and
+    controller (``repro_torch.drift``), their state in the loop's carry;
+  * the telemetry vector (``repro_torch.obs.telemetry``) folded every
+    step;
   * recall bits scattered back to stream order on the device.
 
 The loop does not synchronise with the host until the end of the stream:
 no ``.item()``, no ``nonzero``, no boolean indexing. The overflow
-compaction is a ``cumsum`` and a scatter. A publish boundary in sync
-mode (``publish_sync=True``) is the one exception: it reads the progress
-scalars once the segment's work is done.
+compaction is a ``cumsum`` and a scatter. Where JAX gates the
+forgetting pass and the controller with ``lax.cond`` on a device flag,
+the port runs them every step with the flag folded into their masks
+(``forgetting.apply_forgetting``'s ``gate``): the same result, paid on
+every step. A publish boundary in sync mode (``publish_sync=True``) is
+the one exception to the rule: it reads the progress scalars once the
+segment's work is done.
 """
 
 from __future__ import annotations
@@ -31,8 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import forgetting as forgetting_lib
 from repro_torch.core import prng, routing, state as state_lib
 from repro_torch.core.evaluator import RecallAccumulator
+from repro_torch.drift import controller as controller_lib
+from repro_torch.drift import detector as detector_lib
+from repro_torch.obs import telemetry as telemetry_lib
 
 __all__ = ["make_worker_fn", "init_scan_carry", "PublishEvent",
            "run_stream_device"]
@@ -54,22 +67,55 @@ def make_worker_fn(cfg, backend: str) -> Callable:
     return worker
 
 
+def _adaptive(cfg) -> bool:
+    return cfg.drift is not None and cfg.drift.mode == "adaptive"
+
+
+def _fixed_forgetting(cfg):
+    """The ``ForgettingConfig`` the fixed cadence runs, or None (no
+    policy, or the adaptive drift policy, which replaces the cadence)."""
+    f = cfg.forgetting
+    if _adaptive(cfg) or f is None or f.policy == "none":
+        return None
+    return f
+
+
+def _occ_total(u_occ, i_occ) -> torch.Tensor:
+    """Live entries over every worker and both tables (0-d int32)."""
+    return u_occ.sum(dtype=torch.int32) + i_occ.sum(dtype=torch.int32)
+
+
 def _make_batch_step(cfg, worker_fn):
     grid = cfg.grid
     n_c, g, n_i = grid.n_c, grid.g, grid.n_i
     cap = cfg.bucket_capacity
     carry_cap = cfg.carry_slots or cfg.micro_batch
     layout = carry_cap + cfg.micro_batch
+    top_n = cfg.resolved_hyper().top_n
+    tel_on = cfg.telemetry
+    # The closed-loop drift policy replaces the fixed forgetting cadence
+    # when its mode is "adaptive" (``StreamConfig.drift``).
+    adaptive = _adaptive(cfg)
+    controller = (controller_lib.make_controller(cfg.drift) if adaptive
+                  else None)
+    forgetting = _fixed_forgetting(cfg)
+    forget = forgetting is not None
+    det_cfg = cfg.drift.detector if adaptive else None
+    no_fire = torch.zeros((), dtype=torch.int32, device=cfg.device)
 
     def batch_step(carry, fu, fi):
         # Runs on every step, also where the JAX engine's lax.cond takes
-        # its "dead" branch: a step without valid events yields NaN bits,
-        # zero loads and zero kept — what the dead branch returns — and
-        # hands the worker only padding, which changes no state.
-        states, cu, ci, processed, dropped = carry
+        # its "dead" branch. A step without valid events (``live`` false)
+        # yields NaN bits, zero loads and zero kept — what the dead branch
+        # returns —, hands the worker only padding, which changes no
+        # state, and leaves the detector, the controller and the
+        # forgetting trigger as they were.
+        (states, cu, ci, since, processed, dropped, forgets, det, boost,
+         tel) = carry
         bu = torch.cat([cu, fu])
         bi = torch.cat([ci, fi])
         valid = bu >= 0
+        live = valid.any()
         # Invalid slots route to key n_c: out of range, so they occupy no
         # bucket capacity and contribute no load.
         keys = torch.where(valid, (bi % n_i) * g + (bu % g), n_c)
@@ -80,6 +126,10 @@ def _make_batch_step(cfg, worker_fn):
         src = buckets.clamp(min=0).long()
         ev_u = torch.where(has, bu[src], -1)
         ev_i = torch.where(has, bi[src], -1)
+        # Precision@N denominator, on the bucket-start states.
+        list_len = (telemetry_lib.effective_list_len(states, ev_u,
+                                                     top_n=top_n, g=g)
+                    if tel_on else 0)
         states, hits, evaluated = worker_fn(states, ev_u, ev_i)
 
         # Stream-order recall bits for this step (NaN = no evaluation).
@@ -102,18 +152,52 @@ def _make_batch_step(cfg, worker_fn):
         dropped = dropped + torch.clamp(n_overflow - carry_cap, min=0)
         kept_n = kept.sum(dtype=torch.int32)
         processed = processed + kept_n
+        since = since + kept_n
+
+        # Forgetting (fixed cadence) or drift control (adaptive): the
+        # passes run every step, gated by device flags (no host read).
+        fired = no_fire
+        occ_before = None
+        if tel_on and (adaptive or forget):
+            occ_before = _occ_total(*state_lib.occupancy(states.tables))
+        if adaptive:
+            new = detector_lib.detector_update(det, hits, evaluated, det_cfg)
+            det = detector_lib.DetectorState(*(
+                torch.where(live, a, b) for a, b in zip(new, det)))
+            flag = det.fired & live
+            states, boost = controller(states, flag, boost, live=live)
+            fired = flag.to(torch.int32)
+            forgets = forgets + fired
+        elif forget:
+            trigger = (since >= forgetting.trigger_every) & live
+            forgetting_lib.apply_forgetting(states, forgetting, gate=trigger)
+            # Carry the remainder, as JAX: for micro_batch <=
+            # trigger_every the count is floor(processed / trigger_every).
+            since = torch.where(trigger, since - forgetting.trigger_every,
+                                since)
+            forgets = forgets + trigger.to(torch.int32)
 
         u_occ, i_occ = state_lib.occupancy(states.tables)
-        carry = (states, cu_new[:carry_cap], ci_new[:carry_cap], processed,
-                 dropped)
-        return carry, (bits, load, kept_n, u_occ, i_occ)
+        if tel_on:
+            # Decay frees no row: only the net occupancy drop counts.
+            evicted = (torch.clamp(occ_before - _occ_total(u_occ, i_occ),
+                                   min=0) if occ_before is not None else 0)
+            tel = telemetry_lib.telemetry_batch_update(
+                tel, kept=kept_n, overflow=n_overflow, carry_cap=carry_cap,
+                evicted=evicted, hits=hits, evaluated=evaluated, load=load,
+                occupancy=u_occ + i_occ, list_len=list_len)
+        carry = (states, cu_new[:carry_cap], ci_new[:carry_cap], since,
+                 processed, dropped, forgets, det, boost, tel)
+        return carry, (bits, load, kept_n, fired, u_occ, i_occ)
 
     return batch_step
 
 
-def init_scan_carry(cfg, states=None, carry=(None, None)):
-    """Initial loop carry ``(states, carry_u, carry_i, processed,
-    dropped)``; ``states``/``carry`` resume a stream mid-way."""
+def init_scan_carry(cfg, states=None, carry=(None, None), detector=None):
+    """Initial loop carry ``(states, carry_u, carry_i, since, processed,
+    dropped, forgets, detector, boost, telemetry)``, JAX's ten fields;
+    ``states``/``carry``/``detector`` resume a stream mid-way
+    (``detector`` is any ``DetectorState``-shaped tuple)."""
     from repro_torch.core import pipeline
 
     if states is None:
@@ -131,8 +215,14 @@ def init_scan_carry(cfg, states=None, carry=(None, None)):
         lost = size - m
         cu[:m] = torch.as_tensor(np.asarray(carry_u)[:m], dtype=torch.int32)
         ci[:m] = torch.as_tensor(np.asarray(carry_i)[:m], dtype=torch.int32)
+    det = (detector_lib.detector_init(dev) if detector is None
+           else detector_lib.detector_from(detector, dev))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return (states, cu, ci, zero, zero + lost)
+    # The telemetry slot rides along with cfg.telemetry False too (zeros,
+    # never updated), as in JAX.
+    return (states, cu, ci, zero, zero, zero + lost, zero, det,
+            controller_lib.controller_init(dev),
+            telemetry_lib.telemetry_init(cfg.grid.n_c, dev))
 
 
 class PublishEvent(NamedTuple):
@@ -142,8 +232,9 @@ class PublishEvent(NamedTuple):
     made on their device and enqueued on the loop's stream: the loop
     updates its states in place, so only a copy keeps JAX's contract
     that holding the event's states IS a consistent snapshot, for every
-    subscriber. ``forgets`` counts forgetting triggers (always 0 until
-    the forgetting slice).
+    subscriber. ``forgets`` counts forgetting passes fired so far (fixed
+    cadence or drift controller; serving caches invalidate when it
+    advances).
 
     The progress scalars come in two modes:
 
@@ -155,8 +246,12 @@ class PublishEvent(NamedTuple):
       ``SnapshotStore.publish_async``) reads them off the training loop.
       :meth:`as_ints` resolves them (waiting for the segment's work).
 
-    ``detector`` and ``telemetry`` are ``None``: drift detection and the
-    device telemetry vector come with later slices.
+    ``detector`` is the ``DetectorState`` at the boundary under the
+    adaptive drift policy (else ``None``); ``telemetry`` the loop's
+    ``TelemetryState``, cumulative for the run (``None`` with
+    ``StreamConfig.telemetry`` off). Both are copies of the carry's 0-d
+    tensors made at the boundary, on the states' device, in both modes;
+    the ``host`` loop hands its own vector (the same values).
     """
 
     states: Any
@@ -169,32 +264,48 @@ class PublishEvent(NamedTuple):
     telemetry: Any = None
 
     def as_ints(self) -> "PublishEvent":
-        """A copy with the progress scalars as Python ints (reading a
-        tensor waits for the work that produced it)."""
-        return self._replace(events_processed=int(self.events_processed),
-                             dropped=int(self.dropped),
-                             forgets=int(self.forgets))
+        """A copy with the progress scalars as Python ints and the
+        telemetry vector as numpy arrays (reading a tensor waits for the
+        work that produced it)."""
+        return self._replace(
+            events_processed=int(self.events_processed),
+            dropped=int(self.dropped), forgets=int(self.forgets),
+            telemetry=(_to_numpy(self.telemetry)
+                       if self.telemetry is not None else None))
 
 
-def _publish_event(carry, publish_sync: bool, segment: int,
+def _to_numpy(tup):
+    """A tuple of tensors (or arrays) as the same tuple of numpy arrays."""
+    return type(tup)(*(x.cpu().numpy() if torch.is_tensor(x)
+                       else np.asarray(x) for x in tup))
+
+
+def _clone(tup):
+    return type(tup)(*(x.clone() for x in tup))
+
+
+def _publish_event(carry, cfg, publish_sync: bool, segment: int,
                    steps_done: int) -> PublishEvent:
     """The boundary's event: a copy of the states, then the progress
     scalars, as ints read after the segment's work (sync) or as 0-d
-    tensor copies (async: no host sync)."""
-    states, _, _, processed, dropped = carry
+    tensor copies (async: no host sync), and copies of the detector and
+    the telemetry vector."""
+    states, _, _, _, processed, dropped, forgets, det, _, tel = carry
     snapshot = state_lib.clone_state(states)
-    if publish_sync:
-        scalars = int(processed), int(dropped), 0
-    else:
-        scalars = processed.clone(), dropped.clone(), torch.zeros_like(dropped)
+    scalars = (processed, dropped, forgets)
+    scalars = (tuple(int(x) for x in scalars) if publish_sync
+               else tuple(x.clone() for x in scalars))
     return PublishEvent(snapshot, *scalars, segment=segment,
-                        steps_done=steps_done)
+                        steps_done=steps_done,
+                        detector=_clone(det) if _adaptive(cfg) else None,
+                        telemetry=_clone(tel) if cfg.telemetry else None)
 
 
 def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
                       publish_every: int = 0, on_publish=None,
                       publish_sync: bool = True,
-                      initial_states=None, initial_carry=(None, None)):
+                      initial_states=None, initial_carry=(None, None),
+                      initial_detector=None):
     """Run the whole prequential stream on ``cfg.device``.
 
     ``backend`` is ``"cuda"`` (kernel worker) or ``"scan"`` (eager
@@ -236,7 +347,8 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
 
     worker_fn = make_worker_fn(cfg, backend)
     batch_step = _make_batch_step(cfg, worker_fn)
-    carry = init_scan_carry(cfg, states=initial_states, carry=initial_carry)
+    carry = init_scan_carry(cfg, states=initial_states, carry=initial_carry,
+                            detector=initial_detector)
     if device.type == "cuda":
         # Build the kernels before the clock starts, as the JAX engine
         # compiles its scan before its timer.
@@ -255,22 +367,23 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
             carry, out = batch_step(carry, xs_u[s], xs_i[s])
             outs.append(out)
         if on_publish is not None:
-            ev = _publish_event(carry, publish_sync, seg_i, (seg_i + 1) * seg)
+            ev = _publish_event(carry, cfg, publish_sync, seg_i,
+                                (seg_i + 1) * seg)
             tp = time.perf_counter()
             on_publish(ev)
             publish_time += time.perf_counter() - tp
-    states, cu, _, processed, dropped = carry
+    states, cu, _, _, processed, dropped, forgets, det, _, tel = carry
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0 - publish_time
 
     if outs:
-        bits, loads, kept_n, u_occ, i_occ = (
-            torch.stack([o[j] for o in outs]).cpu().numpy() for j in range(5))
+        bits, loads, kept_n, fired, u_occ, i_occ = (
+            torch.stack([o[j] for o in outs]).cpu().numpy() for j in range(6))
     else:
         bits = np.empty((0, carry_cap + mb), np.float32)
         loads = np.empty((0, cfg.grid.n_c), np.int32)
-        kept_n = np.empty(0, np.int32)
+        kept_n = fired = np.empty(0, np.int32)
         u_occ = i_occ = loads
     processed = int(processed)
     dropped = int(dropped) + int((cu >= 0).sum())
@@ -286,6 +399,7 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
             user_occ.append((int(cum[s]), u_occ[s]))
             item_occ.append((int(cum[s]), i_occ[s]))
 
+    adaptive = _adaptive(cfg)
     return StreamResult(
         recall=acc,
         user_occupancy=user_occ,
@@ -295,4 +409,9 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
         wall_seconds=wall,
         load_history=[loads[s] for s in active],
         final_states=states,
+        forgets=int(forgets),
+        drift_flags=(np.asarray(fired[active], np.int32) if adaptive
+                     else None),
+        final_detector=_to_numpy(det) if adaptive else None,
+        telemetry=_to_numpy(tel) if cfg.telemetry else None,
     )

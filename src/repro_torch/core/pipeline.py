@@ -23,10 +23,14 @@ on one of three backends:
 ``publish_sync``) hand a copy of the states to the serving plane's
 snapshot store at micro-batch boundaries (``engine.PublishEvent``).
 
-What later slices of the port bring raises ``ValueError`` naming the
-slice: the ``shard_map`` backend, forgetting policies, drift control and
-storage policies. ``telemetry`` is accepted; the result's ``telemetry``
-is ``None`` until the observability slice.
+Every backend runs forgetting (``StreamConfig.forgetting``, a
+``core.forgetting.ForgettingConfig``; ``None`` means none), the
+closed-loop drift policy (``StreamConfig.drift``, a
+``drift.DriftPolicy``) and the telemetry vector (``StreamConfig.
+telemetry``, on by default as in JAX: ``StreamResult.telemetry`` and
+``StreamResult.precision``). What later slices of the port bring raises
+``ValueError`` naming the slice: the ``shard_map`` backend and storage
+policies.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import forgetting as forgetting_lib
 from repro_torch.core import routing
 from repro_torch.core.evaluator import RecallAccumulator
 
@@ -56,14 +61,18 @@ class StreamConfig:
     grid: routing.GridSpec = routing.GridSpec(1, 0)
     micro_batch: int = 2048
     capacity_factor: float = 2.0             # bucket capacity vs fair share
-    forgetting: Any = None                   # None / policy "none" only
+    forgetting: Any = forgetting_lib.ForgettingConfig()  # None = "none"
     hyper: Any = None                        # DisgdHyper / DicsHyper / BprHyper
     seed: int = 0
     record_every: int = 4                    # occupancy snapshot cadence
     backend: str = "cuda"                    # "cuda" (= "pallas") | "scan" | "host"
     carry_slots: int = 0                     # overflow re-queue size (0 = micro_batch)
-    drift: Any = None                        # not in this slice
-    telemetry: bool = True                   # accepted; no counters yet
+    # Opt-in closed-loop drift policy (repro_torch.drift.DriftPolicy).
+    # With mode "adaptive" the detector and controller replace the
+    # fixed ``forgetting.trigger_every`` cadence entirely.
+    drift: Any = None
+    # The loop's telemetry vector (repro_torch.obs.telemetry).
+    telemetry: bool = True
     storage: Any = None                      # not in this slice
     device: str = "cuda"
 
@@ -93,14 +102,35 @@ class StreamResult:
     # Final worker states [n_c, ...] on cfg.device: the input to the
     # serving plane (repro_torch.serve.plane.grid_topn).
     final_states: Any = None
+    # Forgetting passes fired (fixed cadence or adaptive controller).
     forgets: int = 0
+    # Per-step detector flags (int32, one per active step) under the
+    # adaptive drift policy, else None.
     drift_flags: Any = None
+    # Final DetectorState (numpy) under the adaptive policy: pass it as
+    # ``run_stream(initial_detector=...)`` to continue the stream.
     final_detector: Any = None
-    telemetry: Any = None     # None until the observability slice
+    # End-of-run TelemetryState (numpy; None with cfg.telemetry off),
+    # cumulative over this call only.
+    telemetry: Any = None
 
     @property
     def throughput(self) -> float:
         return self.events_processed / max(self.wall_seconds, 1e-9)
+
+    @property
+    def precision(self) -> float:
+        """Micro-averaged prequential precision@N of this call: hits over
+        the summed effective list length (``min(top_n, live unrated
+        candidates)`` per evaluated event), both from the telemetry
+        vector; NaN with telemetry off or nothing evaluated. JAX's
+        ``StreamResult.precision_at_n``."""
+        if self.telemetry is None:
+            return float("nan")
+        denom = int(self.telemetry.list_len)
+        return int(self.telemetry.hits) / denom if denom else float("nan")
+
+    precision_at_n = precision
 
     def occupancy_summary(self):
         """Mean per-worker live entries at end of stream (paper's metric)."""
@@ -126,15 +156,6 @@ def _resolve_backend(cfg: StreamConfig) -> str:
     if cfg.backend not in _BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; ported: "
                          f"{sorted(_BACKENDS)}")
-    policy = getattr(cfg.forgetting, "policy", cfg.forgetting)
-    if policy not in (None, "none"):
-        raise ValueError(f"forgetting policy {policy!r} is not ported yet; "
-                         "it comes with the forgetting and drift slice "
-                         "(ROADMAP Queue 1 item 9)")
-    if cfg.drift is not None:
-        raise ValueError("drift control is not ported yet; it comes with "
-                         "the forgetting and drift slice (ROADMAP Queue 1 "
-                         "item 9)")
     if cfg.storage is not None:
         raise ValueError("storage policies are not ported yet; they come "
                          "with the storage slice (ROADMAP Queue 1 item 11)")
@@ -144,7 +165,8 @@ def _resolve_backend(cfg: StreamConfig) -> str:
 def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
                publish_every: int = 0, on_publish=None,
                publish_sync: bool = True, initial_states=None,
-               initial_carry=(None, None)) -> StreamResult:
+               initial_carry=(None, None),
+               initial_detector=None) -> StreamResult:
     """Run the full prequential stream; returns curves + paper metrics.
 
     ``publish_every``/``on_publish`` expose state snapshots at
@@ -158,7 +180,9 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
 
     ``initial_states``/``initial_carry`` resume mid-stream (for example
     from ``core.convert.states_from_numpy``); the states must be shaped
-    for ``cfg.grid`` and are updated in place.
+    for ``cfg.grid`` and are updated in place. ``initial_detector``
+    resumes the adaptive drift detector (a ``StreamResult.
+    final_detector``, this package's or JAX's).
     """
     from repro_torch.core import engine
 
@@ -166,27 +190,34 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     users, items = np.asarray(users), np.asarray(items)
     if backend == "host":
         return _run_host(users, items, cfg, publish_every, on_publish,
-                         initial_states, initial_carry)
+                         initial_states, initial_carry, initial_detector)
     return engine.run_stream_device(
         users, items, cfg, backend, publish_every=publish_every,
         on_publish=on_publish, publish_sync=publish_sync,
-        initial_states=initial_states, initial_carry=initial_carry)
+        initial_states=initial_states, initial_carry=initial_carry,
+        initial_detector=initial_detector)
 
 
 def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
-              publish_every: int, on_publish, initial_states,
-              initial_carry) -> StreamResult:
-    """The host reference loop (``repro/core/pipeline.py:260-475``, without
-    forgetting, drift or telemetry): per micro-batch, bucket the carried
-    and fresh events on the host, run the eager reference worker on
-    ``cfg.device``, scatter the recall bits back to stream order and
-    re-queue the overflow, unbounded. After the stream, empty batches
-    drain the re-queue, up to ``n_batches + ceil(carry / capacity) + 1``
-    batches in all; what is left then is dropped. Every
-    ``publish_every`` batches, and once more after the last batch when
-    it was not a boundary (the tail publish), ``on_publish`` gets a copy
-    of the states with int progress scalars."""
+              publish_every: int, on_publish, initial_states, initial_carry,
+              initial_detector) -> StreamResult:
+    """The host reference loop (``repro/core/pipeline.py:260-475``): per
+    micro-batch, bucket the carried and fresh events on the host, run the
+    eager reference worker on ``cfg.device``, scatter the recall bits
+    back to stream order and re-queue the overflow, unbounded. Then, as
+    JAX: the drift detector and controller (adaptive policy), or a
+    forgetting pass once ``trigger_every`` events have been processed
+    since the last (the remainder carried); and the telemetry fold with
+    ``HOST_CARRY_CAP``. After the stream, empty batches drain the
+    re-queue, up to ``n_batches + ceil(carry / capacity) + 1`` batches in
+    all; what is left then is dropped. Every ``publish_every`` batches,
+    and once more after the last batch when it was not a boundary (the
+    tail publish), ``on_publish`` gets a copy of the states with int
+    progress scalars."""
     from repro_torch.core import engine, state as state_lib
+    from repro_torch.drift import controller as controller_lib
+    from repro_torch.drift import detector as detector_lib
+    from repro_torch.obs import telemetry as telemetry_lib
 
     if users.shape != items.shape:
         raise ValueError(f"users {users.shape} and items {items.shape} differ")
@@ -197,9 +228,26 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     worker = engine.make_worker_fn(cfg, "scan")
     states = initial_states if initial_states is not None else init_states(cfg)
 
+    # The closed-loop drift policy replaces the fixed cadence.
+    adaptive = engine._adaptive(cfg)
+    forgetting = engine._fixed_forgetting(cfg)
+    forget = forgetting is not None
+    det = controller = boost = None
+    if adaptive:
+        controller = controller_lib.make_controller(cfg.drift)
+        det = (detector_lib.detector_from(initial_detector, device)
+               if initial_detector is not None
+               else detector_lib.detector_init(device))
+        boost = controller_lib.controller_init(device)
+    # Telemetry, host edition: the device loop's fold, once a batch; the
+    # host re-queue is unbounded, hence HOST_CARRY_CAP.
+    tel = (telemetry_lib.telemetry_init(grid.n_c, device) if cfg.telemetry
+           else None)
+    top_n = cfg.resolved_hyper().top_n
+
     acc = RecallAccumulator()
-    user_occ, item_occ, loads = [], [], []
-    dropped = processed = 0
+    user_occ, item_occ, loads, drift_flags = [], [], [], []
+    dropped = processed = forgets = since = 0
     carry_u, carry_i = (np.asarray(c, np.int64) if c is not None
                         else np.empty(0, np.int64) for c in initial_carry)
 
@@ -215,7 +263,8 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         # The copy is the trainer's work; only the subscriber's time is
         # left out of the wall clock, as in the device loop.
         ev = engine.PublishEvent(state_lib.clone_state(states), processed,
-                                 dropped, 0, segment, steps_done)
+                                 dropped, forgets, segment, steps_done,
+                                 detector=det, telemetry=tel)
         sync()
         tp = time.perf_counter()
         on_publish(ev)
@@ -257,16 +306,47 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         carry_u, carry_i = bu[~kept], bi[~kept]
 
         src = np.clip(buckets, 0, None)
-        ev_u = np.where(buckets >= 0, bu[src], -1)
-        ev_i = np.where(buckets >= 0, bi[src], -1)
-        states, hits, evaluated = worker(
-            states, torch.as_tensor(ev_u, dtype=torch.int32, device=device),
-            torch.as_tensor(ev_i, dtype=torch.int32, device=device))
+        ev_u = torch.as_tensor(np.where(buckets >= 0, bu[src], -1),
+                               dtype=torch.int32, device=device)
+        ev_i = torch.as_tensor(np.where(buckets >= 0, bi[src], -1),
+                               dtype=torch.int32, device=device)
+        # Precision@N denominator from the bucket-start states.
+        lens = (telemetry_lib.effective_list_len(states, ev_u, top_n=top_n,
+                                                 g=grid.g)
+                if tel is not None else 0)
+        states, hits, evaluated = worker(states, ev_u, ev_i)
 
         acc.add_batch(buckets, hits.cpu().numpy(), evaluated.cpu().numpy(),
                       bu.shape[0])
-        processed += int(kept.sum())
+        kept_n = int(kept.sum())
+        processed += kept_n
+        since += kept_n
         loads.append(load)
+        evicted = 0
+        occ_before = (engine._occ_total(*state_lib.occupancy(states.tables))
+                      if tel is not None and (adaptive or forget) else None)
+        if adaptive:
+            det = detector_lib.detector_update(det, hits, evaluated,
+                                               cfg.drift.detector)
+            states, boost = controller(states, det.fired, boost)
+            fired = bool(det.fired)
+            drift_flags.append(fired)
+            forgets += int(fired)
+        elif forget and since >= forgetting.trigger_every:
+            forgetting_lib.apply_forgetting(states, forgetting)
+            # Carry the remainder, as the device loop does.
+            since -= forgetting.trigger_every
+            forgets += 1
+        if tel is not None:
+            u_o, i_o = state_lib.occupancy(states.tables)
+            if occ_before is not None:
+                evicted = max(int(occ_before)
+                              - int(engine._occ_total(u_o, i_o)), 0)
+            tel = telemetry_lib.telemetry_batch_update(
+                tel, kept=kept_n, overflow=int(carry_u.size),
+                carry_cap=telemetry_lib.HOST_CARRY_CAP, evicted=evicted,
+                hits=hits, evaluated=evaluated, load=load,
+                occupancy=u_o + i_o, list_len=lens)
         if (publish_every and on_publish is not None
                 and (b + 1) % publish_every == 0):
             publish_time += publish((b + 1) // publish_every - 1, b + 1)
@@ -296,4 +376,8 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         wall_seconds=time.perf_counter() - t0 - publish_time,
         load_history=loads,
         final_states=states,
+        forgets=forgets,
+        drift_flags=np.asarray(drift_flags, np.int32) if adaptive else None,
+        final_detector=engine._to_numpy(det) if adaptive else None,
+        telemetry=engine._to_numpy(tel) if tel is not None else None,
     )

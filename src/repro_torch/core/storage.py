@@ -1,10 +1,11 @@
 """Memory accounting of worker states.
 
-Port of ``repro/core/storage.py:296-323`` only: ``table_arrays``,
-``state_nbytes`` and ``total_nbytes`` for the identity policy (every
-table in its compute dtype), which is the only one the port runs. The
-rest of the module — ``StoragePolicy``, bit packing, quantized and bf16
-tables, the codecs — comes with ROADMAP Queue 1 item 11.
+Port of ``repro/core/storage.py:296-323`` and ``gather_rated`` (:215)
+only: ``table_arrays``, ``state_nbytes``, ``total_nbytes`` and
+``gather_rated`` for the identity policy (every table in its compute
+dtype), which is the only one the port runs. The rest of the module —
+``StoragePolicy``, bit packing, quantized and bf16 tables, the codecs —
+comes with ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.core.state import DicsState, DisgdState
 
-__all__ = ["table_arrays", "state_nbytes", "total_nbytes"]
+__all__ = ["table_arrays", "state_nbytes", "total_nbytes", "gather_rated"]
 
 
 def table_arrays(states) -> dict[str, torch.Tensor]:
@@ -42,3 +43,16 @@ def state_nbytes(states) -> dict[str, tuple[str, int]]:
 def total_nbytes(states) -> int:
     """Total resident bytes of a worker state."""
     return sum(n for _, n in state_nbytes(states).values())
+
+
+def gather_rated(rated: torch.Tensor, slots: torch.Tensor, policy=None,
+                 i_cap: int | None = None) -> torch.Tensor:
+    """The ``rated`` rows of a batch of user slots of every worker:
+    stacked ``rated[W, U, I]`` with ``slots[W, B]`` -> ``[W, B, I]``.
+    Identity policy only (``policy`` None): the rows are already in
+    their compute form."""
+    if policy is not None:
+        raise ValueError("storage policies are not ported yet; they come "
+                         "with the storage slice (ROADMAP Queue 1 item 11)")
+    w = torch.arange(rated.shape[0], device=rated.device)[:, None]
+    return rated[w, slots.long()]

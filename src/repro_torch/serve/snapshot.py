@@ -19,8 +19,8 @@ Two publish paths share the rotation:
     complete before the call returns.
   * ``publish_async`` — the trainer's boundary. On the trainer's thread
     it enqueues non-blocking copies of what the rotation reads — the
-    per-slot item ids and popularity weights and any tensor progress
-    scalars — into pinned host buffers, records one CUDA event after
+    per-slot item ids and popularity weights, any tensor progress
+    scalars and the telemetry vector — into pinned host buffers, records one CUDA event after
     them, and returns. A publisher thread waits on that event and on
     nothing else (a plain ``.cpu()`` there would wait behind every
     training step enqueued since the boundary), then aggregates the
@@ -139,6 +139,10 @@ def _handoff(states, events_processed, forgets, telemetry) -> _Handoff:
 
     ids_h, weight_h, ev_h, forgets_h = (
         to_host(x) for x in (ids, weight, events_processed, forgets))
+    if telemetry is not None:
+        # The fold reads the vector on the publisher thread: from the
+        # host copies, behind the same event.
+        telemetry = type(telemetry)(*(to_host(x) for x in telemetry))
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(ids.device))
     return _Handoff(states, ids_h, weight_h, ev_h, forgets_h, telemetry, done)
@@ -193,8 +197,8 @@ class SnapshotStore:
         self._g_staleness = self.metrics.gauge(
             "snapshot_staleness_events", "Events the front snapshot "
             "trails reported stream progress")
-        # Fold target for a boundary's telemetry vector; None until the
-        # device telemetry (ROADMAP Queue 1 item 10) is ported.
+        # Fold target for a boundary's telemetry vector (the session's
+        # TelemetryFolder), or None.
         self._telemetry_sink: Callable[[Any], Any] | None = None
 
     # -- the rotation (shared by both publish paths) ----------------------

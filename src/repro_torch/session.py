@@ -18,10 +18,12 @@ Publishing is governed by one :class:`~repro_torch.serve.policy.
 PublishPolicy`: cadence (``every`` micro-batches), sync vs async
 rotation, and the read-side staleness bound.
 
-Not here yet: ``checkpoint`` / ``restore`` / ``rescale`` raise
-``NotImplementedError`` until regrid and checkpoints (ROADMAP Queue 1
-item 12); there is no drift detector (item 9) and no device telemetry
-fold (item 10), so the store's telemetry sink stays ``None``.
+The session threads the adaptive drift detector across ``ingest``
+calls (``initial_detector``) and folds each run's telemetry vector into
+its registry (``obs.telemetry.TelemetryFolder``, the store's telemetry
+sink: the ``stream_*`` counters). Not here yet: ``checkpoint`` /
+``restore`` / ``rescale`` raise ``NotImplementedError`` until regrid and
+checkpoints (ROADMAP Queue 1 item 12), so the detector is not saved.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from repro_torch.core import storage as storage_lib
 from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
 from repro_torch.core.routing import GridSpec
 from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import telemetry as telemetry_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
                                ServeResponse, SnapshotStore)
@@ -62,12 +65,16 @@ class StreamSession:
                  metrics: metrics_lib.MetricsRegistry | None = None):
         self.cfg = cfg
         self.algorithm = algorithm_lib.get_algorithm(cfg.algorithm)
-        # One registry spans the session: snapshot store, query front-end
-        # and stage spans all land here.
+        # One registry spans the session: loop telemetry, snapshot store,
+        # query front-end and stage spans all land here.
         self.metrics = (metrics if metrics is not None
                         else metrics_lib.MetricsRegistry())
         self.store = SnapshotStore(slots=snapshot_slots,
                                    registry=self.metrics)
+        # Publish boundaries carry the loop's telemetry vector; the store
+        # hands it to this folder (on the publisher thread when async).
+        self._telemetry = telemetry_lib.TelemetryFolder(self.metrics)
+        self.store.set_telemetry_sink(self._telemetry.fold)
         # One policy governs both halves: the session's ingest cadence
         # and the front-end's staleness bound. An explicit ``publish``
         # wins; otherwise adopt the ServeConfig's (or the default).
@@ -80,8 +87,11 @@ class StreamSession:
         self.publish_policy = publish
         self._frontend = QueryFrontend(self.store, serve)
         self._states = pipeline_lib.init_states(cfg)
+        self._detector = None
         self.events_processed = 0
         self.forgets = 0
+        hyper = cfg.resolved_hyper()
+        self._telemetry.set_capacity(hyper.u_cap + hyper.i_cap)
         self._table_bytes = self.metrics.gauge(
             "table_bytes", "Exact resident bytes of a live state table",
             labels=("algorithm", "table", "dtype"))
@@ -117,13 +127,14 @@ class StreamSession:
     def ingest(self, users, items) -> StreamResult:
         """Stream a batch of ``<user, item>`` events through the engine.
 
-        Incremental: each call continues from the states the previous
-        call left behind. With ``policy.every = k > 0`` the engine
-        publishes a copy of the states into this session's store every
-        ``k`` micro-batches, asynchronously when ``policy.mode ==
-        "async"``. The final state is always published (synchronously,
-        so ``recommend`` right after ``ingest`` sees it). Returns the
-        call's ``StreamResult``.
+        Incremental: each call continues from the states and the drift
+        detector's baseline the previous call left behind. With
+        ``policy.every = k > 0`` the engine publishes a copy of the
+        states into this session's store every ``k`` micro-batches,
+        asynchronously when ``policy.mode == "async"``. The final state
+        is always published (synchronously, so ``recommend`` right after
+        ``ingest`` sees it), then the call's telemetry vector is folded
+        into the registry. Returns the call's ``StreamResult``.
         """
         policy = self.publish_policy
         hook = None
@@ -137,16 +148,25 @@ class StreamSession:
                 publish(ev.states, base + ev.events_processed,
                         base_forgets + ev.forgets, telemetry=ev.telemetry)
 
+        # The telemetry vector restarts from zero at each run_stream call;
+        # the previous call's folds are complete (_publish flushed).
+        self._telemetry.rebase()
         with trace_lib.span("ingest", self.metrics):
             res = run_stream(
                 np.asarray(users), np.asarray(items), self.cfg,
                 publish_every=policy.every, on_publish=hook,
                 publish_sync=not policy.is_async,
-                initial_states=self._states)
+                initial_states=self._states,
+                initial_detector=self._detector)
         self._states = res.final_states
+        if res.final_detector is not None:
+            self._detector = res.final_detector
         self.events_processed += res.events_processed
         self.forgets += res.forgets
         self._publish()
+        # Final fold: the end-of-run vector covers any tail past the last
+        # boundary; after _publish's flush no async fold is in flight.
+        self._telemetry.fold(res.telemetry)
         return res
 
     def _publish(self) -> None:

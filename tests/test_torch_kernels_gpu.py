@@ -782,8 +782,8 @@ def test_stream_loop_never_waits_for_the_card(cuda_device, backend,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    processed, requeued, dropped = (int(carry[3]), int((carry[1] >= 0).sum()),
-                                    int(carry[4]))
+    processed, requeued, dropped = (int(carry[4]), int((carry[1] >= 0).sum()),
+                                    int(carry[5]))
     assert processed + requeued + dropped == n
 
 

@@ -49,7 +49,7 @@ def stream():
 def _cfgs(backend_t, backend_j, **over):
     t = rt.StreamConfig(grid=rt.GridSpec(2), micro_batch=256,
                         backend=backend_t, hyper=rt.DisgdHyper(**CAPS),
-                        device="cpu", **over)
+                        device="cpu", telemetry=False, **over)
     j = jpipe.StreamConfig(grid=JGrid(2), micro_batch=256, backend=backend_j,
                            hyper=JHyper(**CAPS), telemetry=False, **over)
     return t, j
@@ -187,8 +187,6 @@ def test_resumed_carry_matches_jax(stream):
 @pytest.mark.parametrize("over,needle", [
     (dict(backend="shard_map"), "multi-GPU slice"),
     (dict(backend="tpu"), "unknown backend"),
-    (dict(forgetting="lru"), "forgetting"),
-    (dict(drift=object()), "drift"),
     (dict(storage=object()), "storage"),
 ])
 def test_unported_options_raise(stream, over, needle):

@@ -79,7 +79,7 @@ def _cfgs(algo, backend_t="cuda", backend_j="pallas", **over):
     th, jh = HYPERS[algo]
     t = rt.StreamConfig(algorithm=algo, grid=rt.GridSpec(2), micro_batch=MB,
                         backend=backend_t, hyper=th(**CAPS), device="cpu",
-                        **over)
+                        telemetry=False, **over)
     j = jpipe.StreamConfig(algorithm=algo, grid=JGrid(2), micro_batch=MB,
                            backend=backend_j, hyper=jh(**CAPS),
                            telemetry=False, **over)
