@@ -46,6 +46,28 @@ DISGD (K1-K3):
      publishes and calls it again (equal answers), then calls
      ``recommend`` in a loop (versions never go down, no exception
      escapes the thread): the recommend p50 during ingest;
+  3c. ``storage_path``: phase 2's stream under ``StoragePolicy.
+     compressed()`` (packed ``rated``, quantized ``co``): ``dropped`` 0, one
+     K1 and one K2 launch a step, recall bits and the decoded final states
+     equal to phase 2's bit for bit; resident bytes, peak memory and
+     events/s beside phase 2's; the codecs' card ms a step (decode =
+     unpack, encode = pack, CUDA events around each call) against their
+     bound, over its first 64 micro-batches under ``torch.profiler``;
+  3d. ``storage_bf16``: the first 128 micro-batches under
+     ``compressed(factors="bf16")`` and under the default policy: integer
+     tables and ``rated`` equal, Recall@10 of both;
+  3e. ``session_storage``: phase 3a under ``compressed()``: states and
+     recall equal to ``storage_path``'s, ``recommend`` answers equal to
+     phase 3a's; publish copy card ms and peak memory beside phase 3a's;
+  3f. ``checkpoint_path``: a compressed session ingests the first half of
+     the stream and checkpoints (file bytes, write and read seconds,
+     written under ``build/``); the restore at 4 x 4 equals it bit for bit,
+     its second half ends at ``storage_path``'s states and recall bits, and
+     a restore at 8 x 4 equals a live ``regrid`` of the same states;
+  3g. ``rescale_path``: that session rescaled to its own grid (the
+     identity, bit for bit), to 8 x 4 and back (ids, ``rated`` and
+     vectors unchanged), and to the default policy (answers equal to
+     phase 3a's), each rescale's wall seconds;
   4. kernels against their plain versions on the main path's shapes: a
      real micro-batch from the middle of the stream on the trained
      state (one event in ten given an unseen id, so evictions run) for
@@ -106,6 +128,10 @@ DICS (K4, K5), after the DISGD state is freed:
      then 32 micro-batches again under ``torch.profiler``;
   7. ``dics_serve``: ``grid_topn(algorithm="dics", k_nn=10)`` for 8,192
      stream users in calls of 1,024, equal to the plain path;
+  7a. ``storage_serve``: ``grid_topn(storage=compressed())`` on the
+     compressed DISGD (K3, phase 3c's states) and DICS (K5) states, ids
+     and score bits equal to the dense states' answers; p50 beside phases
+     3 and 7;
   8. ``dics_update`` on a mid-stream micro-batch of the trained state (one
      event in ten given an unseen id, and again without them) and
      ``dics_topn`` on one serve call's inputs, each equal to its plain
@@ -117,6 +143,8 @@ DICS (K4, K5), after the DISGD state is freed:
      ``recommend`` (K5) during the ingest; states and recall bits equal
      to a plain ``run_stream`` over the same events, and phase 3a's
      publish and recommend checks;
+  8b. ``dics_storage``: phase 8a's cut under ``compressed()``: decoded
+     states and recall bits equal to the plain run's, resident bytes;
   9. DICS ``cuda`` and ``scan`` agree on the card on a small stream with
      colliding item slots, and the card's ``cuda`` run equals the same run
      on CPU tensors, and the ``host`` loop equals ``scan``: state and
@@ -398,6 +426,8 @@ def serve_kw(cfg):
               u_cap=hyper.u_cap, qcap=query_capacity(SERVE_BATCH, cfg.grid.g))
     if cfg.algorithm == "dics":
         kw["k_nn"] = hyper.k_nn
+    if not cfg.storage.is_default:
+        kw["storage"] = cfg.storage
     return kw
 
 
@@ -513,8 +543,12 @@ def main():
                                                 batches, "serve")
 
     # -- 3a-3b. the session runtime ------------------------------------------
-    _session_phases(torch, np, rt, users, items, cfg, res, main_tel,
-                    batches, serve_p50)
+    session = _session_phases(torch, np, rt, users, items, cfg, res,
+                              main_tel, batches, serve_p50)
+
+    # -- 3c-3g. storage policies, checkpoints and regrid ---------------------
+    disgd_serve, _ = _storage_phases(torch, np, rt, users, items, cfg, res,
+                                     main, batches, serve_p50, session)
 
     # -- 4. kernels against their plain versions -----------------------------
     kernels, random_j = _kernel_checks(torch, np, rt, users, items, states,
@@ -536,7 +570,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6-9. DICS -------------------------------------------------------------
-    kernels += _dics_phases(torch, np, rt, dev, infos)
+    kernels += _dics_phases(torch, np, rt, dev, infos, disgd_serve)
     torch.cuda.empty_cache()
 
     # -- 9a-9b. drift control ------------------------------------------------------
@@ -1150,29 +1184,47 @@ def _topn_serve(torch, rt, states, cfg, batches, phase):
 
 
 @contextlib.contextmanager
-def _copy_times(torch):
-    """Card time of every publish copy made in the block: a pair of CUDA
-    events around each ``state.clone_state`` call (the engine's boundary
-    copy and the session's final one), read after the block."""
-    from repro_torch.core import state as state_lib
+def _call_times(torch, module, names):
+    """Card time of every call of ``module``'s functions ``names`` made in
+    the block (the loop calls them through the module): a pair of CUDA
+    events around each call, read after the block. Yields ``{name: [ms,
+    ...]}``."""
+    real = {n: getattr(module, n) for n in names}
+    pairs = {n: [] for n in names}
+    out = {n: [] for n in names}
 
-    real, pairs, out = state_lib.clone_state, [], []
+    def timed(name):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            r = real[name](*args, **kwargs)
+            end.record()
+            pairs[name].append((start, end))
+            return r
+        return call
 
-    def timed(state):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        copy = real(state)
-        end.record()
-        pairs.append((start, end))
-        return copy
-
-    state_lib.clone_state = timed
+    for n in names:
+        setattr(module, n, timed(n))
     try:
         yield out
     finally:
-        state_lib.clone_state = real
+        for n in names:
+            setattr(module, n, real[n])
     torch.cuda.synchronize()
-    out.extend(a.elapsed_time(b) for a, b in pairs)
+    for n in names:
+        out[n].extend(a.elapsed_time(b) for a, b in pairs[n])
+
+
+@contextlib.contextmanager
+def _copy_times(torch):
+    """Card time of every publish copy made in the block (each
+    ``state.clone_state`` call: the engine's boundary copy and the
+    session's final one)."""
+    from repro_torch.core import state as state_lib
+
+    with _call_times(torch, state_lib, ("clone_state",)) as times:
+        yield times["clone_state"]
 
 
 def _wait_for(cond, what: str, timeout: float = 120.0):
@@ -1279,7 +1331,7 @@ def _recommend_checks(torch, np, rt, session, cfg, batches, weight, phase):
     popularity weight), the second call must be all cache hits. Then
     the p50 of recommend calls that miss (``batches[1:]``, each
     unseen) and that hit (the same calls again). Returns the phase's
-    serve fields."""
+    serve fields and, under ``first``, the first call's response."""
     kw = serve_kw(cfg)
     known_q = batches[0].cpu().numpy()
     unknown = np.arange(UNKNOWN_QUERIES) + 10**7
@@ -1322,7 +1374,7 @@ def _recommend_checks(torch, np, rt, session, cfg, batches, weight, phase):
                 recommend_calls=len(batches) - 1,
                 recommend_miss_p50_ms=1e3 * statistics.median(lat["miss"]),
                 recommend_hit_p50_ms=1e3 * statistics.median(lat["hit"]),
-                frontend=session.frontend.stats_snapshot())
+                frontend=session.frontend.stats_snapshot(), first=first)
 
 
 def _publish_checks(store, n, boundaries, phase):
@@ -1354,11 +1406,18 @@ def _ingest_checks(res, n, steps, counts, kernels, phase):
 
 
 def _states_equal(torch, got, want) -> bool:
-    from repro_torch.core import convert
+    """Two states equal table by table, bit for bit, in their resident
+    dtypes (unsigned and bf16 tables compared through their bits)."""
+    from repro_torch.core import convert, state as state_lib
 
-    want = convert.flatten_state(want)
-    return all(torch.equal(t, want[k])
-               for k, t in convert.flatten_state(got).items())
+    def bits(t):
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else state_lib.signed(t))
+
+    g, w = convert.flatten_state(got), convert.flatten_state(want)
+    return sorted(g) == sorted(w) and all(
+        g[k].dtype == w[k].dtype and g[k].shape == w[k].shape
+        and torch.equal(bits(g[k]), bits(w[k])) for k in w)
 
 
 def _session_phases(torch, np, rt, users, items, cfg, main, main_tel,
@@ -1402,6 +1461,7 @@ def _session_phases(torch, np, rt, users, items, cfg, main, main_tel,
         steps / SESSION_EVERY), "session_path")
     serve = _recommend_checks(torch, np, rt, session, cfg, batches,
                               lambda st: st.tables.item_freq, "session_path")
+    out = dict(first=serve.pop("first"), copy_ms=copy_ms, peak=peak)
     emit("session_path", stream="synth_stream(MOVIELENS_25M, seed=0)",
          events=n, cut=None, publish_every=SESSION_EVERY, mode="async",
          steps=steps, wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
@@ -1448,6 +1508,7 @@ def _session_phases(torch, np, rt, users, items, cfg, main, main_tel,
          serve_p50_ms=serve_p50)
     del session, res
     torch.cuda.empty_cache()
+    return out
 
 
 def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
@@ -1487,6 +1548,7 @@ def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
         steps / DICS_SESSION_EVERY), "dics_session")
     serve = _recommend_checks(torch, np, rt, session, cfg, batches,
                               lambda st: st.item_cnt, "dics_session")
+    serve.pop("first")
     emit("dics_session", stream="synth_stream(NETFLIX, seed=0)", events=n,
          cut=f"first {DICS_SESSION_BATCHES} micro-batches of "
              f"{math.ceil(users.size / MICRO_BATCH)} (at ~106 ms a step a "
@@ -1499,8 +1561,307 @@ def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
          copy_ms=copy_ms, copy_bytes=_state_bytes(session.states),
          memory_allocated_before=before, max_memory_allocated=peak,
          serve_p50_ms=serve_p50, **serve, **calls, launches=counts)
-    del session, res, plain
+    del session, res
     torch.cuda.empty_cache()
+    return plain
+
+
+# -- storage policies, regrid and checkpoints -----------------------------------
+
+# The bf16 phase's cut, the profiled steps of the codecs, and the
+# checkpoint phase's second grid (a refine of the item splits, with caps
+# that still hold every split's items: 27,133 / 8 <= 3,392).
+STORAGE_BF16_BATCHES = 128
+CODEC_PROFILE_STEPS = 64
+REFINED = (8, 4)
+REFINED_I_CAP = 3_392
+CHECKPOINT_DIR = ROOT / "build" / "chip_smoke_checkpoints"
+
+
+def _decoded_equal(torch, states, policy, dense) -> bool:
+    from repro_torch.core import storage
+
+    return _states_equal(torch, storage.decode_state(states, policy), dense)
+
+
+def _bits_equal(np, a, b) -> bool:
+    return np.array_equal(a.recall.bits(), b.recall.bits(), equal_nan=True)
+
+
+def _codec_profile(torch, rt, users, items, cfg, policy) -> dict:
+    """The first CODEC_PROFILE_STEPS micro-batches under ``policy``, under
+    ``torch.profiler`` and with the codecs timed by CUDA events: codec
+    card ms a step (decode = unpack, encode = pack) beside their bound
+    (the packed words read and the bitmap written, and back, over the
+    HBM rate), and the step's kernels by name."""
+    from repro_torch.core import storage
+
+    n = CODEC_PROFILE_STEPS * cfg.micro_batch
+    c_cfg = dataclasses.replace(cfg, storage=policy)
+    with _call_times(torch, storage, ("decode_state", "encode_into")) as t:
+        prof = _profiled(torch, rt, users, items, c_cfg,
+                         CODEC_PROFILE_STEPS)
+    codec = {"decode": t["decode_state"], "encode": t["encode_into"]}
+    hyper = cfg.resolved_hyper()
+    n_c = cfg.grid.n_c
+    dense = n_c * hyper.u_cap * hyper.i_cap
+    packed = 4 * n_c * hyper.u_cap * storage.packed_width(hyper.i_cap)
+    per_step = {k: statistics.median(v) for k, v in codec.items()}
+    bound = (dense + packed) / HBM_BYTES_PER_S * 1e3
+    return dict(events=int(min(n, users.size)), steps=prof["steps"],
+                unpack_ms=per_step["decode"], pack_ms=per_step["encode"],
+                unpack_bound_ms=bound, pack_bound_ms=bound,
+                codec_ms_per_step=per_step["decode"] + per_step["encode"],
+                codec_bound_ms_per_step=2 * bound,
+                codec_calls=len(codec["decode"]),
+                rated_dense_bytes=dense, rated_packed_bytes=packed,
+                profile=prof)
+
+
+def _storage_phases(torch, np, rt, users, items, cfg, main_res, main,
+                    batches, serve_p50, session):
+    """``storage_path``, ``storage_bf16``, ``session_storage``,
+    ``checkpoint_path`` and ``rescale_path`` on the DISGD deployment.
+    ``main_res`` is the main path's result (dense final states), ``main``
+    its numbers, ``session`` session_path's copy times, peak and first
+    recommend answer. Returns the DISGD half of ``storage_serve``."""
+    import shutil
+
+    from repro_torch.core import convert, regrid, state as state_lib, storage
+    from repro_torch.kernels import ops
+
+    comp = rt.StoragePolicy.compressed()
+    c_cfg = dataclasses.replace(cfg, storage=comp)
+    n = int(users.size)
+    steps = _steps(n, cfg)
+
+    # -- storage_path -----------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = rt.run_stream(users, items, c_cfg)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _ingest_checks(res, n, steps, counts, ("factor_update", "masked_scores"),
+                   "storage_path")
+    if not _bits_equal(np, res, main_res):
+        fail(f"storage_path: recall bits differ from the main path's "
+             f"({res.recall.mean()} against {main_res.recall.mean()})")
+    if not _decoded_equal(torch, res.final_states, comp,
+                          main_res.final_states):
+        fail("storage_path: the decoded final states differ from the main "
+             "path's")
+    codec = _codec_profile(torch, rt, users, items, cfg, comp)
+    emit("storage_path", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, cut=None, policy=comp.describe(), steps=steps,
+         wall_s=res.wall_seconds, events_per_s=res.throughput,
+         main_path_events_per_s=main["events_per_s"],
+         recall_at_10=res.recall.mean(), dropped=res.dropped,
+         resident_bytes=storage.total_nbytes(res.final_states),
+         main_path_resident_bytes=storage.total_nbytes(main_res.final_states),
+         tables=storage.state_nbytes(res.final_states),
+         memory_allocated_before=before, max_memory_allocated=peak,
+         main_path_max_memory_allocated=main["peak"], launches=counts,
+         codec=codec)
+    comp_states = res.final_states
+    comp_bits = res.recall.bits()
+    comp_bits = comp_bits[~np.isnan(comp_bits)]
+    del res
+
+    # -- storage_bf16 -------------------------------------------------------------
+    bf16 = rt.StoragePolicy.compressed(factors="bf16")
+    m = STORAGE_BF16_BATCHES * MICRO_BATCH
+    dense = rt.run_stream(users[:m], items[:m], cfg)
+    half = rt.run_stream(users[:m], items[:m],
+                         dataclasses.replace(cfg, storage=bf16))
+    dec = storage.decode_state(half.final_states, bf16)
+    ints_equal = all(torch.equal(a, b) for a, b in zip(
+        dec.tables, dense.final_states.tables)) and torch.equal(
+            dec.rated, dense.final_states.rated)
+    if not ints_equal:
+        fail("storage_bf16: the integer tables or rated differ from the "
+             "default policy's run over the same batches")
+    if half.final_states.user_vecs.dtype != torch.bfloat16:
+        fail("storage_bf16: the factors are not stored as bf16")
+    vec_err = max(float((dec.user_vecs - dense.final_states.user_vecs).abs()
+                        .max()), float((dec.item_vecs - dense.final_states
+                                        .item_vecs).abs().max()))
+    emit("storage_bf16", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=m, cut=f"first {STORAGE_BF16_BATCHES} micro-batches",
+         policy=bf16.describe(), integer_tables_equal=ints_equal,
+         recall_at_10=half.recall.mean(),
+         default_recall_at_10=dense.recall.mean(),
+         recall_bits_equal=_bits_equal(np, half, dense),
+         max_abs_factor_difference=vec_err,
+         events_per_s=half.throughput, default_events_per_s=dense.throughput,
+         resident_bytes=storage.total_nbytes(half.final_states),
+         default_resident_bytes=storage.total_nbytes(dense.final_states))
+    del dense, half, dec
+
+    # -- storage_serve (DISGD half, K3) ------------------------------------------
+    kw = serve_kw(cfg)
+    lat, outs, s_counts = serve_calls(torch, rt, comp_states,
+                                      dict(kw, storage=comp), batches)
+    if s_counts["fused_topn"] != len(batches):
+        fail(f"storage_serve: fused_topn launched {s_counts['fused_topn']} "
+             f"times for {len(batches)} calls")
+    for q, out in zip(batches, outs):
+        want = rt.grid_topn(main_res.final_states, q, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail("storage_serve: DISGD answers on compressed states differ "
+                 "from the dense states' (ids or score bits)")
+    disgd_serve = dict(p50_ms=1e3 * statistics.median(lat),
+                       serve_p50_ms=serve_p50, calls=len(batches),
+                       answers_equal=True, launches=s_counts)
+
+    # -- session_storage ------------------------------------------------------------
+    serve_cfg = rt.ServeConfig.from_stream(
+        c_cfg, batch_size=SERVE_BATCH,
+        cache_capacity=SERVE_USERS + UNKNOWN_QUERIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sess = rt.StreamSession(c_cfg, serve=serve_cfg, publish=rt.PublishPolicy(
+        every=SESSION_EVERY, mode="async"))
+    with _copy_times(torch) as copy_ms:
+        t0 = time.perf_counter()
+        res = sess.ingest(users, items)
+        ingest_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _ingest_checks(res, n, steps, {}, (), "session_storage")
+    if not (_states_equal(torch, sess.states, comp_states)
+            and _bits_equal(np, res, main_res)):
+        fail("session_storage: states or recall differ from storage_path's")
+    publish = _publish_checks(sess.store, n, math.ceil(
+        steps / SESSION_EVERY), "session_storage")
+    serve = _recommend_checks(torch, np, rt, sess, c_cfg, batches,
+                              lambda st: st.tables.item_freq,
+                              "session_storage")
+    first = serve.pop("first")
+    if not (np.array_equal(first.ids, session["first"].ids)
+            and np.array_equal(first.scores.view(np.uint32),
+                               session["first"].scores.view(np.uint32))):
+        fail("session_storage: recommend answers differ from session_path's")
+    emit("session_storage", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, cut=None, policy=comp.describe(),
+         publish_every=SESSION_EVERY, mode="async", steps=steps,
+         wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
+         events_per_s=res.throughput, dropped=res.dropped, **publish,
+         copy_ms=copy_ms, copy_bytes=_state_bytes(sess.states),
+         session_path_copy_ms=session["copy_ms"],
+         memory_allocated_before=before, max_memory_allocated=peak,
+         session_path_max_memory_allocated=session["peak"],
+         recommend_equal_to_session_path=True, **serve)
+    del sess, res
+    torch.cuda.empty_cache()
+
+    # -- checkpoint_path ---------------------------------------------------------------
+    n_batches = math.ceil(n / MICRO_BATCH)
+    cut = (n_batches // 2) * MICRO_BATCH
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    sess = rt.StreamSession(c_cfg)
+    first = sess.ingest(users[:cut], items[:cut])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = sess.checkpoint(str(CHECKPOINT_DIR))
+    write_s = time.perf_counter() - t0
+    file_bytes = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    back = rt.StreamSession.restore(str(CHECKPOINT_DIR), c_cfg)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if not _states_equal(torch, back.states, sess.states):
+        fail("checkpoint_path: restore at 4 x 4 differs from the saved "
+             "states")
+    if back.events_processed != sess.events_processed:
+        fail("checkpoint_path: restore lost events_processed")
+    second = back.ingest(users[cut:], items[cut:])
+    if first.telemetry.requeued or second.telemetry.requeued:
+        fail("checkpoint_path: events re-queued across the cut, so the two "
+             "halves are not the whole stream's steps")
+    if not _states_equal(torch, back.states, comp_states):
+        fail("checkpoint_path: resuming the second half does not end at "
+             "storage_path's final states")
+    bits = np.concatenate([first.recall.bits(), second.recall.bits()])
+    if not np.array_equal(bits[~np.isnan(bits)], comp_bits):
+        fail("checkpoint_path: the resumed stream's recall bits differ from "
+             "storage_path's")
+    grid2 = rt.GridSpec.rect(*REFINED)
+    cfg2 = dataclasses.replace(c_cfg, grid=grid2, hyper=c_cfg.hyper._replace(
+        i_cap=REFINED_I_CAP))
+    t0 = time.perf_counter()
+    wide = rt.restore_stream_checkpoint(str(CHECKPOINT_DIR), cfg2)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    live = regrid.regrid(sess.states, c_cfg.grid, grid2, i_cap=REFINED_I_CAP,
+                         storage=comp)
+    if not _states_equal(torch, wide.states, live):
+        fail("checkpoint_path: restore at 8 x 4 differs from a live regrid "
+             "of the same states")
+    emit("checkpoint_path", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, cut=f"checkpoint after {cut // MICRO_BATCH} of "
+         f"{n_batches} micro-batches", policy=comp.describe(),
+         format="sr-logical-v1", file_bytes=file_bytes,
+         resident_bytes=_state_bytes(sess.states), write_s=write_s,
+         read_s=read_s, restore_8x4_s=wide_s, restored_equal=True,
+         resumed_equal_to_storage_path=True,
+         resumed_events=second.events_processed,
+         regrid_equal_to_restore_8x4=True)
+    del sess, wide, live, second, first
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- rescale_path: on the trained compressed session -------------------------
+    before = {k: state_lib.signed(v).clone() for k, v in
+              convert.flatten_state(back.states).items()}
+    walls = {}
+
+    def rescale(name, grid, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back.rescale(grid, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+
+    def same(fields):
+        now = convert.flatten_state(back.states)
+        return all(torch.equal(state_lib.signed(now[k]), before[k])
+                   for k in fields)
+
+    rescale("identity_4x4", c_cfg.grid)
+    if not same(before):
+        fail("rescale_path: rescale to the same grid is not the identity")
+    rescale("refine_8x4", grid2, i_cap=REFINED_I_CAP)
+    rescale("coarsen_4x4", c_cfg.grid, i_cap=I_CAP)
+    kept = ("user_ids", "item_ids", "rated", "user_vecs", "item_vecs")
+    if not same(kept):
+        fail("rescale_path: 4 x 4 -> 8 x 4 -> 4 x 4 changed the rated "
+             "relation, the id sets or the vectors")
+    rescale("migrate_to_default", c_cfg.grid, storage=rt.StoragePolicy())
+    if (back.states.rated.dtype != torch.bool
+            or back.frontend.cfg.storage is not None):
+        fail("rescale_path: the migration left the compressed encoding")
+    q = np.concatenate([batches[0].cpu().numpy(),
+                        np.arange(UNKNOWN_QUERIES) + 10**7])
+    again = back.recommend(q)
+    if not (np.array_equal(again.ids, session["first"].ids)
+            and np.array_equal(again.scores.view(np.uint32),
+                               session["first"].scores.view(np.uint32))):
+        fail("rescale_path: answers after the migration differ from the "
+             "dense session's")
+    emit("rescale_path", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         events=n, policy=comp.describe(), grids=[[N_I, N_I], list(REFINED),
+                                                  [N_I, N_I]],
+         i_caps=[I_CAP, REFINED_I_CAP, I_CAP], wall_s=walls,
+         identity_equal=True, round_trip_equal=list(kept),
+         migrated_answers_equal_to_session_path=True,
+         resident_bytes_after_migration=_state_bytes(back.states),
+         regrid_spans=back.metrics.get("span_seconds").labels(
+             stage="regrid").count)
+    del back, before
+    torch.cuda.empty_cache()
+    return disgd_serve, comp_states
 
 
 def _state_bytes(states) -> int:
@@ -2150,9 +2511,12 @@ def _drift_agree(np, rt, users, items, d, cfg, what) -> dict:
     return out
 
 
-def _dics_phases(torch, np, rt, dev, infos):
-    """DICS trained over the whole Netflix stream, served, and its two
-    kernels held against their plain versions. Returns the kernel rows."""
+def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
+    """DICS trained over the whole Netflix stream, served (dense and
+    compressed: ``storage_serve``, with ``disgd_serve``, its DISGD half),
+    its two kernels held against their plain versions, the session and
+    ``dics_storage``. Returns the kernel rows."""
+    from repro_torch.core import storage
     from repro_torch.data.stream import NETFLIX, synth_stream
     from repro_torch.kernels import ops
 
@@ -2212,6 +2576,27 @@ def _dics_phases(torch, np, rt, dev, infos):
          listed=sum(int(torch.isfinite(o[1]).sum()) for o in outs),
          launches=serve_counts)
 
+    # -- 7a. storage_serve: K3 (DISGD, above) and K5 on compressed states ----------
+    comp = rt.StoragePolicy.compressed()
+    comp_states = storage.encode_state(states, comp)
+    c_lat, c_outs, c_counts = serve_calls(torch, rt, comp_states,
+                                          dict(kw, storage=comp), batches)
+    if c_counts["dics_topn"] != len(batches):
+        fail(f"storage_serve: dics_topn launched {c_counts['dics_topn']} "
+             f"times for {len(batches)} calls")
+    for out, want in zip(c_outs, outs):
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail("storage_serve: DICS answers on compressed states differ "
+                 "from the dense states' (ids or score bits)")
+    emit("storage_serve", policy=comp.describe(), queries=SERVE_USERS,
+         batch=SERVE_BATCH, disgd=disgd_serve,
+         dics=dict(p50_ms=1e3 * statistics.median(c_lat),
+                   dics_serve_p50_ms=serve_p50, calls=len(batches),
+                   answers_equal=True, launches=c_counts,
+                   resident_bytes=storage.total_nbytes(comp_states),
+                   dense_resident_bytes=storage.total_nbytes(states)))
+    del comp_states, c_outs
+
     # -- 8. kernels against their plain versions ---------------------------------
     rows = _dics_kernel_checks(torch, np, users, items, states, cfg,
                                batches[0], path_counts, serve_counts, infos)
@@ -2219,8 +2604,35 @@ def _dics_phases(torch, np, rt, dev, infos):
     torch.cuda.empty_cache()
 
     # -- 8a. dics_session ----------------------------------------------------------
-    _dics_session(torch, np, rt, users, items, cfg, res, serve_p50)
+    plain = _dics_session(torch, np, rt, users, items, cfg, res, serve_p50)
     del res
+
+    # -- 8b. dics_storage: the session's cut under compressed() ------------------------
+    m = DICS_SESSION_BATCHES * MICRO_BATCH
+    c_cfg = dataclasses.replace(cfg, storage=comp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = rt.run_stream(users[:m], items[:m], c_cfg)
+    counts = ops.launch_counts()
+    _ingest_checks(res, m, _steps(m, cfg), counts, ("dics_update",),
+                   "dics_storage")
+    if not (_decoded_equal(torch, res.final_states, comp, plain.final_states)
+            and _bits_equal(np, res, plain)):
+        fail("dics_storage: decoded states or recall bits differ from the "
+             "default policy's run over the same batches")
+    emit("dics_storage", stream="synth_stream(NETFLIX, seed=0)", events=m,
+         cut=f"first {DICS_SESSION_BATCHES} micro-batches, as dics_session",
+         policy=comp.describe(), events_per_s=res.throughput,
+         default_events_per_s=plain.throughput,
+         recall_at_10=res.recall.mean(), dropped=res.dropped,
+         resident_bytes=storage.total_nbytes(res.final_states),
+         default_resident_bytes=storage.total_nbytes(plain.final_states),
+         tables=storage.state_nbytes(res.final_states),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=counts)
+    del res, plain
+    torch.cuda.empty_cache()
 
     # -- 9. backends agree on the card -------------------------------------------
     _dics_backends_agree(torch, np, rt)
@@ -2316,6 +2728,8 @@ def _dics_kernel_checks(torch, np, users, items, states, cfg, serve_q,
             results[name] = work.pop(name)
         got, want = results["kernel"], results["plain"]
         for a, b, what in zip(got, want, type(got)._fields):
+            if a is None and b is None:     # co_scale: compute form
+                continue
             pairs = zip(a, b) if what == "tables" else [(a, b)]
             if not all(torch.equal(x, y) for x, y in pairs):
                 fail(f"dics_update ({case}): {what} differs from the plain "

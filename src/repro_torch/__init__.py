@@ -16,7 +16,12 @@ LRU, LFU, gradual decay), closed-loop drift control (``DriftPolicy``,
 serving runtime (``StreamSession`` ingest / recommend over a
 ``SnapshotStore`` of copies published at micro-batch boundaries, the
 ``QueryFrontend`` and its ``PublishPolicy``, the ``MetricsRegistry``
-with the folded ``stream_*`` counters); and the LLM zoo's serving
+with the folded ``stream_*`` counters); storage policies
+(``StoragePolicy``: packed ``rated``, quantized ``co``, bf16 factors)
+through every loop and serve leaf, regrid (``repro_torch.core.regrid``)
+and grid-portable checkpoints that either package reads
+(``save_stream_checkpoint`` / ``restore_stream_checkpoint``, the
+session's ``checkpoint`` / ``restore`` / ``rescale``); and the LLM zoo's serving
 path for h2o-danube-1.8b (``repro_torch.launch.serve``,
 ``repro_torch.models.factory.build``).
 """
@@ -29,8 +34,12 @@ from repro_torch.core.algorithm import get_algorithm, register, registered
 from repro_torch.core.dics import DicsHyper
 from repro_torch.core.disgd import DisgdHyper
 from repro_torch.core.forgetting import ForgettingConfig
-from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
+from repro_torch.core.pipeline import (RestoredCheckpoint, StreamConfig,
+                                       StreamResult,
+                                       restore_stream_checkpoint, run_stream,
+                                       save_stream_checkpoint)
 from repro_torch.core.routing import GridSpec
+from repro_torch.core.storage import StoragePolicy, StoragePolicyError
 from repro_torch.core.serve import recommend_topn
 from repro_torch.drift import DriftPolicy
 from repro_torch.obs import MetricsRegistry, ScopedRegistry
@@ -45,4 +54,6 @@ __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
            "recommend_topn", "StreamSession", "PublishPolicy",
            "ServeConfig", "ServeResponse", "QueryFrontend", "SnapshotStore",
            "StaleSnapshotError", "MetricsRegistry", "ScopedRegistry",
-           "register", "get_algorithm", "registered"]
+           "register", "get_algorithm", "registered", "StoragePolicy",
+           "StoragePolicyError", "RestoredCheckpoint",
+           "save_stream_checkpoint", "restore_stream_checkpoint"]

@@ -6,8 +6,14 @@ the JAX ``DisgdState`` / ``DicsState`` / ``Tables`` field names — what
 ``jax.tree.map(np.asarray, result.final_states)`` gives, flattened with
 ``flatten_state``. The container is picked by its fields: a ``co`` leaf
 means DICS. Shapes carry over unchanged (one worker, or stacked
-``[n_c, ...]``). The JAX DICS state's ``co_scale`` is ``None`` in compute
-form and is skipped.
+``[n_c, ...]``), and so do the storage policies' encoded leaves
+(``core.storage``): packed ``rated`` (uint32), quantized ``co`` (uint16
+or int8) with its ``co_scale``, and bf16 tables. The DICS ``co_scale``
+is ``None`` in compute form and then absent from the mapping. numpy has
+no bfloat16 of its own: ``states_to_numpy`` gives a bf16 table as its
+uint16 bit pattern, and ``states_from_numpy`` takes either that (a
+uint16 factor table, or a uint16 ``co`` without ``co_scale``) or JAX's
+``ml_dtypes`` bfloat16 arrays, moved through a uint16 view.
 
 For the LM zoo, ``params_from_numpy`` builds the port's model from the
 JAX parameter pytree mapped to numpy (layers stacked ``[L, ...]``), and
@@ -27,14 +33,15 @@ from repro_torch.core.state import DicsState, DisgdState, Tables
 from repro_torch.models.layers.attention import KVCache
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["flatten_state", "states_from_numpy", "states_to_numpy",
+__all__ = ["flatten_state", "to_tensor", "states_from_numpy",
+           "states_to_numpy",
            "params_from_numpy", "caches_from_numpy", "caches_to_numpy"]
 
-_DTYPES = {"user_vecs": torch.float32, "item_vecs": torch.float32,
-           "co": torch.float32, "item_cnt": torch.float32,
-           "rated": torch.bool}
 _HEAVY = {DisgdState: ("user_vecs", "item_vecs", "rated"),
-          DicsState: ("co", "item_cnt", "rated")}
+          DicsState: ("co", "item_cnt", "rated", "co_scale")}
+_FACTORS = ("user_vecs", "item_vecs")
+# Leaf dtypes a storage policy stores, carried as they are.
+_ENCODED = (torch.uint32, torch.uint16, torch.int8, torch.bfloat16)
 
 
 def _container(fields) -> type:
@@ -43,30 +50,58 @@ def _container(fields) -> type:
 
 def flatten_state(state) -> dict:
     """Any ``DisgdState``- or ``DicsState``-shaped tuple (this package's,
-    or the JAX package's mapped to numpy) -> ``{field name: leaf}``."""
+    or the JAX package's mapped to numpy) -> ``{field name: leaf}``; a
+    ``None`` ``co_scale`` is left out."""
     heavy = _HEAVY[_container(state._fields)]
-    return {**state.tables._asdict(),
-            **{name: getattr(state, name) for name in heavy}}
+    out = {**state.tables._asdict(),
+           **{name: getattr(state, name, None) for name in heavy}}
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def to_tensor(x, device="cuda") -> torch.Tensor:
+    """A numpy array (or a tensor) as a tensor on ``device``, its dtype
+    kept; numpy bfloat16 (``ml_dtypes``) arrives as ``torch.bfloat16``."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)
 
 
 def states_from_numpy(mapping: Mapping[str, np.ndarray], device="cuda"):
     """Build this package's ``DisgdState`` or ``DicsState`` from numpy
-    leaves."""
+    leaves (compute form or a storage policy's encoding)."""
+    quantized = "co_scale" in mapping
+
     def leaf(name):
-        dtype = _DTYPES.get(name, torch.int32)
-        return torch.tensor(np.asarray(mapping[name]), dtype=dtype,
-                            device=device)
+        t = to_tensor(mapping[name], device)
+        if name in Tables._fields:
+            return t.to(torch.int32)
+        if t.dtype == torch.uint16 and (name in _FACTORS or not quantized):
+            return t.view(torch.bfloat16)          # bf16 bits
+        if t.dtype in _ENCODED:
+            return t
+        if name == "rated":
+            return t.to(torch.bool)
+        return t.to(torch.float32)
 
     cls = _container(mapping)
+    heavy = [name for name in _HEAVY[cls] if name in mapping]
     return cls(Tables(*(leaf(f) for f in Tables._fields)),
-               *(leaf(name) for name in _HEAVY[cls]))
+               *(leaf(name) for name in heavy))
 
 
 def states_to_numpy(state) -> dict:
     """The reverse: ``{field name: numpy array}`` on the host (copies,
-    never views of the live tensors)."""
-    return {name: t.detach().to("cpu", copy=True).numpy()
-            for name, t in flatten_state(state).items()}
+    never views of the live tensors); a bf16 table as its uint16 bits."""
+    def host(t):
+        t = t.detach().to("cpu", copy=True)
+        return (t.view(torch.uint16) if t.dtype == torch.bfloat16
+                else t).numpy()
+
+    return {name: host(t) for name, t in flatten_state(state).items()}
 
 
 def params_from_numpy(tree: Mapping, cfg, device="cuda"):

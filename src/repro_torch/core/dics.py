@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import state as state_lib
+from repro_torch.core import storage as storage_lib
 from repro_torch.core.disgd import bucket_start_hits
 from repro_torch.core.state import DicsState
 from repro_torch.kernels import ops, ref
@@ -152,7 +153,7 @@ def make_cuda_worker(hyper: DicsHyper):
 
 def dics_partial_topn(states: DicsState, user_ids, *, top_n: int = 10,
                       k_nn: int = 10, g: int = 1, u_cap: int = 1024,
-                      use_kernel: bool = True):
+                      use_kernel: bool = True, storage=None):
     """Every worker's partial DICS top-N over its item split
     (``dics.py:76``).
 
@@ -161,6 +162,9 @@ def dics_partial_topn(states: DicsState, user_ids, *, top_n: int = 10,
       user_ids: int32 ``[W, B]`` global user ids, one query row per worker.
       use_kernel: one ``ops.dics_topn`` launch; False runs the plain
         version (``ref.dics_topn``).
+      storage: the ``StoragePolicy`` the states are resident under: a
+        quantized or bf16 ``co`` is decoded to f32 once per call, a packed
+        ``rated`` only in the gathered query rows (``dics.py:101-111``).
 
     Returns (item_ids i32[W, B, N], scores f32[W, B, N], known bool[W, B]);
     non-candidates (no positive neighbour mass) carry score ``-inf``.
@@ -168,9 +172,11 @@ def dics_partial_topn(states: DicsState, user_ids, *, top_n: int = 10,
     t = states.tables
     slots = state_lib.slot_of(user_ids, g, u_cap).long()
     known = t.user_ids.gather(1, slots) == user_ids
-    w = torch.arange(user_ids.shape[0], device=user_ids.device)[:, None]
-    hist = states.rated[w, slots] & known[..., None]
+    hist = storage_lib.gather_rated(states.rated, slots, storage,
+                                    t.item_ids.shape[-1]) & known[..., None]
+    co = (states.co if storage is None
+          else storage_lib.decode_co(states.co, states.co_scale, storage))
     fn = ops.dics_topn if use_kernel else ref.dics_topn
-    top_ids, top_scores = fn(states.co, states.item_cnt, hist, known,
+    top_ids, top_scores = fn(co, states.item_cnt, hist, known,
                              t.item_ids, top_n=top_n, k_nn=k_nn)
     return top_ids, top_scores, known

@@ -17,7 +17,18 @@ the device:
     controller (``repro_torch.drift``), their state in the loop's carry;
   * the telemetry vector (``repro_torch.obs.telemetry``) folded every
     step;
-  * recall bits scattered back to stream order on the device.
+  * recall bits scattered back to stream order on the device;
+  * under a storage policy (``StreamConfig.storage``, ``core.storage``),
+    JAX's decode -> compute -> encode boundaries
+    (``repro/core/engine.py:86``, ``:111``, ``:159``): each step decodes
+    the resident states into a compute-form temporary (a full unpack of
+    ``rated`` under ``packed``), the worker, the forgetting pass or the
+    controller update that temporary in place, and the encoding is
+    copied back into the resident tensors. The forgetting pass and the
+    controller share the worker's decoded form; for the lossy tables
+    (bf16 factors, bf16 or quantized ``co``) JAX encodes between the two,
+    so the port rounds them there (``storage.round_trip``). The default
+    policy runs no codec operation.
 
 The loop does not synchronise with the host until the end of the stream:
 no ``.item()``, no ``nonzero``, no boolean indexing. The overflow
@@ -42,6 +53,7 @@ import torch
 from repro_torch.core import algorithm as algorithm_lib
 from repro_torch.core import forgetting as forgetting_lib
 from repro_torch.core import prng, routing, state as state_lib
+from repro_torch.core import storage as storage_lib
 from repro_torch.core.evaluator import RecallAccumulator
 from repro_torch.drift import controller as controller_lib
 from repro_torch.drift import detector as detector_lib
@@ -54,15 +66,22 @@ __all__ = ["make_worker_fn", "init_scan_carry", "PublishEvent",
 _WORKERS = {"scan": "make_worker_step", "cuda": "make_cuda_worker_step"}
 
 
-def make_worker_fn(cfg, backend: str) -> Callable:
+def make_worker_fn(cfg, backend: str, codecs: bool = True) -> Callable:
     """``worker(states, ev_u, ev_i) -> (states, hits, evaluated)`` over all
-    workers, from the registered algorithm (``"scan"`` or ``"cuda"``)."""
+    workers, from the registered algorithm (``"scan"`` or ``"cuda"``).
+    Under a storage policy it decodes the resident states, runs the step
+    and encodes back in place (JAX's ``make_worker_fn`` boundary);
+    ``codecs=False`` gives the bare step on compute-form states, which is
+    what the device loop's step takes (it owns the codecs)."""
     algo = algorithm_lib.get_algorithm(cfg.algorithm)
     key = prng.key(cfg.seed, device=cfg.device)
     one = getattr(algo, _WORKERS[backend])(cfg.resolved_hyper(), key)
+    policy = cfg.storage if codecs else None
 
     def worker(states, ev_u, ev_i):
-        return one(states, (ev_u, ev_i))
+        _, hits, evaluated = storage_lib.in_compute_form(
+            states, policy, lambda s: one(s, (ev_u, ev_i)))
+        return states, hits, evaluated
 
     return worker
 
@@ -86,6 +105,9 @@ def _occ_total(u_occ, i_occ) -> torch.Tensor:
 
 
 def _make_batch_step(cfg, worker_fn):
+    """The loop's step. ``worker_fn(states, ev_u, ev_i)`` runs on the
+    compute form (``make_worker_fn(..., codecs=False)``): this step owns
+    the codecs."""
     grid = cfg.grid
     n_c, g, n_i = grid.n_c, grid.g, grid.n_i
     cap = cfg.bucket_capacity
@@ -102,6 +124,10 @@ def _make_batch_step(cfg, worker_fn):
     forget = forgetting is not None
     det_cfg = cfg.drift.detector if adaptive else None
     no_fire = torch.zeros((), dtype=torch.int32, device=cfg.device)
+    policy = cfg.storage
+    coded = not policy.is_default
+    # JAX encodes after the worker and decodes again for the pass.
+    rounds = coded and (adaptive or forget) and storage_lib.is_lossy(policy)
 
     def batch_step(carry, fu, fi):
         # Runs on every step, also where the JAX engine's lax.cond takes
@@ -110,8 +136,10 @@ def _make_batch_step(cfg, worker_fn):
         # returns —, hands the worker only padding, which changes no
         # state, and leaves the detector, the controller and the
         # forgetting trigger as they were.
-        (states, cu, ci, since, processed, dropped, forgets, det, boost,
+        (resident, cu, ci, since, processed, dropped, forgets, det, boost,
          tel) = carry
+        states = (storage_lib.decode_state(resident, policy) if coded
+                  else resident)
         bu = torch.cat([cu, fu])
         bi = torch.cat([ci, fi])
         valid = bu >= 0
@@ -160,6 +188,8 @@ def _make_batch_step(cfg, worker_fn):
         occ_before = None
         if tel_on and (adaptive or forget):
             occ_before = _occ_total(*state_lib.occupancy(states.tables))
+        if rounds:
+            storage_lib.round_trip(states, policy)
         if adaptive:
             new = detector_lib.detector_update(det, hits, evaluated, det_cfg)
             det = detector_lib.DetectorState(*(
@@ -186,7 +216,9 @@ def _make_batch_step(cfg, worker_fn):
                 tel, kept=kept_n, overflow=n_overflow, carry_cap=carry_cap,
                 evicted=evicted, hits=hits, evaluated=evaluated, load=load,
                 occupancy=u_occ + i_occ, list_len=list_len)
-        carry = (states, cu_new[:carry_cap], ci_new[:carry_cap], since,
+        if coded:
+            storage_lib.encode_into(resident, states, policy)
+        carry = (resident, cu_new[:carry_cap], ci_new[:carry_cap], since,
                  processed, dropped, forgets, det, boost, tel)
         return carry, (bits, load, kept_n, fired, u_occ, i_occ)
 
@@ -345,8 +377,8 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
     xs_u = torch.as_tensor(fu).to(device)
     xs_i = torch.as_tensor(fi).to(device)
 
-    worker_fn = make_worker_fn(cfg, backend)
-    batch_step = _make_batch_step(cfg, worker_fn)
+    batch_step = _make_batch_step(cfg, make_worker_fn(cfg, backend,
+                                                      codecs=False))
     carry = init_scan_carry(cfg, states=initial_states, carry=initial_carry,
                             detector=initial_detector)
     if device.type == "cuda":

@@ -26,11 +26,21 @@ snapshot store at micro-batch boundaries (``engine.PublishEvent``).
 Every backend runs forgetting (``StreamConfig.forgetting``, a
 ``core.forgetting.ForgettingConfig``; ``None`` means none), the
 closed-loop drift policy (``StreamConfig.drift``, a
-``drift.DriftPolicy``) and the telemetry vector (``StreamConfig.
+``drift.DriftPolicy``), the telemetry vector (``StreamConfig.
 telemetry``, on by default as in JAX: ``StreamResult.telemetry`` and
-``StreamResult.precision``). What later slices of the port bring raises
-``ValueError`` naming the slice: the ``shard_map`` backend and storage
-policies.
+``StreamResult.precision``) and storage policies (``StreamConfig.
+storage``, a ``core.storage.StoragePolicy``: the states stay resident in
+the policy's encoding and every step decodes, computes and encodes, as
+in JAX). The ``shard_map`` backend comes with a later slice and raises
+``ValueError`` naming it.
+
+Checkpoints (``repro/core/pipeline.py:477-665``):
+``save_stream_checkpoint`` writes the msgpack files of
+``repro.checkpoint`` (``repro_torch.checkpoint``, the same bytes), in
+the grid-portable ``sr-logical-v1`` format (``grid=``) or the legacy
+fixed-shape one; ``restore_stream_checkpoint`` reads either package's
+files at the configured grid (regridding a logical one on the way,
+``core.regrid``).
 """
 
 from __future__ import annotations
@@ -44,10 +54,16 @@ import torch
 
 from repro_torch.core import algorithm as algorithm_lib
 from repro_torch.core import forgetting as forgetting_lib
-from repro_torch.core import routing
+from repro_torch.core import routing, state as state_lib
+from repro_torch.core import storage as storage_lib
 from repro_torch.core.evaluator import RecallAccumulator
+from repro_torch.core.regrid import CheckpointShapeError
+from repro_torch.core.storage import StoragePolicy, StoragePolicyError
 
-__all__ = ["StreamConfig", "StreamResult", "init_states", "run_stream"]
+__all__ = ["StreamConfig", "StreamResult", "RestoredCheckpoint",
+           "init_states", "run_stream", "save_stream_checkpoint",
+           "restore_stream_checkpoint", "CheckpointShapeError",
+           "StoragePolicyError", "LOGICAL_FORMAT"]
 
 _BACKENDS = {"cuda": "cuda", "pallas": "cuda", "scan": "scan",
              "host": "host"}
@@ -73,7 +89,10 @@ class StreamConfig:
     drift: Any = None
     # The loop's telemetry vector (repro_torch.obs.telemetry).
     telemetry: bool = True
-    storage: Any = None                      # not in this slice
+    # Per-table resident encoding of worker state (core.storage): every
+    # layer that touches state decodes -> computes in f32/bool ->
+    # encodes. The default runs no codec at all.
+    storage: StoragePolicy = StoragePolicy()
     device: str = "cuda"
 
     def resolved_hyper(self):
@@ -144,9 +163,25 @@ class StreamResult:
 
 
 def init_states(cfg: StreamConfig):
-    """Zero states of every worker, stacked ``[n_c, ...]`` on cfg.device."""
-    return algorithm_lib.get_algorithm(cfg.algorithm).init_state(
-        cfg.resolved_hyper(), batch=(cfg.grid.n_c,), device=cfg.device)
+    """Zero states of every worker, stacked ``[n_c, ...]`` on cfg.device,
+    in ``cfg.storage``'s resident encoding: one worker's state is encoded
+    once, before the broadcast over the workers, as in JAX."""
+    algo = algorithm_lib.get_algorithm(cfg.algorithm)
+    n_c = cfg.grid.n_c
+    if cfg.storage.is_default:
+        return algo.init_state(cfg.resolved_hyper(), batch=(n_c,),
+                               device=cfg.device)
+    one = algo.init_state(cfg.resolved_hyper(), device=cfg.device,
+                          storage=cfg.storage)
+
+    def bcast(x):
+        if x is None:
+            return None
+        s = state_lib.signed(x)
+        return s.expand((n_c,) + s.shape).contiguous().view(x.dtype)
+
+    return type(one)(type(one.tables)(*(bcast(t) for t in one.tables)),
+                     *(bcast(t) for t in one[1:]))
 
 
 def _resolve_backend(cfg: StreamConfig) -> str:
@@ -156,9 +191,6 @@ def _resolve_backend(cfg: StreamConfig) -> str:
     if cfg.backend not in _BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; ported: "
                          f"{sorted(_BACKENDS)}")
-    if cfg.storage is not None:
-        raise ValueError("storage policies are not ported yet; they come "
-                         "with the storage slice (ROADMAP Queue 1 item 11)")
     return _BACKENDS[cfg.backend]
 
 
@@ -213,8 +245,12 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     all; what is left then is dropped. Every ``publish_every`` batches,
     and once more after the last batch when it was not a boundary (the
     tail publish), ``on_publish`` gets a copy of the states with int
-    progress scalars."""
-    from repro_torch.core import engine, state as state_lib
+    progress scalars. Under a storage policy the states stay encoded
+    between the steps: the worker, the forgetting pass and the
+    controller each decode, compute and encode (JAX's boundaries, at
+    ``repro/core/pipeline.py:240``), and the telemetry gather unpacks
+    only the rows it reads."""
+    from repro_torch.core import engine
     from repro_torch.drift import controller as controller_lib
     from repro_torch.drift import detector as detector_lib
     from repro_torch.obs import telemetry as telemetry_lib
@@ -225,6 +261,7 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     grid = cfg.grid
     cap = cfg.bucket_capacity
     device = torch.device(cfg.device)
+    policy = cfg.storage
     worker = engine.make_worker_fn(cfg, "scan")
     states = initial_states if initial_states is not None else init_states(cfg)
 
@@ -312,7 +349,7 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
                                dtype=torch.int32, device=device)
         # Precision@N denominator from the bucket-start states.
         lens = (telemetry_lib.effective_list_len(states, ev_u, top_n=top_n,
-                                                 g=grid.g)
+                                                 g=grid.g, storage=policy)
                 if tel is not None else 0)
         states, hits, evaluated = worker(states, ev_u, ev_i)
 
@@ -328,12 +365,15 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         if adaptive:
             det = detector_lib.detector_update(det, hits, evaluated,
                                                cfg.drift.detector)
-            states, boost = controller(states, det.fired, boost)
+            _, boost = storage_lib.in_compute_form(
+                states, policy, lambda s: controller(s, det.fired, boost))
             fired = bool(det.fired)
             drift_flags.append(fired)
             forgets += int(fired)
         elif forget and since >= forgetting.trigger_every:
-            forgetting_lib.apply_forgetting(states, forgetting)
+            storage_lib.in_compute_form(
+                states, policy,
+                lambda s: forgetting_lib.apply_forgetting(s, forgetting))
             # Carry the remainder, as the device loop does.
             since -= forgetting.trigger_every
             forgets += 1
@@ -381,3 +421,195 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
         final_detector=engine._to_numpy(det) if adaptive else None,
         telemetry=engine._to_numpy(tel) if tel is not None else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# Fault tolerance: checkpoint / resume of the streaming state
+# ---------------------------------------------------------------------------
+
+# Version tag of the grid-portable checkpoint payload (JAX's): v1 is
+# LogicalState records + (algorithm, grid shape, carry). Legacy
+# fixed-shape checkpoints have no "format" key and restore only at their
+# own grid.
+LOGICAL_FORMAT = "sr-logical-v1"
+
+
+def _host_tuple(tup):
+    """A tuple of tensors (a DetectorState) as the same tuple of numpy."""
+    return type(tup)(*(x.detach().cpu().numpy() if torch.is_tensor(x)
+                       else np.asarray(x) for x in tup))
+
+
+def save_stream_checkpoint(directory: str, events_processed: int, states,
+                           carry=(None, None), grid=None, algorithm=None,
+                           detector=None, storage: StoragePolicy = None):
+    """Persist worker states (+ the re-queue carry) mid-stream, in the
+    JAX package's format (``repro/core/pipeline.py:477``).
+
+    With ``grid`` (the ``GridSpec`` the states are shaped for) the file
+    is the grid-portable logical format (``core.regrid.LogicalState``,
+    ``LOGICAL_FORMAT``), which restores at any ``(n_i, g)``; without it,
+    the legacy fixed-shape format. ``storage`` is the policy the live
+    ``states`` are encoded under (default: the identity policy); its
+    descriptor is stamped into the file, and the logical format keeps
+    the heavy leaves in the policy's encoding: quantized ``co`` with
+    ``co_scale``, packed ``rated`` with ``rated_bits``, bf16 factors as
+    bf16. ``detector`` (a ``DetectorState``, e.g. ``StreamResult.
+    final_detector``) rides along in either format. Returns the path.
+    """
+    from repro_torch.checkpoint import save_checkpoint
+
+    if storage is None:
+        storage = StoragePolicy()
+    carry_u, carry_i = carry
+    tree = {
+        "carry_u": np.asarray(carry_u if carry_u is not None else
+                              np.empty(0, np.int64)),
+        "carry_i": np.asarray(carry_i if carry_i is not None else
+                              np.empty(0, np.int64)),
+        "storage": storage.describe(),
+    }
+    if detector is not None:
+        tree["detector"] = _host_tuple(detector)
+    if grid is None:
+        tree["states"] = states
+    else:
+        if algorithm is None:
+            algorithm = algorithm_lib.infer_algorithm(states)
+        logical = algorithm_lib.get_algorithm(algorithm).extract_logical(
+            states, grid, storage=storage)
+        # Re-encode the heavy logical leaves per the policy, so the bytes
+        # on disk match the resident footprint.
+        if storage.factors == "bf16":
+            logical = logical._replace(
+                u_vec=logical.u_vec.to(torch.bfloat16),
+                i_vec=logical.i_vec.to(torch.bfloat16))
+        if storage.co in ("uint16", "int8"):
+            q, scale = storage_lib.quantize_rows(logical.co, storage.co)
+            logical = logical._replace(co=q)
+            tree["co_scale"] = scale
+        elif storage.co == "bf16":
+            logical = logical._replace(co=logical.co.to(torch.bfloat16))
+        if storage.rated == "packed":
+            tree["rated_bits"] = int(logical.rated.shape[-1])
+            logical = logical._replace(
+                rated=storage_lib.pack_bits(logical.rated))
+        tree.update({
+            "format": LOGICAL_FORMAT,
+            "algorithm": algorithm,
+            "grid": np.asarray([grid.n_i, grid.g], np.int64),
+            "logical": logical,
+        })
+    return save_checkpoint(directory, events_processed, tree)
+
+
+@dataclasses.dataclass
+class RestoredCheckpoint:
+    """What ``restore_stream_checkpoint`` hands back, by name: ``states``
+    shaped for the restoring config's grid, on its device; ``carry`` the
+    ``(carry_u, carry_i)`` re-queue; ``detector`` the saved drift
+    ``DetectorState`` as a tuple of numpy arrays (for ``run_stream(
+    initial_detector=...)``), or None."""
+
+    events_processed: int
+    states: Any
+    carry: tuple
+    detector: Any = None
+
+
+def _leaves(tree) -> list:
+    """The array leaves of a decoded checkpoint tree, depth first (JAX's
+    ``tree.leaves`` order; ``None`` is no leaf)."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def restore_stream_checkpoint(directory: str, cfg: StreamConfig,
+                              step: int | None = None) -> RestoredCheckpoint:
+    """Restore worker states shaped like ``init_states(cfg)`` from a file
+    of either package (``repro/core/pipeline.py:577``).
+
+    A logical-format checkpoint restores at whatever grid ``cfg``
+    configures (regridded through the algorithm's ``build_states``); a
+    legacy one must match the grid (checked against ``state_template``)
+    or raises ``CheckpointShapeError``. A checkpoint written under
+    another storage policy than ``cfg.storage`` raises
+    ``StoragePolicyError``, another algorithm or an unknown format
+    ``ValueError``.
+    """
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import convert
+    from repro_torch.core import regrid as regrid_lib
+
+    events_processed, tree = restore_checkpoint(directory, step)
+    # Writable copies (msgpack's buffers are read-only).
+    carry = (np.array(tree["carry_u"]), np.array(tree["carry_i"]))
+    detector = tree.get("detector")
+    if detector is not None:
+        detector = tuple(np.array(x) for x in detector)
+    hyper = cfg.resolved_hyper()
+    algo = algorithm_lib.get_algorithm(cfg.algorithm)
+    dev = cfg.device
+
+    saved_policy = StoragePolicy.from_descriptor(tree.get("storage"))
+    if saved_policy != cfg.storage:
+        raise StoragePolicyError(saved_policy, cfg.storage)
+
+    fmt = tree.get("format")
+    if fmt is not None:
+        if fmt != LOGICAL_FORMAT:
+            raise ValueError(f"unknown checkpoint format {fmt!r}")
+        if tree["algorithm"] != cfg.algorithm:
+            raise ValueError(
+                f"checkpoint holds {tree['algorithm']!r} state but the "
+                f"config asks for {cfg.algorithm!r}")
+        n_i, g = (int(x) for x in np.asarray(tree["grid"]))
+        src = routing.GridSpec.rect(n_i, g)
+        logical = regrid_lib.LogicalState(
+            *(convert.to_tensor(leaf, dev) for leaf in tree["logical"]))
+        # Back to the compute form build_states expects.
+        if saved_policy.factors == "bf16":
+            logical = logical._replace(
+                u_vec=logical.u_vec.to(torch.float32),
+                i_vec=logical.i_vec.to(torch.float32))
+        if saved_policy.co in ("uint16", "int8"):
+            logical = logical._replace(co=storage_lib.dequantize_rows(
+                logical.co, convert.to_tensor(tree["co_scale"], dev)))
+        elif saved_policy.co == "bf16":
+            logical = logical._replace(co=logical.co.to(torch.float32))
+        if saved_policy.rated == "packed":
+            logical = logical._replace(rated=storage_lib.unpack_bits(
+                logical.rated, int(tree["rated_bits"])))
+        states = algo.build_states(
+            logical, src=src, dst=cfg.grid,
+            u_cap=hyper.u_cap, i_cap=hyper.i_cap, storage=cfg.storage)
+        return RestoredCheckpoint(events_processed, states, carry, detector)
+
+    # Legacy fixed-shape payload: validate against the algorithm's schema
+    # (one worker stacked over the grid, in the policy's encoding).
+    one = algo.state_template(hyper, cfg.storage)
+    n_c = cfg.grid.n_c
+    flat_t = [((n_c,) + tuple(t.shape), t.dtype) for t in _leaves(one)]
+    flat_s = _leaves(tree["states"])
+    ckpt_workers = (flat_s[0].shape[0] if flat_s and len(flat_s[0].shape)
+                    else "?")
+    if len(flat_t) != len(flat_s):
+        raise CheckpointShapeError(
+            ckpt_workers, cfg.grid,
+            f"leaf count {len(flat_s)} != expected {len(flat_t)} "
+            f"(algorithm mismatch?)")
+    for s, (shape, _) in zip(flat_s, flat_t):
+        if tuple(s.shape) != shape:
+            raise CheckpointShapeError(
+                ckpt_workers, cfg.grid,
+                f"leaf shape {tuple(s.shape)} != expected {shape}")
+    def leaf(s, dtype):
+        t = convert.to_tensor(s, dev)
+        return t if t.dtype == dtype else t.to(dtype)
+
+    leaves = iter(leaf(s, dtype) for s, (_, dtype) in zip(flat_s, flat_t))
+    tables = type(one.tables)(*(next(leaves) for _ in one.tables))
+    rest = [None if t is None else next(leaves) for t in one[1:]]
+    return RestoredCheckpoint(events_processed, type(one)(tables, *rest),
+                              carry, detector)

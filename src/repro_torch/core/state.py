@@ -4,7 +4,9 @@ Port of ``repro/core/state.py``: ``slot_of`` (:43), ``user_slot`` /
 ``item_slot``, ``Tables`` (:64), ``DisgdState`` (:76), ``DicsState``
 (:85), ``init_disgd_state`` (:120), ``init_dics_state`` (:131),
 ``occupancy`` (:151) and ``item_stats`` (:159), plus ``clone_state``
-(the port's snapshot copy). Each worker holds fixed-capacity id-slotted
+(the port's snapshot copy). ``init_disgd_state`` / ``init_dics_state``
+take ``storage=`` (a ``core.storage.StoragePolicy``) and return the zero
+state in that policy's resident encoding, as JAX's ``_maybe_encode``. Each worker holds fixed-capacity id-slotted
 tables, ``slot(id) = (id // n_splits) % capacity``; empty slots carry id
 ``-1``. Ids and bookkeeping are int32 as in JAX (indexing casts to
 int64); ``rated`` is ``torch.bool`` and a kernel reads it through
@@ -23,7 +25,7 @@ import torch
 
 __all__ = ["Tables", "DisgdState", "DicsState", "init_disgd_state",
            "init_dics_state", "slot_of", "user_slot", "item_slot",
-           "occupancy", "item_stats", "clone_state"]
+           "occupancy", "item_stats", "clone_state", "signed"]
 
 
 def slot_of(ids: torch.Tensor, n_splits: int, capacity: int) -> torch.Tensor:
@@ -68,14 +70,17 @@ class DicsState(NamedTuple):
     With positive-only boolean feedback, ``co[p, q]`` counts the users who
     rated both p and q and ``item_cnt[p]`` those who rated p, so Eq. 6 is
     ``co[p, q] / sqrt(item_cnt[p] * item_cnt[q])``. Both hold integer
-    values in f32. The JAX state's ``co_scale`` (storage policies) has no
-    counterpart until the storage slice.
+    values in f32. ``co_scale`` exists only under a quantized storage
+    policy (``core.storage``): the per-row scales of ``co``. In the
+    compute form, everything the algorithms see, it is ``None``, as in
+    JAX (so both packages' states have the same five fields).
     """
 
     tables: Tables
-    co: torch.Tensor         # f32[..., I_cap, I_cap]
+    co: torch.Tensor         # f32[..., I_cap, I_cap] (or its encoding)
     item_cnt: torch.Tensor   # f32[..., I_cap]
-    rated: torch.Tensor      # bool[..., U_cap, I_cap]
+    rated: torch.Tensor      # bool[..., U_cap, I_cap] (uint32 if packed)
+    co_scale: torch.Tensor | None = None   # f32[..., I_cap], or None
 
 
 def _tables(full, u_cap: int, i_cap: int) -> Tables:
@@ -99,27 +104,36 @@ def _filler(batch: tuple, device):
 
 
 def init_disgd_state(u_cap: int, i_cap: int, k: int, *, batch: tuple = (),
-                     device="cuda") -> DisgdState:
+                     device="cuda", storage=None) -> DisgdState:
     """Zero state of ``batch`` workers (``()`` = one worker)."""
     full = _filler(batch, device)
-    return DisgdState(
+    return _maybe_encode(DisgdState(
         tables=_tables(full, u_cap, i_cap),
         user_vecs=full((u_cap, k), 0.0, torch.float32),
         item_vecs=full((i_cap, k), 0.0, torch.float32),
         rated=full((u_cap, i_cap), False, torch.bool),
-    )
+    ), storage)
 
 
 def init_dics_state(u_cap: int, i_cap: int, *, batch: tuple = (),
-                    device="cuda") -> DicsState:
+                    device="cuda", storage=None) -> DicsState:
     """Zero DICS state of ``batch`` workers (``()`` = one worker)."""
     full = _filler(batch, device)
-    return DicsState(
+    return _maybe_encode(DicsState(
         tables=_tables(full, u_cap, i_cap),
         co=full((i_cap, i_cap), 0.0, torch.float32),
         item_cnt=full((i_cap,), 0.0, torch.float32),
         rated=full((u_cap, i_cap), False, torch.bool),
-    )
+    ), storage)
+
+
+def _maybe_encode(state, storage):
+    """Encode a fresh compute-form state per an optional StoragePolicy."""
+    if storage is None:
+        return state
+    from repro_torch.core import storage as storage_lib
+
+    return storage_lib.encode_state(state, storage)
 
 
 def occupancy(tables: Tables):
@@ -144,5 +158,22 @@ def clone_state(state):
     current stream. The port updates states in place, so a snapshot that
     must not change under its reader is a copy (a JAX state is immutable
     and needs none)."""
-    return type(state)(Tables(*(t.clone() for t in state.tables)),
-                       *(t.clone() for t in state[1:]))
+    def clone(t):
+        # Unsigned tables (packed rated, quantized co) copy through their
+        # signed view: PyTorch's kernels cover the signed types.
+        return None if t is None else signed(t).clone().view(t.dtype)
+
+    return type(state)(Tables(*(clone(t) for t in state.tables)),
+                       *(clone(t) for t in state[1:]))
+
+
+_SIGNED = {torch.uint32: torch.int32, torch.uint16: torch.int16}
+
+
+def signed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for an unsigned 16 / 32-bit table (a packed
+    ``rated``, a quantized ``co``) the signed view of the same memory:
+    PyTorch has few operations on the unsigned types (no shifts, sums or
+    ``index_put``)."""
+    s = _SIGNED.get(t.dtype)
+    return t if s is None else t.view(s)

@@ -32,8 +32,8 @@ suffix, histograms the ``_bucket{le=}`` / ``_sum`` / ``_count``
 triplet).
 
 Pure host-side bookkeeping: no torch here. The device-resident half of
-observability (JAX's ``obs/telemetry.py``) comes with ROADMAP Queue 1
-item 10.
+observability is ``obs/telemetry.py`` (the loop's telemetry vector,
+folded into a registry by its ``TelemetryFolder``).
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ comes with ROADMAP Queue 1 item 13:
   * ``frontend`` — micro-batched query front-end: LRU response cache
     (lazily invalidated by snapshot generation) and a popularity
     fallback for unknown users.
+
+Each part serves states resident under any storage policy
+(``ServeConfig.storage``, ``grid_topn(storage=)``): the leaves decode
+the rows they read, and ``QueryFrontend.retarget`` follows a regrid or a
+policy migration (``StreamSession.rescale``).
 """
 
 from repro_torch.serve.frontend import QueryFrontend, ServeConfig, ServeResponse

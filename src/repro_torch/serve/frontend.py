@@ -46,6 +46,12 @@ from repro_torch.serve.snapshot import SnapshotStore
 __all__ = ["ServeConfig", "ServeResponse", "QueryFrontend"]
 
 
+def _resident(storage):
+    """A storage policy as the serve leaves take it: None for the default
+    (compute-form states, no decode), else the policy."""
+    return None if storage is None or storage.is_default else storage
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Static parameters of the serving plane."""
@@ -62,15 +68,9 @@ class ServeConfig:
     cache_capacity: int = 4096            # LRU response-cache entries
     # Publish-plane contract (cadence, async/sync, staleness bound).
     publish: PublishPolicy = PublishPolicy()
-    # Resident encoding of the published states: None (compute-form
-    # states) only, until storage policies are ported.
+    # Resident encoding of the published states (a StoragePolicy when
+    # the trainer stores compressed tables; None = compute-form states).
     storage: object = None
-
-    def __post_init__(self):
-        if self.storage is not None:
-            raise ValueError("storage policies are not ported yet; they "
-                             "come with the storage slice (ROADMAP Queue 1 "
-                             "item 11)")
 
     @property
     def max_staleness_events(self) -> int | None:
@@ -94,7 +94,8 @@ class ServeConfig:
             u_cap=hyper.u_cap,
             top_n=hyper.top_n,
             k_nn=getattr(hyper, "k_nn", 10),
-            storage=stream_cfg.storage,
+            # None under the default (identity) policy, as in JAX.
+            storage=_resident(stream_cfg.storage),
         )
         fields.update(overrides)
         return cls(**fields)
@@ -203,14 +204,14 @@ class QueryFrontend:
         not just its freshness.) The snapshot store is shape-agnostic,
         so the same store keeps serving across the rescale; callers
         publish the first post-regrid snapshot and then retarget.
-        ``storage`` must be None (or left unset) until storage policies
-        are ported.
+        ``storage`` (a StoragePolicy or None) follows a policy migration;
+        the default policy becomes None.
         """
         over = {"grid": grid}
         if u_cap is not None:
             over["u_cap"] = u_cap
         if storage is not ...:
-            over["storage"] = storage
+            over["storage"] = _resident(storage)
         self.cfg = dataclasses.replace(self.cfg, **over)
         self._cache.clear()
         self._seen_gen = (-1, -1)
@@ -239,7 +240,8 @@ class QueryFrontend:
                 snap.states, torch.as_tensor(arr, device=device),
                 algorithm=cfg.algorithm, grid=cfg.grid,
                 top_n=cfg.top_n, u_cap=cfg.u_cap, qcap=cfg.qcap,
-                k_nn=cfg.k_nn, use_kernel=cfg.use_kernel)
+                k_nn=cfg.k_nn, use_kernel=cfg.use_kernel,
+                storage=cfg.storage)
             ids, scores, known, served = (t.cpu().numpy() for t in out)
             self._c["plane_batches"].inc()
             progress = False

@@ -36,7 +36,7 @@ def query_capacity(batch_size: int, g: int, factor: float = 2.0) -> int:
 def grid_topn(states, user_ids, *, algorithm: str = "disgd",
               grid: routing.GridSpec = routing.GridSpec(1), top_n: int = 10,
               u_cap: int = 1024, qcap: int = 64, k_nn: int = 10,
-              use_kernel: bool = True):
+              use_kernel: bool = True, storage=None):
     """Grid-wide top-N for a batch of users, merged across item splits.
 
     Args:
@@ -50,6 +50,8 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
       qcap: per-column query bucket capacity (``query_capacity``).
       use_kernel: serve through the leaf's kernel (one launch per call);
         False runs its plain version.
+      storage: the ``StoragePolicy`` the states are resident under (None
+        = compute form); the leaf decodes lazily, never a whole table.
 
     Returns:
       ids i32[Q, N] merged top-N global item ids, -1 padded;
@@ -69,7 +71,8 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
 
     # Worker r * g + c scores column c's bucket against its own split.
     leaf = algorithm_lib.get_algorithm(algorithm).make_serve_leaf(
-        top_n=top_n, g=g, u_cap=u_cap, k_nn=k_nn, use_kernel=use_kernel)
+        top_n=top_n, g=g, u_cap=u_cap, k_nn=k_nn, use_kernel=use_kernel,
+        storage=storage)
     p_ids, p_scores, p_known = leaf(states, qu.repeat(n_i, 1))
     n_part = p_ids.shape[-1]
     # [n_i, g, qcap, N] -> [g, qcap, n_i, N]: merge over the split axis.

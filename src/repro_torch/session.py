@@ -18,12 +18,14 @@ Publishing is governed by one :class:`~repro_torch.serve.policy.
 PublishPolicy`: cadence (``every`` micro-batches), sync vs async
 rotation, and the read-side staleness bound.
 
-The session threads the adaptive drift detector across ``ingest``
-calls (``initial_detector``) and folds each run's telemetry vector into
-its registry (``obs.telemetry.TelemetryFolder``, the store's telemetry
-sink: the ``stream_*`` counters). Not here yet: ``checkpoint`` /
-``restore`` / ``rescale`` raise ``NotImplementedError`` until regrid and
-checkpoints (ROADMAP Queue 1 item 12), so the detector is not saved.
+The session threads the adaptive drift detector and the overflow
+re-queue across ``ingest`` calls and folds each run's telemetry vector
+into its registry (``obs.telemetry.TelemetryFolder``, the store's
+telemetry sink: the ``stream_*`` counters). ``checkpoint`` writes a
+grid-portable checkpoint (detector included) that either package
+restores; ``restore`` resumes one at any grid; ``rescale`` reshapes the
+live grid, its capacities and its storage policy in one regrid
+(``repro/session.py:222-291``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ from repro_torch.core import algorithm as algorithm_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import state as state_lib
 from repro_torch.core import storage as storage_lib
-from repro_torch.core.pipeline import StreamConfig, StreamResult, run_stream
+from repro_torch.core.pipeline import (RestoredCheckpoint, StreamConfig,
+                                       StreamResult,
+                                       restore_stream_checkpoint, run_stream,
+                                       save_stream_checkpoint)
 from repro_torch.core.routing import GridSpec
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import telemetry as telemetry_lib
@@ -45,9 +50,6 @@ from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
                                ServeResponse, SnapshotStore)
 
 __all__ = ["StreamSession"]
-
-_LATER = ("regrid and checkpoints are not ported yet; they come with "
-          "ROADMAP Queue 1 item 12")
 
 
 class StreamSession:
@@ -87,6 +89,7 @@ class StreamSession:
         self.publish_policy = publish
         self._frontend = QueryFrontend(self.store, serve)
         self._states = pipeline_lib.init_states(cfg)
+        self._carry: tuple = (None, None)
         self._detector = None
         self.events_processed = 0
         self.forgets = 0
@@ -156,9 +159,12 @@ class StreamSession:
                 np.asarray(users), np.asarray(items), self.cfg,
                 publish_every=policy.every, on_publish=hook,
                 publish_sync=not policy.is_async,
-                initial_states=self._states,
+                initial_states=self._states, initial_carry=self._carry,
                 initial_detector=self._detector)
         self._states = res.final_states
+        # run_stream drains the re-queue before it returns (flushed, or
+        # counted in res.dropped): the carry is consumed.
+        self._carry = (None, None)
         if res.final_detector is not None:
             self._detector = res.final_detector
         self.events_processed += res.events_processed
@@ -201,18 +207,70 @@ class StreamSession:
         with trace_lib.span("serve", self.metrics):
             return self._frontend.serve(user_ids)
 
-    # -- checkpoint / restore / elasticity ----------------------------------
+    # -- checkpoint / restore -----------------------------------------------
 
     def checkpoint(self, directory: str) -> str:
-        """Not ported yet (ROADMAP Queue 1 item 12)."""
-        raise NotImplementedError(_LATER)
+        """Write a grid-portable checkpoint (detector state included) of
+        the live states in their resident encoding; returns its path."""
+        return save_stream_checkpoint(
+            directory, self.events_processed, self._states,
+            carry=self._carry, grid=self.cfg.grid,
+            algorithm=self.cfg.algorithm, detector=self._detector,
+            storage=self.cfg.storage)
 
     @classmethod
-    def restore(cls, directory: str, cfg: StreamConfig, step=None,
-                **kwargs) -> "StreamSession":
-        """Not ported yet (ROADMAP Queue 1 item 12)."""
-        raise NotImplementedError(_LATER)
+    def restore(cls, directory: str, cfg: StreamConfig,
+                step: int | None = None, *,
+                serve: ServeConfig | None = None,
+                publish: PublishPolicy | None = None,
+                snapshot_slots: int = 2,
+                metrics: metrics_lib.MetricsRegistry | None = None,
+                ) -> "StreamSession":
+        """Resume a session from ``checkpoint`` output (either package's),
+        at ``cfg.grid``: a grid-portable checkpoint regrids to the
+        configured shape on the way, so restoring at another ``(n_i, g)``
+        is the scale-out path (see :meth:`rescale` for live states)."""
+        ck: RestoredCheckpoint = restore_stream_checkpoint(directory, cfg,
+                                                           step)
+        session = cls(cfg, serve=serve, publish=publish,
+                      snapshot_slots=snapshot_slots, metrics=metrics)
+        session._states = ck.states
+        session._carry = ck.carry
+        session._detector = ck.detector
+        session.events_processed = int(ck.events_processed)
+        session._publish()
+        return session
 
-    def rescale(self, grid: GridSpec, **kwargs) -> None:
-        """Not ported yet (ROADMAP Queue 1 item 12)."""
-        raise NotImplementedError(_LATER)
+    # -- elasticity -------------------------------------------------------
+
+    def rescale(self, grid: GridSpec, *, u_cap: int | None = None,
+                i_cap: int | None = None, merge: str = "fresh",
+                storage=None) -> None:
+        """Reshape the live worker grid to ``grid`` (elastic S&R).
+
+        Runs the algorithm's regrid hooks (logical extract + rebuild)
+        inside the ``regrid`` span, swaps the session config to the new
+        shape (optionally with new per-worker capacities), refreshes the
+        ``table_bytes`` gauges, publishes the resharded snapshot and
+        retargets the query front-end: queries right after this call
+        answer from the new grid. ``storage`` migrates the resident
+        encoding in the same pass (a new ``StoragePolicy``; default: keep
+        the current one).
+        """
+        hyper = self.cfg.resolved_hyper()
+        new_u = u_cap if u_cap is not None else hyper.u_cap
+        new_i = i_cap if i_cap is not None else hyper.i_cap
+        new_storage = storage if storage is not None else self.cfg.storage
+        with trace_lib.span("regrid", self.metrics):
+            logical = self.algorithm.extract_logical(
+                self._states, self.cfg.grid, storage=self.cfg.storage)
+            self._states = self.algorithm.build_states(
+                logical, src=self.cfg.grid, dst=grid,
+                u_cap=new_u, i_cap=new_i, merge=merge, storage=new_storage)
+            del logical
+            self.cfg = dataclasses.replace(
+                self.cfg, grid=grid, storage=new_storage,
+                hyper=hyper._replace(u_cap=new_u, i_cap=new_i))
+            self._telemetry.set_capacity(new_u + new_i)
+            self._publish()
+            self._frontend.retarget(grid, u_cap=u_cap, storage=new_storage)

@@ -187,7 +187,6 @@ def test_resumed_carry_matches_jax(stream):
 @pytest.mark.parametrize("over,needle", [
     (dict(backend="shard_map"), "multi-GPU slice"),
     (dict(backend="tpu"), "unknown backend"),
-    (dict(storage=object()), "storage"),
 ])
 def test_unported_options_raise(stream, over, needle):
     cfg = dataclasses.replace(_cfgs("cuda", "pallas")[0], **over)

@@ -333,14 +333,6 @@ def test_serve_config_from_stream_matches_jax(algo):
     assert (got.grid.n_i, got.grid.g) == (want.grid.n_i, want.grid.g)
 
 
-def test_serve_config_refuses_storage_policies():
-    with pytest.raises(ValueError, match="item 11"):
-        ServeConfig(storage=object())
-    _, _, fe = _frontend()
-    with pytest.raises(ValueError, match="item 11"):
-        fe.retarget(rt.GridSpec(1), storage=object())
-
-
 # -- publish policy and the metrics registry ----------------------------------
 
 

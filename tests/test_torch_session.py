@@ -9,8 +9,8 @@ and DISGD / BPR scores within RTOL 1e-5 / ATOL 1e-5; DICS bit for bit.
 Then the port's own contracts: the async policy never changes training,
 the final publish drains the backlog, snapshots are copies the next
 ``ingest`` cannot change, one policy governs both halves, spans and
-table bytes land in the session's registry, and the verbs of later
-slices raise.
+table bytes land in the session's registry. Checkpoint, restore and
+rescale are held to JAX's session in ``tests/test_torch_checkpoint.py``.
 """
 
 import dataclasses
@@ -278,16 +278,6 @@ def test_span_nesting_and_profile_capture(tmp_path):
     names = {e.get("name") for e in json.loads(
         (tmp_path / "trace.json").read_text())["traceEvents"]}
     assert {"ingest", "ingest/publish"} <= names
-
-
-@pytest.mark.parametrize("verb", ["checkpoint", "restore", "rescale"])
-def test_verbs_of_later_slices_raise(verb):
-    s = rt.StreamSession(_cfgs("disgd")[0])
-    call = {"checkpoint": lambda: s.checkpoint("x"),
-            "restore": lambda: rt.StreamSession.restore("x", s.cfg),
-            "rescale": lambda: s.rescale(rt.GridSpec(1))}[verb]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        call()
 
 
 def test_public_surface():

@@ -10,7 +10,8 @@ CPU at ``GridSpec(2)``, micro-batch 256, u_cap 128, i_cap 32:
   * the precision@N head (``StreamResult.precision``) equal to JAX's
     ``precision_at_n``; ``telemetry=False`` gives ``None`` and the same
     training;
-  * ``effective_list_len`` and ``storage.gather_rated`` on seeded states;
+  * ``effective_list_len`` and ``storage.gather_rated`` (dense and
+    packed) on seeded states;
   * publish events of an adaptive DICS stream carry the detector and the
     telemetry vector equal to JAX's events, in sync and async mode;
   * ``TelemetryFolder`` folds the same vectors into the same registry
@@ -147,8 +148,14 @@ def test_effective_list_len_and_gather_rated_match_jax(algo):
         np.stack([np.asarray(jstorage.gather_rated(
             jnp.asarray(flat["rated"][w]), slots[w], jstorage.StoragePolicy(),
             10)) for w in range(4)]))
-    with pytest.raises(ValueError, match="item 11"):
-        storage.gather_rated(state.rated, torch.as_tensor(slots), "packed")
+    # Under a packed policy: the gathered words, unpacked, equal JAX's.
+    packed = storage.pack_bits(state.rated)
+    np.testing.assert_array_equal(
+        storage.gather_rated(packed, torch.as_tensor(slots),
+                             rt.StoragePolicy(rated="packed"), 10).numpy(),
+        np.stack([np.asarray(jstorage.gather_rated(
+            jstorage.pack_bits(jnp.asarray(flat["rated"][w])), slots[w],
+            jstorage.StoragePolicy(rated="packed"), 10)) for w in range(4)]))
 
 
 @functools.lru_cache(maxsize=None)

@@ -443,7 +443,7 @@ def _run(root: Path, libs: dict[str, dict[str, str]]):
             # A checkout older than state.clone_state: copy by hand.
             work["s"] = type(states)(
                 type(states.tables)(*(t.clone() for t in states.tables)),
-                *(t.clone() for t in states[1:]))
+                *(None if t is None else t.clone() for t in states[1:]))
 
         return cs._time_ms(torch, lambda: launch(work["s"]), reps=7,
                            setup=setup, cover_enqueue=True)
