@@ -165,6 +165,54 @@ Drift control, after the DICS state is freed:
      fires and recovers faster than the fixed cadence on ``cuda`` and
      ``scan``.
 
+The ensemble, service and autoscaler runtime (K1-K5 through the
+sessions), after the drift runs are freed:
+
+  9c. ``ensemble_path``: ``EnsembleSession`` of every registered
+     algorithm (BPR-MF, DICS, DISGD) on the DICS deployment (4 x 4,
+     micro-batch 2,048, u_cap 98,560, i_cap 768, k = 10, each with
+     ``DriftPolicy()``) over ``make_scenario("recurring", events=131_072,
+     profile=Netflix with item zipf 1.3)`` in bench_ensemble's 32 segments,
+     then 8 ``recommend`` calls of 1,024 users in blend mode and 8 in switch
+     mode; counts zeroed before the ingest, read after the serving (K1 both
+     modes, K2-K5); each member's states and recall bits equal to a
+     standalone ``StreamSession`` fed the same segments, the weights to a
+     float64 host replay of ``weigher_update`` (within 1e-6), blend answers
+     to ``fuse_topn`` of the members' own answers and switch answers to the
+     argmax member's, ``dropped`` 0; events/s and the overhead over the
+     standalone members' walls, the weight trail, resets, windowed
+     Recall@10 (window 400) of blend, switch, best and worst single member,
+     recommend p50s, ``fuse_topn`` ms a call, peak memory;
+  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 16
+     (``build/chip_smoke_ensemble``), restored at the same grid and run
+     through segments 17-32: weigher, states and recall bits equal to the
+     uninterrupted run's; file bytes, write and restore seconds;
+  9e. ``ensemble_bar``: ``bench_ensemble.smoke_rows``'s configuration (DICS
+     + DISGD, recurring, 8,192 events, 2 x 2, micro-batch 256, u_cap 256,
+     i_cap 64, backend ``scan``) held to its two bars: blended windowed
+     recall >= best single - 0.01, and ``resets`` >= 1;
+  9f. ``service_path``: ``run_service`` on the DISGD deployment
+     (``PublishPolicy(every=1, mode="async")``): interleaved over the first
+     64 micro-batches with 64 query batches of 64 Zipf users (5% unknown),
+     then threaded over the next 128 under Poisson arrivals at 200 batches
+     a second; states equal to a twin fed the same chunks without queries,
+     the trainer finished, ``dropped`` 0, batches under load; ``summary()``
+     whole and the twin's ingest-only events/s;
+  9g. ``autoscale_path``: DISGD at the MovieLens-25M caps from
+     ``balanced_grid(4)`` (2 x 2) with capacity factor 0.25 and 256 carry
+     slots, the first 64 micro-batches in 16 calls with
+     ``Autoscaler(AutoscalePolicy(max_workers=16, cooldown=0)).step()``
+     after each, beside a twin that stays at 2 x 2: the grid reaches 16
+     workers, the decisions sum to the steps, ``autoscaler_workers`` = n_c,
+     ``dropped`` not above the twin's; each rescale's ms and resident
+     bytes; then tests/test_storage.py's floored ``_overloaded_run`` on the
+     card, where growing must drop fewer events than the fixed grid;
+  9h. ``drivers``: ``main(argv)`` of ``serve_rs``, ``drift_rs``
+     (``--ckpt-dir``), ``rescale_rs``, ``service_rs`` and ``quickstart``
+     in-process at their own defaults on the card, ``--metrics-json``
+     under ``build/chip_smoke_drivers``: each returns, prints its lines and
+     launches its kernels.
+
 LLM serving (K7), after the DICS state is freed:
 
  10. ``llm_serve``: ``h2o_danube_1p8b`` at full width and depth (24
@@ -575,6 +623,16 @@ def main():
 
     # -- 9a-9b. drift control ------------------------------------------------------
     _drift_phases(torch, np, rt)
+    torch.cuda.empty_cache()
+
+    # -- 9c-9h. ensemble, service, autoscaler and the launch drivers ---------------
+    _ensemble_phases(torch, np, rt)
+    torch.cuda.empty_cache()
+    _service_phases(torch, np, rt, users, items)
+    torch.cuda.empty_cache()
+    _autoscale_phases(torch, np, rt, users, items)
+    torch.cuda.empty_cache()
+    _driver_phases(torch, np)
     torch.cuda.empty_cache()
 
     # -- 10-12. LLM serving ------------------------------------------------------
@@ -2883,6 +2941,571 @@ def _window_pairs(np, s, window, causal):
     lo = np.zeros(s, np.int64) if window is None else np.maximum(
         0, r - window + 1)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+# -- the ensemble, service and autoscaler runtime ----------------------------
+
+# ensemble_path: every registered algorithm on the DICS deployment, on
+# drift_path's profile and size under the recurring scenario, ingested
+# in bench_ensemble's 32 segments (benchmarks/bench_ensemble.py:40-46),
+# windowed recall over its 400-event window, served in 8 blend and 8
+# switch calls of SERVE_BATCH users; checkpointed after segment 16.
+ENSEMBLE_EVENTS = 131_072
+ENSEMBLE_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 32, 16
+ENSEMBLE_WINDOW, ENSEMBLE_MARGIN = 400, 0.01
+ENSEMBLE_SERVE_CALLS = 8
+# ensemble_bar: bench_ensemble.smoke_rows's configuration.
+ENSEMBLE_BAR_EVENTS, ENSEMBLE_BAR_MEMBERS = 8192, ("dics", "disgd")
+ENSEMBLE_DIR = ROOT / "build" / "chip_smoke_ensemble"
+# service_path: the DISGD deployment's first 64 micro-batches interleaved
+# with 64 query batches, then the next 128 threaded under Poisson load.
+SERVICE_INTERLEAVED_BATCHES, SERVICE_THREADED_BATCHES = 64, 128
+SERVICE_QUERY_BATCH = 64
+# autoscale_path: the MovieLens-25M deployment from a 2 x 2 grid with
+# tests/test_storage.py's undersizing (_overloaded_run), its first 64
+# micro-batches in 16 ingest calls.
+AUTOSCALE_BATCHES, AUTOSCALE_CALLS, AUTOSCALE_MAX = 64, 16, 16
+DRIVERS_DIR = ROOT / "build" / "chip_smoke_drivers"
+
+
+def ensemble_configs(rt):
+    """``ensemble_path``'s members: every registered algorithm on the DICS
+    deployment (``dics_config``'s grid, micro-batch and caps, k = 10 for
+    the factor models), each with ``DriftPolicy()`` as
+    ``bench_ensemble._cfg`` gives it."""
+    from repro_torch.drift import DriftPolicy
+
+    base = dataclasses.replace(dics_config(rt), drift=DriftPolicy())
+    out = []
+    for algo in rt.registered():
+        hyper = (base.hyper if algo == base.algorithm else
+                 rt.get_algorithm(algo).default_hyper()._replace(
+                     k=10, top_n=10, u_cap=DICS_U_CAP, i_cap=DICS_I_CAP))
+        out.append(dataclasses.replace(base, algorithm=algo, hyper=hyper))
+    return out
+
+
+def _segments(np, n: int, segments: int):
+    """bench_ensemble._segment_bounds."""
+    edges = np.linspace(0, n, segments + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:]) if b > a]
+
+
+def _windowed(np, bits) -> float:
+    """bench_ensemble._windowed: mean of the moving average."""
+    from repro_torch.core.evaluator import moving_average
+
+    return (float(moving_average(bits, ENSEMBLE_WINDOW).mean()) if bits.size
+            else float("nan"))
+
+
+def _ensemble_run(np, ens, users, items, bounds, phase, on_segment=None):
+    """bench_ensemble._run's loop over ``ens``: per segment each member's
+    recall bits (stream order, NaN kept), the blended and switched bits
+    under the weights chosen before the segment, each member's (hits,
+    evals), the drift flag and the post-update weights; the ingest wall."""
+    names = list(ens.member_names)
+    out = dict(bits={m: [] for m in names}, blend=[], switch=[],
+               rewards=[], drift=[], trail=[], wall=0.0,
+               fires={m: 0 for m in names})
+    for k, (lo, hi) in enumerate(bounds):
+        w_prev = ens.weights
+        t0 = time.perf_counter()
+        r = ens.ingest(users[lo:hi], items[lo:hi])
+        out["wall"] += time.perf_counter() - t0
+        seg = {}
+        for m in names:
+            res = r.members[m]
+            if res.dropped:
+                fail(f"{phase}: member {m} dropped {res.dropped} events in "
+                     f"segment {k}")
+            bits = res.recall.bits()
+            out["bits"][m].append(bits)
+            seg[m] = bits[~np.isnan(bits)]
+            if res.drift_flags is not None:
+                out["fires"][m] += int(np.sum(res.drift_flags))
+        kk = min(len(seg[m]) for m in names)
+        out["blend"].append(sum(w_prev[m] * seg[m][:kk] for m in names))
+        best = max(names, key=lambda m: (w_prev[m], m))
+        out["switch"].append(seg[best][:kk])
+        out["rewards"].append(np.array(
+            [[float(r.members[m].telemetry.hits),
+              float(r.members[m].telemetry.evals)] for m in names]))
+        out["drift"].append(bool(r.drift))
+        out["trail"].append({m: round(r.weight(m), 6) for m in names})
+        if on_segment is not None:
+            on_segment(k + 1)
+    return out
+
+
+def _ensemble_summary(np, run) -> dict:
+    names = list(run["bits"])
+    singles = {m: _windowed(np, np.concatenate(
+        [b[~np.isnan(b)] for b in run["bits"][m]])) for m in names}
+    best = max(names, key=lambda m: singles[m])
+    worst = min(names, key=lambda m: singles[m])
+    return dict(recall_blend=_windowed(np, np.concatenate(run["blend"])),
+                recall_switch=_windowed(np, np.concatenate(run["switch"])),
+                best_single=best, best_single_recall=singles[best],
+                worst_single=worst, worst_single_recall=singles[worst],
+                singles=singles, drift_segments=int(sum(run["drift"])),
+                fires=run["fires"])
+
+
+def _weigher_replay(np, rewards, drifts, cfg):
+    """``weigher_update`` replayed in float64 on the host from each
+    segment's (hits, evals) and drift flag: the final weights."""
+    m = rewards[0].shape[0]
+    reward, mass, w = np.zeros(m), np.zeros(m), np.full(m, 1.0 / m)
+    for rw, drift in zip(rewards, drifts):
+        hits, evals = rw[:, 0], rw[:, 1]
+        seen = evals > 0
+        r = hits / np.maximum(evals, 1.0)
+        reward = np.where(seen, cfg.decay * reward + (1 - cfg.decay) * r,
+                          reward)
+        mass = np.where(seen, cfg.decay * mass + (1 - cfg.decay), mass)
+        if cfg.drift_reset and drift:
+            k = cfg.drift_discount
+            reward, mass = reward * k, mass * k
+        x = cfg.eta * reward / np.maximum(mass, 1e-6)
+        e = np.exp(x - x.max())
+        w = (1 - cfg.gamma) * e / e.sum() + cfg.gamma / m
+        if cfg.drift_reset and drift:
+            w = np.full(m, 1.0 / m)
+    return w
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _ensemble_phases(torch, np, rt):
+    """``ensemble_path``, ``ensemble_checkpoint`` and ``ensemble_bar``."""
+    import shutil
+
+    from repro_torch.data.stream import NETFLIX
+    from repro_torch.drift import DriftPolicy, make_scenario
+    from repro_torch.ensemble import fuse_topn, switch_choice
+    from repro_torch.kernels import ops
+
+    # -- ensemble_path -------------------------------------------------------
+    phase = "ensemble_path"
+    t0 = time.perf_counter()
+    sc = make_scenario("recurring", events=ENSEMBLE_EVENTS, seed=0,
+                       profile=dataclasses.replace(NETFLIX, item_zipf=1.3))
+    gen_s = time.perf_counter() - t0
+    cfgs = ensemble_configs(rt)
+    bounds = _segments(np, sc.n, ENSEMBLE_SEGMENTS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ens = rt.EnsembleSession(cfgs)
+    names = list(ens.member_names)
+    if ENSEMBLE_DIR.is_dir():
+        shutil.rmtree(ENSEMBLE_DIR)
+    ckpt = {}
+
+    def checkpoint_at(k):
+        if k != ENSEMBLE_CHECKPOINT_AT:
+            return
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        ens.checkpoint(str(ENSEMBLE_DIR))
+        ckpt["write_s"] = time.perf_counter() - tw
+
+    ops.reset_launch_counts()
+    run = _ensemble_run(np, ens, sc.users, sc.items, bounds, phase,
+                        on_segment=checkpoint_at)
+
+    # Serving: 8 blend calls, then 8 switch calls on other users.
+    rng = np.random.default_rng(0)
+    pool = rng.choice(np.unique(sc.users),
+                      2 * ENSEMBLE_SERVE_CALLS * SERVE_BATCH, replace=False)
+    calls = pool.reshape(2 * ENSEMBLE_SERVE_CALLS, SERVE_BATCH)
+    w = ens.weigher_state.weights.cpu().numpy().astype(np.float64)
+    w_rows = np.broadcast_to(w[:, 0], (SERVE_BATCH, len(names)))
+    lat = {"blend": [], "switch": []}
+    fuse_ms = []
+    for q in calls[:ENSEMBLE_SERVE_CALLS]:
+        t0 = time.perf_counter()
+        got = ens.recommend(q, mode="blend")
+        lat["blend"].append(time.perf_counter() - t0)
+        own = [ens.members[m].recommend(q) for m in names]
+        t0 = time.perf_counter()
+        ids, _, known = fuse_topn(
+            [o.ids for o in own], [o.scores for o in own],
+            [o.known for o in own], w_rows, top_n=own[0].ids.shape[1],
+            method=ens.blend.method, rrf_k=ens.blend.rrf_k)
+        fuse_ms.append((time.perf_counter() - t0) * 1e3)
+        for row in np.flatnonzero(~known):
+            ids[row] = own[switch_choice(w_rows[row], names)].ids[row]
+        if not (np.array_equal(ids, got.ids)
+                and np.array_equal(known, got.known)):
+            fail(f"{phase}: blend answers differ from fuse_topn of the "
+                 f"members' own answers")
+    best = names[switch_choice(w[:, 0], names)]
+    for q in calls[ENSEMBLE_SERVE_CALLS:]:
+        t0 = time.perf_counter()
+        got = ens.recommend(q, mode="switch")
+        lat["switch"].append(time.perf_counter() - t0)
+        own = ens.members[best].recommend(q)
+        if not (np.array_equal(own.ids, got.ids)
+                and np.array_equal(own.known, got.known)):
+            fail(f"{phase}: switch answers differ from {best}'s own")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("factor_update", "masked_scores", "fused_topn",
+                 "dics_update", "dics_topn"):
+        if counts[name] < 1:
+            fail(f"{phase}: {name} never launched")
+
+    # Each member against a standalone session fed the same segments.
+    replay = _weigher_replay(np, run["rewards"], run["drift"],
+                             ens.weigher_config)
+    w_err = float(np.max(np.abs(replay - w[:, 0])))
+    if w_err > 1e-6:
+        fail(f"{phase}: weights {w[:, 0]} differ from the float64 replay "
+             f"{replay} by {w_err}")
+    standalone = {}
+    for cfg in cfgs:
+        m = cfg.algorithm
+        solo = rt.StreamSession(cfg)
+        wall, same_bits = 0.0, True
+        for k, (lo, hi) in enumerate(bounds):
+            t0 = time.perf_counter()
+            res = solo.ingest(sc.users[lo:hi], sc.items[lo:hi])
+            wall += time.perf_counter() - t0
+            same_bits &= np.array_equal(res.recall.bits(),
+                                        run["bits"][m][k], equal_nan=True)
+        if not same_bits:
+            fail(f"{phase}: member {m}'s recall bits differ from a "
+                 f"standalone session's")
+        if not _states_equal(torch, ens.members[m].states, solo.states):
+            fail(f"{phase}: member {m}'s states differ from a standalone "
+                 f"session's")
+        standalone[m] = wall
+        del solo
+        torch.cuda.empty_cache()
+    summary = _ensemble_summary(np, run)
+    emit(phase, stream=f"make_scenario('recurring', events={ENSEMBLE_EVENTS}"
+         f", seed=0, profile=replace(NETFLIX, item_zipf=1.3))",
+         events=sc.n, generate_s=round(gen_s, 3), members=names,
+         grid=[N_I, N_I], u_cap=DICS_U_CAP, i_cap=DICS_I_CAP,
+         micro_batch=MICRO_BATCH, segments=len(bounds), cut=None,
+         wall_s=run["wall"], events_per_s=sc.n / run["wall"],
+         standalone_wall_s=standalone,
+         overhead_x=run["wall"] / sum(standalone.values()),
+         weights=dict(zip(names, w[:, 0].tolist())),
+         weights_replay_max_err=w_err, weight_trail=run["trail"],
+         resets=ens.exploration_resets, **summary,
+         recommend_p50_ms={k: statistics.median(v) * 1e3
+                           for k, v in lat.items()},
+         fuse_topn_ms=statistics.median(fuse_ms), serve_batch=SERVE_BATCH,
+         max_memory_allocated=peak, launches=counts)
+
+    # -- ensemble_checkpoint -------------------------------------------------
+    phase = "ensemble_checkpoint"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = rt.EnsembleSession.restore(str(ENSEMBLE_DIR), cfgs)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    rest = _ensemble_run(np, back, sc.users, sc.items,
+                         bounds[ENSEMBLE_CHECKPOINT_AT:], phase)
+    for a, b in zip(back.weigher_state, ens.weigher_state):
+        if not torch.equal(a, b):
+            fail(f"{phase}: the restored weigher differs after segment "
+                 f"{len(bounds)}")
+    for m in names:
+        if not _states_equal(torch, back.members[m].states,
+                             ens.members[m].states):
+            fail(f"{phase}: member {m}'s states differ from the "
+                 f"uninterrupted run's")
+        for got, want in zip(rest["bits"][m],
+                             run["bits"][m][ENSEMBLE_CHECKPOINT_AT:]):
+            if not np.array_equal(got, want, equal_nan=True):
+                fail(f"{phase}: member {m}'s recall bits differ from the "
+                     f"uninterrupted run's")
+    emit(phase, directory=str(ENSEMBLE_DIR.relative_to(ROOT)),
+         at_segment=ENSEMBLE_CHECKPOINT_AT,
+         file_bytes=_dir_bytes(ENSEMBLE_DIR),
+         json_bytes=(ENSEMBLE_DIR / "ensemble.json").stat().st_size,
+         write_s=ckpt["write_s"], restore_s=restore_s,
+         resumed_wall_s=rest["wall"], weights_equal=True,
+         states_equal=True, bits_equal=True)
+    del ens, back, run, rest
+    torch.cuda.empty_cache()
+
+    # -- ensemble_bar --------------------------------------------------------
+    phase = "ensemble_bar"
+    sc = make_scenario("recurring", events=ENSEMBLE_BAR_EVENTS, seed=0)
+    bar_cfgs = []
+    for algo in ENSEMBLE_BAR_MEMBERS:
+        hyper = rt.get_algorithm(algo).default_hyper()._replace(u_cap=256,
+                                                                 i_cap=64)
+        bar_cfgs.append(rt.StreamConfig(
+            algorithm=algo, grid=rt.GridSpec(2), micro_batch=256,
+            hyper=hyper, backend="scan", device=DEVICE,
+            drift=DriftPolicy()))
+    ens = rt.EnsembleSession(bar_cfgs)
+    run = _ensemble_run(np, ens, sc.users, sc.items,
+                        _segments(np, sc.n, ENSEMBLE_SEGMENTS), phase)
+    summary = _ensemble_summary(np, run)
+    margin = summary["recall_blend"] - summary["best_single_recall"]
+    emit(phase, stream=f"make_scenario('recurring', "
+         f"events={ENSEMBLE_BAR_EVENTS}, seed=0)", events=sc.n,
+         members=list(ens.member_names), grid=[2, 2], u_cap=256, i_cap=64,
+         micro_batch=256, backend="scan", segments=ENSEMBLE_SEGMENTS,
+         **summary, margin_vs_best=margin, bar=-ENSEMBLE_MARGIN,
+         resets=ens.exploration_resets,
+         events_per_s=sc.n / run["wall"],
+         final_weights=ens.weights)
+    if margin < -ENSEMBLE_MARGIN:
+        fail(f"{phase}: blended windowed recall {summary['recall_blend']} "
+             f"falls more than {ENSEMBLE_MARGIN} below the best single "
+             f"member's ({summary['best_single_recall']})")
+    if ens.exploration_resets < 1:
+        fail(f"{phase}: no drift flag re-opened exploration")
+
+
+def _service_phases(torch, np, rt, users, items):
+    """``service_path``: ``run_service`` interleaved, then threaded, on the
+    DISGD deployment, each against a twin fed the same events without
+    queries."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.loadgen import LoadConfig
+    from repro_torch.serve.service import ServiceConfig, run_service
+
+    phase = "service_path"
+    cfg = disgd_config(rt)
+    mb = cfg.micro_batch
+    policy = rt.PublishPolicy(every=1, mode="async")
+    n1 = SERVICE_INTERLEAVED_BATCHES * mb
+    n2 = SERVICE_THREADED_BATCHES * mb
+    u1, i1 = users[:n1], items[:n1]
+    u2, i2 = users[n1:n1 + n2], items[n1:n1 + n2]
+    load = LoadConfig(n_users=int(users.max()) + 1, seed=1,
+                      query_batch=SERVICE_QUERY_BATCH, zipf_a=1.1,
+                      unknown_frac=0.05)
+    torch.cuda.reset_peak_memory_stats()
+    session = rt.StreamSession(cfg, publish=policy)
+    ops.reset_launch_counts()
+    rep = run_service(session, u1, i1, load, ServiceConfig(
+        mode="interleaved", events_per_chunk=mb,
+        query_batches=SERVICE_INTERLEAVED_BATCHES))
+    counts = ops.launch_counts()
+    twin = rt.StreamSession(cfg, publish=policy)
+    twin_wall = 0.0
+    for lo in range(0, n1, mb):
+        t0 = time.perf_counter()
+        twin.ingest(u1[lo:lo + mb], i1[lo:lo + mb])
+        twin_wall += time.perf_counter() - t0
+    if not _states_equal(torch, session.states, twin.states):
+        fail(f"{phase}: interleaved states differ from the query-free twin's")
+    for name in ("factor_update", "masked_scores", "fused_topn"):
+        if counts[name] < 1:
+            fail(f"{phase}: {name} never launched in the interleaved run")
+    reg = _stream_counters(session.metrics)
+    emit(phase, mode="interleaved", stream="synth_stream(MOVIELENS_25M, "
+         "seed=0)", events=n1, cut=f"first {SERVICE_INTERLEAVED_BATCHES} "
+         "micro-batches", grid=[N_I, N_I], publish="every 1, async",
+         events_per_chunk=mb, query_batches=SERVICE_INTERLEAVED_BATCHES,
+         query_batch=SERVICE_QUERY_BATCH, summary=rep.summary(),
+         ingest_only_events_per_s=n1 / twin_wall,
+         requeued=reg["requeued"], dropped=reg["dropped"],
+         states_equal_twin=True, launches=counts)
+
+    ops.reset_launch_counts()
+    rep = run_service(
+        session, u2, i2,
+        dataclasses.replace(load, arrival="poisson", rate_qps=200.0),
+        ServiceConfig(mode="threaded", query_batches=200))
+    counts = ops.launch_counts()
+    summary = rep.summary()
+    t0 = time.perf_counter()
+    twin.ingest(u2, i2)
+    twin_s = time.perf_counter() - t0
+    reg = _stream_counters(session.metrics)
+    if session.events_processed != n1 + n2:
+        fail(f"{phase}: the trainer stopped at {session.events_processed} "
+             f"of {n1 + n2} events")
+    if reg["dropped"]:
+        fail(f"{phase}: {reg['dropped']} events dropped")
+    if summary["query_batches_under_load"] < 1:
+        fail(f"{phase}: no query batch was answered under load")
+    if not _states_equal(torch, session.states, twin.states):
+        fail(f"{phase}: threaded states differ from the query-free twin's")
+    for name in ("factor_update", "masked_scores", "fused_topn"):
+        if counts[name] < 1:
+            fail(f"{phase}: {name} never launched in the threaded run")
+    emit(phase, mode="threaded", events=n2,
+         cut=f"micro-batches {SERVICE_INTERLEAVED_BATCHES}-"
+             f"{SERVICE_INTERLEAVED_BATCHES + SERVICE_THREADED_BATCHES - 1}",
+         arrival="poisson", rate_qps=200.0, query_batches=200,
+         query_batch=SERVICE_QUERY_BATCH, summary=summary,
+         ingest_only_events_per_s=n2 / twin_s, requeued=reg["requeued"],
+         dropped=reg["dropped"], states_equal_twin=True,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=counts)
+
+
+def _autoscaled(torch, np, rt, cfg, chunks, max_workers):
+    """Ingest ``chunks`` into a session of ``cfg``, stepping an
+    ``Autoscaler`` after each call when ``max_workers`` is set: (session,
+    steps, dropped, ingest wall, recall bits)."""
+    s = rt.StreamSession(cfg)
+    scaler = (rt.Autoscaler(s, rt.AutoscalePolicy(max_workers=max_workers,
+                                                  cooldown=0))
+              if max_workers else None)
+    steps, dropped, wall, bits = [], 0, 0.0, []
+    for u, i in chunks:
+        t0 = time.perf_counter()
+        res = s.ingest(u, i)
+        wall += time.perf_counter() - t0
+        dropped += res.dropped
+        bits.append(res.recall.bits())
+        if scaler is None:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        action = scaler.step()
+        torch.cuda.synchronize()
+        steps.append(dict(action=action, n_c=s.grid.n_c,
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          resident_bytes=_state_bytes(s.states)))
+    return s, steps, dropped, wall, np.concatenate(bits)
+
+
+def _autoscale_phases(torch, np, rt, users, items):
+    """``autoscale_path``: the MovieLens-25M deployment grown by the
+    autoscaler from an undersized 2 x 2 grid, beside a twin that stays
+    there; and the floored regime of tests/test_storage.py's
+    ``_overloaded_run`` on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import balanced_grid
+
+    phase = "autoscale_path"
+    base = dataclasses.replace(disgd_config(rt), grid=balanced_grid(4),
+                               capacity_factor=0.25, carry_slots=256)
+    n = AUTOSCALE_BATCHES * base.micro_batch
+    chunks = [(users[c], items[c]) for c in
+              np.array_split(np.arange(n), AUTOSCALE_CALLS)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    s, steps, dropped, wall, bits = _autoscaled(torch, np, rt, base, chunks,
+                                                AUTOSCALE_MAX)
+    counts = ops.launch_counts()
+    fam = s.metrics.get("autoscaler_decisions_total")
+    trail = {lab["action"]: c.value for lab, c in fam.series()}
+    if s.grid.n_c != AUTOSCALE_MAX:
+        fail(f"{phase}: the grid stopped at {s.grid.n_c} workers")
+    if sum(trail.values()) != len(steps):
+        fail(f"{phase}: decisions {trail} do not sum to {len(steps)} steps")
+    if s.metrics.get("autoscaler_workers").value != s.grid.n_c:
+        fail(f"{phase}: autoscaler_workers != n_c {s.grid.n_c}")
+    for name in ("factor_update", "masked_scores"):
+        if counts[name] < 1:
+            fail(f"{phase}: {name} never launched")
+    peak = torch.cuda.max_memory_allocated()
+    del s
+    torch.cuda.empty_cache()
+    _, _, twin_dropped, twin_wall, twin_bits = _autoscaled(
+        torch, np, rt, base, chunks, 0)
+    # Above the bucket floor of 8 the dispatch capacity of a step is
+    # micro_batch x capacity_factor at every grid size, so growing cannot
+    # drop fewer events here; it must not drop more.
+    if dropped > twin_dropped:
+        fail(f"{phase}: the scaled run dropped {dropped} events, the fixed "
+             f"twin {twin_dropped}")
+    emit(phase, config="deployment", stream="synth_stream(MOVIELENS_25M, "
+         "seed=0)", events=n, cut=f"first {AUTOSCALE_BATCHES} micro-batches",
+         start_grid=list(balanced_grid(4).shape), u_cap=U_CAP, i_cap=I_CAP,
+         capacity_factor=0.25, carry_slots=256, calls=AUTOSCALE_CALLS,
+         steps=steps, decisions=trail, final_grid=[N_I, N_I],
+         dropped=dropped, twin_dropped=twin_dropped,
+         events_per_s=n / wall, twin_events_per_s=n / twin_wall,
+         recall_at_10=float(np.nanmean(bits)),
+         twin_recall_at_10=float(np.nanmean(twin_bits)),
+         max_memory_allocated=peak, launches=counts)
+
+    # The floored regime: tests/test_storage.py's _overloaded_run on the
+    # card (one worker, micro-batch 64, buckets at the floor of 8 once
+    # grown), where a bigger grid holds more events a step.
+    rng = np.random.default_rng(7)
+    small = rt.StreamConfig(grid=rt.GridSpec.rect(1, 1), micro_batch=64,
+                            capacity_factor=0.25, carry_slots=8,
+                            backend="cuda", device=DEVICE)
+    chunks = [(rng.integers(0, 400, 512).astype(np.int32),
+               rng.integers(0, 160, 512).astype(np.int32)) for _ in range(8)]
+    ops.reset_launch_counts()
+    s, steps, dropped, _, _ = _autoscaled(torch, np, rt, small, chunks, 8)
+    counts = ops.launch_counts()
+    _, _, fixed_dropped, _, _ = _autoscaled(torch, np, rt, small, chunks, 0)
+    if not dropped < fixed_dropped:
+        fail(f"{phase}: floored: the scaled run dropped {dropped} events, "
+             f"the fixed grid {fixed_dropped}")
+    emit(phase, config="floored", stream="tests/test_storage.py "
+         "_overloaded_run (rng 7, 8 x 512 events)", start_grid=[1, 1],
+         micro_batch=64, capacity_factor=0.25, carry_slots=8,
+         steps=[(x["action"], x["n_c"]) for x in steps],
+         final_grid=list(s.grid.shape), dropped=dropped,
+         twin_dropped=fixed_dropped, launches=counts)
+
+
+def _driver_phases(torch, np):
+    """``drivers``: each launch driver's ``main(argv)`` in-process at its
+    own defaults on the card, its metrics JSON (and checkpoints) under
+    ``build/``."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import (drift_rs, quickstart, rescale_rs,
+                                    serve_rs, service_rs)
+
+    if DRIVERS_DIR.is_dir():
+        shutil.rmtree(DRIVERS_DIR)
+    DRIVERS_DIR.mkdir(parents=True)
+    drivers = {
+        "serve_rs": (serve_rs, [], ("factor_update", "masked_scores",
+                                    "fused_topn")),
+        "drift_rs": (drift_rs, ["--ckpt-dir", str(DRIVERS_DIR / "drift")],
+                     ("dics_update",)),
+        "rescale_rs": (rescale_rs, ["--ckpt-dir",
+                                    str(DRIVERS_DIR / "rescale")],
+                       ("factor_update", "masked_scores", "fused_topn")),
+        "service_rs": (service_rs, [], ("factor_update", "masked_scores",
+                                        "fused_topn")),
+        "quickstart": (quickstart, [], ("factor_update", "masked_scores",
+                                        "fused_topn")),
+    }
+    rows = {}
+    for name, (module, argv, kernels) in drivers.items():
+        argv = argv + ["--metrics-json", str(DRIVERS_DIR / f"{name}.json")]
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                module.main(argv)
+        except Exception as e:  # the phase fails on any driver's exception
+            fail(f"drivers: {name} raised {type(e).__name__}: {e}")
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        lines = out.getvalue().splitlines()
+        if len(lines) < 3:
+            fail(f"drivers: {name} printed {len(lines)} lines")
+        for k in kernels:
+            if counts[k] < 1:
+                fail(f"drivers: {name} never launched {k}")
+        wrote = (DRIVERS_DIR / f"{name}.json").is_file()
+        if name != "quickstart" and not wrote:
+            fail(f"drivers: {name} wrote no metrics JSON")
+        rows[name] = dict(argv=argv, seconds=seconds, lines=lines,
+                          launches=counts)
+        torch.cuda.empty_cache()
+    emit("drivers", defaults="each driver's own, --backend cuda --device "
+         "cuda", directory=str(DRIVERS_DIR.relative_to(ROOT)), drivers=rows)
 
 
 def _llm_phases(torch, np, dev):

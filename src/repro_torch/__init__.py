@@ -21,16 +21,23 @@ with the folded ``stream_*`` counters); storage policies
 through every loop and serve leaf, regrid (``repro_torch.core.regrid``)
 and grid-portable checkpoints that either package reads
 (``save_stream_checkpoint`` / ``restore_stream_checkpoint``, the
-session's ``checkpoint`` / ``restore`` / ``rescale``); and the LLM zoo's serving
-path for h2o-danube-1.8b (``repro_torch.launch.serve``,
-``repro_torch.models.factory.build``).
+session's ``checkpoint`` / ``restore`` / ``rescale``); the elastic
+autoscaler (``Autoscaler``, ``AutoscalePolicy``) and the mixed-load
+service runner (``repro_torch.serve.service``); the ensemble runtime
+(``EnsembleSession`` over any registered algorithms, ``WeigherConfig``,
+``BlendPolicy``); the launch drivers (``repro_torch.launch.serve_rs``,
+``drift_rs``, ``rescale_rs``, ``service_rs``, ``quickstart``); and the
+LLM zoo's serving path for h2o-danube-1.8b (``repro_torch.launch.serve``,
+``repro_torch.models.factory.build``). ``__all__`` is ``repro.__all__``
+plus ``recommend_topn``.
 """
 
 # Registers the plugins (BPR-MF) before anything looks an algorithm up.
 from repro_torch import algos  # noqa: F401
 from repro_torch.algos import BprHyper
 
-from repro_torch.core.algorithm import get_algorithm, register, registered
+from repro_torch.core.algorithm import (Algorithm, get_algorithm, register,
+                                        registered)
 from repro_torch.core.dics import DicsHyper
 from repro_torch.core.disgd import DisgdHyper
 from repro_torch.core.forgetting import ForgettingConfig
@@ -42,10 +49,12 @@ from repro_torch.core.routing import GridSpec
 from repro_torch.core.storage import StoragePolicy, StoragePolicyError
 from repro_torch.core.serve import recommend_topn
 from repro_torch.drift import DriftPolicy
+from repro_torch.ensemble import (BlendPolicy, EnsembleResult,
+                                  EnsembleSession, WeigherConfig)
 from repro_torch.obs import MetricsRegistry, ScopedRegistry
-from repro_torch.serve import (PublishPolicy, QueryFrontend, ServeConfig,
-                               ServeResponse, SnapshotStore,
-                               StaleSnapshotError, grid_topn)
+from repro_torch.serve import (AutoscalePolicy, Autoscaler, PublishPolicy,
+                               QueryFrontend, ServeConfig, ServeResponse,
+                               SnapshotStore, StaleSnapshotError, grid_topn)
 from repro_torch.session import StreamSession
 
 __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
@@ -56,4 +65,6 @@ __all__ = ["StreamConfig", "StreamResult", "run_stream", "GridSpec",
            "StaleSnapshotError", "MetricsRegistry", "ScopedRegistry",
            "register", "get_algorithm", "registered", "StoragePolicy",
            "StoragePolicyError", "RestoredCheckpoint",
-           "save_stream_checkpoint", "restore_stream_checkpoint"]
+           "save_stream_checkpoint", "restore_stream_checkpoint",
+           "Algorithm", "Autoscaler", "AutoscalePolicy", "EnsembleSession",
+           "EnsembleResult", "WeigherConfig", "BlendPolicy"]

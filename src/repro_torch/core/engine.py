@@ -334,6 +334,7 @@ def _publish_event(carry, cfg, publish_sync: bool, segment: int,
 
 
 def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
+                      verbose: bool = False,
                       publish_every: int = 0, on_publish=None,
                       publish_sync: bool = True,
                       initial_states=None, initial_carry=(None, None),
@@ -430,6 +431,8 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
         if j % cfg.record_every == 0 or j == len(active) - 1:
             user_occ.append((int(cum[s]), u_occ[s]))
             item_occ.append((int(cum[s]), i_occ[s]))
+        if verbose and j % 16 == 0:
+            print(f"[engine] step {j}/{len(active)}")
 
     adaptive = _adaptive(cfg)
     return StreamResult(

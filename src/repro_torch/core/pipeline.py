@@ -195,9 +195,9 @@ def _resolve_backend(cfg: StreamConfig) -> str:
 
 
 def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
-               publish_every: int = 0, on_publish=None,
-               publish_sync: bool = True, initial_states=None,
-               initial_carry=(None, None),
+               verbose: bool = False, publish_every: int = 0,
+               on_publish=None, publish_sync: bool = True,
+               initial_states=None, initial_carry=(None, None),
                initial_detector=None) -> StreamResult:
     """Run the full prequential stream; returns curves + paper metrics.
 
@@ -214,7 +214,8 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     from ``core.convert.states_from_numpy``); the states must be shaped
     for ``cfg.grid`` and are updated in place. ``initial_detector``
     resumes the adaptive drift detector (a ``StreamResult.
-    final_detector``, this package's or JAX's).
+    final_detector``, this package's or JAX's). ``verbose`` prints a
+    progress line every 16 micro-batches, as JAX's loops do.
     """
     from repro_torch.core import engine
 
@@ -222,9 +223,11 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
     users, items = np.asarray(users), np.asarray(items)
     if backend == "host":
         return _run_host(users, items, cfg, publish_every, on_publish,
-                         initial_states, initial_carry, initial_detector)
+                         initial_states, initial_carry, initial_detector,
+                         verbose)
     return engine.run_stream_device(
-        users, items, cfg, backend, publish_every=publish_every,
+        users, items, cfg, backend, verbose=verbose,
+        publish_every=publish_every,
         on_publish=on_publish, publish_sync=publish_sync,
         initial_states=initial_states, initial_carry=initial_carry,
         initial_detector=initial_detector)
@@ -232,7 +235,7 @@ def run_stream(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
 
 def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
               publish_every: int, on_publish, initial_states, initial_carry,
-              initial_detector) -> StreamResult:
+              initial_detector, verbose: bool = False) -> StreamResult:
     """The host reference loop (``repro/core/pipeline.py:260-475``): per
     micro-batch, bucket the carried and fresh events on the host, run the
     eager reference worker on ``cfg.device``, scatter the recall bits
@@ -395,6 +398,9 @@ def _run_host(users: np.ndarray, items: np.ndarray, cfg: StreamConfig,
             u_occ, i_occ = occupancy()
             user_occ.append((processed, u_occ))
             item_occ.append((processed, i_occ))
+        if verbose and b % 16 == 0:
+            print(f"[stream] batch {b}/{n_batches} recall so far: "
+                  f"{acc.mean():.4f}")
         b += 1
 
     # Final occupancy snapshot, unless the last batch recorded this point.

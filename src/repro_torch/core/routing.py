@@ -38,6 +38,11 @@ class GridSpec:
         """Total number of workers, ``n_i * g``."""
         return self.n_i * self.g
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        """(n_i, g): grid rows x columns."""
+        return (self.n_i, self.g)
+
     @classmethod
     def rect(cls, n_i: int, g: int) -> "GridSpec":
         """A grid named by its (item splits, user groups) shape."""

@@ -127,7 +127,7 @@ class StreamSession:
 
     # -- train ------------------------------------------------------------
 
-    def ingest(self, users, items) -> StreamResult:
+    def ingest(self, users, items, *, verbose: bool = False) -> StreamResult:
         """Stream a batch of ``<user, item>`` events through the engine.
 
         Incremental: each call continues from the states and the drift
@@ -137,7 +137,9 @@ class StreamSession:
         asynchronously when ``policy.mode == "async"``. The final state
         is always published (synchronously, so ``recommend`` right after
         ``ingest`` sees it), then the call's telemetry vector is folded
-        into the registry. Returns the call's ``StreamResult``.
+        into the registry. ``verbose`` prints the loop's progress lines
+        (``run_stream(verbose=True)``). Returns the call's
+        ``StreamResult``.
         """
         policy = self.publish_policy
         hook = None
@@ -157,7 +159,7 @@ class StreamSession:
         with trace_lib.span("ingest", self.metrics):
             res = run_stream(
                 np.asarray(users), np.asarray(items), self.cfg,
-                publish_every=policy.every, on_publish=hook,
+                verbose=verbose, publish_every=policy.every, on_publish=hook,
                 publish_sync=not policy.is_async,
                 initial_states=self._states, initial_carry=self._carry,
                 initial_detector=self._detector)

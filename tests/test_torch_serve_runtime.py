@@ -663,4 +663,4 @@ def test_publish_event_as_ints():
     got = ev.as_ints()
     assert (got.events_processed, got.dropped, got.forgets) == (5, 1, 0)
     assert got.steps_done == 4 and ev.as_ints().as_ints() == got
-    assert tpipe.run_stream.__defaults__[:3] == (0, None, True)
+    assert tpipe.run_stream.__defaults__[:4] == (False, 0, None, True)

@@ -295,8 +295,8 @@ def test_public_surface():
     assert rt.MetricsRegistry is obs.MetricsRegistry
     assert rt.registered() == algorithm.registered() == ("bpr", "dics",
                                                          "disgd")
-    assert set(serve.__all__) == set(repro.serve.__all__) - {
-        "AutoscalePolicy", "Autoscaler", "balanced_grid"}
+    assert set(serve.__all__) == set(repro.serve.__all__)
+    assert rt.StreamSession.ingest.__kwdefaults__ == {"verbose": False}
     assert rt.StreamSession.__init__.__kwdefaults__ == {
         "serve": None, "publish": None, "snapshot_slots": 2, "metrics": None}
     assert ([f.name for f in dataclasses.fields(rt.ServeConfig)]
