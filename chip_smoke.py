@@ -22,7 +22,7 @@ DISGD (K1-K3):
      for the device busy share and the kernel time by name; the run folds
      the telemetry vector (on by default): its events equal
      ``events_processed`` and its hits / evals the Recall@10;
-  2a. ``telemetry_cost``: the first 128 micro-batches with telemetry off
+  2a. ``telemetry_cost``: the first 64 micro-batches with telemetry off
      and on, twice each (events/s), and once each under
      ``torch.profiler`` (device operations and card busy ms a step);
   3. serving: ``grid_topn`` for 8,192 stream users in calls of 1,024,
@@ -213,6 +213,32 @@ sessions), after the drift runs are freed:
      under ``build/chip_smoke_drivers``: each returns, prints its lines and
      launches its kernels.
 
+The S&R grid across processes (``backend="shard_map"``: one worker a
+rank of a ``torch.distributed`` group started by
+``launch.mesh.run_on_ranks``, each rank on the eager reference worker,
+as JAX's ``shard_map``; no kernel is launched):
+
+  9i. ``grid_path``: the DISGD deployment's widths (``GridSpec(n_i=4)``,
+     16 ranks sharing the card over gloo, the MovieLens-25M caps, k 10,
+     micro-batch 2,048) on the first ``GRID_EVENTS`` events of phase 2's
+     stream (cut for the eager worker and the time limit), against
+     ``backend="scan"`` in this process on the same cut: counters,
+     loads, the telemetry vector and integers exactly, each rank's
+     worker against its row, floats within STREAM_RTOL / STREAM_ATOL,
+     recall bits equal (else the count and the first step); wall seconds
+     and events/s of both, collectives and their card ms a step, each
+     rank's peak memory, the backend and the ranks a card;
+  9j. ``grid_agree``: ``drift_backends_agree``'s small configuration on
+     ``GridSpec(2)``, 4 ranks: DICS and BPR-MF (its first
+     ``DRIFT_SMALL_CUT`` events) under ``DriftPolicy()``, DISGD under
+     bench_drift's LRU cadence, each against phase 9b's ``scan`` run of
+     the same configuration, and DISGD under
+     ``StoragePolicy.compressed()`` against its own, as in 9i (forgets
+     and drift flags too);
+  9k. ``grid_nccl``: NCCL at world size 1 on ``GridSpec.rect(1, 1)``,
+     every loop step under ``torch.cuda.set_sync_debug_mode("error")``,
+     against ``scan``.
+
 LLM serving (K7), after the DICS state is freed:
 
  10. ``llm_serve``: ``h2o_danube_1p8b`` at full width and depth (24
@@ -253,6 +279,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+_START = time.perf_counter()
 SRC = ROOT / "src"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 rate
@@ -511,7 +538,10 @@ def _steps(n: int, cfg) -> int:
 
 
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _START, 1)}),
+          flush=True)
 
 
 def main():
@@ -622,7 +652,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 9a-9b. drift control ------------------------------------------------------
-    _drift_phases(torch, np, rt)
+    drift_scans = _drift_phases(torch, np, rt)
     torch.cuda.empty_cache()
 
     # -- 9c-9h. ensemble, service, autoscaler and the launch drivers ---------------
@@ -633,6 +663,10 @@ def main():
     _autoscale_phases(torch, np, rt, users, items)
     torch.cuda.empty_cache()
     _driver_phases(torch, np)
+    torch.cuda.empty_cache()
+
+    # -- 9i-9k. the S&R grid across processes ---------------------------------
+    _grid_phases(torch, np, rt, users, items, drift_scans)
     torch.cuda.empty_cache()
 
     # -- 10-12. LLM serving ------------------------------------------------------
@@ -2220,7 +2254,8 @@ FORGETTING_PRESETS = {
     "lfu": dict(policy="lfu", trigger_every=2048, lfu_min_freq=2),
     "gradual": dict(policy="gradual", trigger_every=2048,
                     gradual_gamma=0.9)}
-TELEMETRY_COST_BATCHES = 128
+# Cut from 128 to leave the grid phases room within the time limit.
+TELEMETRY_COST_BATCHES = 64
 # drift_path: the DICS deployment on an abrupt drift of Netflix's
 # profile with the scenarios' steeper popularity (DEFAULT_PROFILE's
 # item_zipf), cut to DRIFT_EVENTS raw events for the run's time limit.
@@ -2420,9 +2455,11 @@ def _drift_cfgs(base):
             "adaptive": dataclasses.replace(base, drift=DriftPolicy())}
 
 
-def _drift_phases(torch, np, rt):
+def _drift_phases(torch, np, rt) -> dict:
     """``drift_path`` on the DICS deployment and ``drift_backends_agree``
-    on bench_drift's small configuration."""
+    on bench_drift's small configuration. Returns the latter's ``scan``
+    runs by ``"algorithm.policy"`` (``grid_agree`` holds the grid to
+    them)."""
     from repro_torch.data.stream import NETFLIX
     from repro_torch.drift import make_scenario, recovery_report
     from repro_torch.kernels import ops
@@ -2466,7 +2503,7 @@ def _drift_phases(torch, np, rt):
     # -- drift_backends_agree ------------------------------------------------------
     sc = make_scenario("abrupt", events=DRIFT_SMALL_EVENTS, seed=0, at=0.3)
     d = sc.drift_events[0]
-    rows = {}
+    rows, scans = {}, {}
     for algo in ("disgd", "bpr", "dics"):
         cut = DRIFT_SMALL_CUT.get(algo, sc.n)
         hyper = rt.get_algorithm(algo).default_hyper()._replace(
@@ -2477,9 +2514,9 @@ def _drift_phases(torch, np, rt):
         for policy, run_cfg in _drift_cfgs(base).items():
             if policy == "none":
                 continue
-            runs = _drift_agree(np, rt, sc.users[:cut], sc.items[:cut], d,
-                                run_cfg, f"drift_backends_agree.{algo}."
-                                f"{policy}")
+            runs, scans[f"{algo}.{policy}"] = _drift_agree(
+                np, rt, sc.users[:cut], sc.items[:cut], d, run_cfg,
+                f"drift_backends_agree.{algo}.{policy}")
             rows[f"{algo}.{policy}"] = dict(events=min(cut, sc.n), **runs)
     for what in ("cuda", "scan"):
         fixed, adaptive = (rows[f"dics.{p}"][what] for p in ("fixed",
@@ -2498,9 +2535,10 @@ def _drift_phases(torch, np, rt):
               DRIFT_SMALL_CUT.items()},
          grid=[2, 2], u_cap=256, i_cap=64, micro_batch=256,
          rtol=STREAM_RTOL, atol=STREAM_ATOL, runs=rows)
+    return scans
 
 
-def _drift_agree(np, rt, users, items, d, cfg, what) -> dict:
+def _drift_agree(np, rt, users, items, d, cfg, what):
     """One policy of one algorithm on ``cuda``, ``scan`` and ``host`` on
     the card and ``cuda`` on CPU tensors. ``host`` = ``scan`` (the same
     eager worker): flags, forgets, evaluated recall bits, every state
@@ -2512,7 +2550,8 @@ def _drift_agree(np, rt, users, items, d, cfg, what) -> dict:
     forgets, integers and the telemetry vector but its hits exactly,
     floats within the tolerance (the cuda worker scores at bucket start,
     the scan worker live: their recall bits, and so an adaptive run's
-    flags, differ by design in both packages)."""
+    flags, differ by design in both packages). Returns the summary and
+    the ``scan`` run."""
     from repro_torch.core import convert
     from repro_torch.drift import recovery_report
     from repro_torch.obs.telemetry import telemetry_ints
@@ -2566,7 +2605,7 @@ def _drift_agree(np, rt, users, items, d, cfg, what) -> dict:
                       recovery_events=rep.recovery_events,
                       recovery_or_censored=rep.recovery_or_censored,
                       evictions=tel[k]["evictions"])
-    return out
+    return out, runs["scan"]
 
 
 def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
@@ -2966,6 +3005,17 @@ SERVICE_QUERY_BATCH = 64
 # micro-batches in 16 ingest calls.
 AUTOSCALE_BATCHES, AUTOSCALE_CALLS, AUTOSCALE_MAX = 64, 16, 16
 DRIVERS_DIR = ROOT / "build" / "chip_smoke_drivers"
+# grid_path: the first events of the DISGD stream (8 micro-batches and
+# the 8 of the drain tail). The eager worker runs every event of a bucket
+# as its own few dozen launches, and 16 ranks share the card and the
+# host's cores: 32,768 events took 69 s with start-up, and 16,384 keep
+# the script within its time limit.
+GRID_EVENTS = 16_384
+# Seconds each group of ranks may take, start-up included.
+GRID_TIMEOUT = 420.0
+# grid_nccl: the first events of grid_agree's stream on one worker (a
+# bucket of 512 events a step; the LRU pass runs gated, without firing).
+GRID_NCCL_EVENTS = 1024
 
 
 def ensemble_configs(rt):
@@ -3506,6 +3556,198 @@ def _driver_phases(torch, np):
         torch.cuda.empty_cache()
     emit("drivers", defaults="each driver's own, --backend cuda --device "
          "cuda", directory=str(DRIVERS_DIR.relative_to(ROOT)), drivers=rows)
+
+
+def _grid_agrees(np, rows, scan, cfg, what) -> float:
+    """Each rank's ``RankStream`` of a ``shard_map`` run against the
+    ``scan`` run of the same stream and config in this process: counters,
+    loads, occupancy history, the telemetry vector, drift flags and
+    integer state exactly, each rank's worker against its row, floats
+    within STREAM_RTOL / STREAM_ATOL, recall bits equal (a differing bit
+    is reported with its step: ``cfg``'s carry slots and micro-batch
+    make a step's row). Returns the largest float difference."""
+    from repro_torch.core import convert
+
+    st = convert.states_to_numpy(scan.final_states)
+    bits = scan.recall.bits()
+    layout = (cfg.carry_slots or cfg.micro_batch) + cfg.micro_batch
+    err = 0.0
+    for rank, row in enumerate(rows):
+        r = row.result
+        if (r.events_processed, r.dropped, r.forgets) != (
+                scan.events_processed, scan.dropped, scan.forgets):
+            fail(f"{what}: rank {rank} processed / dropped / forgets differ "
+                 f"from scan")
+        for name, a, b in (
+                ("loads", r.load_history, scan.load_history),
+                ("user occupancy", [o for _, o in r.user_occupancy],
+                 [o for _, o in scan.user_occupancy]),
+                ("telemetry", list(r.telemetry), list(scan.telemetry)),
+                ("drift flags", [r.drift_flags], [scan.drift_flags])):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)) or (
+                    len(a) != len(b)):
+                fail(f"{what}: rank {rank}'s {name} differ from scan")
+        got = r.recall.bits()
+        differ = np.flatnonzero(~((got == bits)
+                                  | (np.isnan(got) & np.isnan(bits))))
+        if got.shape != bits.shape or differ.size:
+            fail(f"{what}: rank {rank}: {differ.size} recall bits differ "
+                 f"from scan, the first in step {differ[:1] // layout}")
+        for name, want in st.items():
+            x, y = r.final_states[name][0], want[rank]
+            if want.dtype.kind != "f":
+                if not np.array_equal(x, y):
+                    fail(f"{what}: rank {rank}: {name} differs from scan")
+                continue
+            d = float(np.abs(x - y).max(initial=0.0))
+            if not np.allclose(x, y, rtol=STREAM_RTOL, atol=STREAM_ATOL):
+                fail(f"{what}: rank {rank}: {name} beyond rtol="
+                     f"{STREAM_RTOL} atol={STREAM_ATOL} (max abs {d:.3g} "
+                     f"at {np.unravel_index(np.abs(x - y).argmax(), x.shape)})")
+            err = max(err, d)
+    return err
+
+
+def _grid_row(run, rows, scan, steps, events) -> dict:
+    """A grid run's numbers beside its ``scan`` twin's."""
+    calls = {row.collectives["calls"] for row in rows}
+    if len(calls) != 1:
+        fail(f"grid ranks issued different collective counts: {calls}")
+    wall = max(row.result.wall_seconds for row in rows)
+    return dict(
+        events=events, steps=steps, backend=run.backend,
+        ranks=len(rows), ranks_per_card=run.ranks_per_card,
+        grid_wall_s=wall,
+        grid_events_per_s=rows[0].result.events_processed / wall,
+        scan_wall_s=scan.wall_seconds, scan_events_per_s=scan.throughput,
+        collectives_per_step=calls.pop() / steps,
+        collective_ms_per_step=[row.collectives["ms"] / steps
+                                for row in rows],
+        peak_bytes_per_rank=[row.peak_bytes for row in rows],
+        recall_at_10=rows[0].result.recall.mean(),
+        forgets=rows[0].result.forgets,
+        fires=(int(rows[0].result.drift_flags.sum())
+               if rows[0].result.drift_flags is not None else None))
+
+
+def _grid_nccl_rank(info, cases):
+    """``stream_on_rank`` with every loop step under sync debug mode
+    "error": a synchronizing call inside the loop raises."""
+    import torch
+
+    from repro_torch.core import distributed, engine
+
+    make = engine._make_batch_step
+
+    def checked(*args):
+        step = make(*args)
+
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    engine._make_batch_step = checked
+    return distributed.stream_on_rank(info, cases)
+
+
+def _grid_phases(torch, np, rt, users, items, drift_scans):
+    """``grid_path``, ``grid_agree`` and ``grid_nccl``: ``backend=
+    "shard_map"`` over ranks started by ``launch.mesh.run_on_ranks``,
+    each against ``scan`` in this process (``drift_scans``:
+    ``_drift_phases``' scan runs of the same configurations)."""
+    from repro_torch.core import distributed
+    from repro_torch.drift import make_scenario
+    from repro_torch.launch import mesh as mesh_lib
+
+    # -- grid_path ----------------------------------------------------------------
+    u, i = users[:GRID_EVENTS], items[:GRID_EVENTS]
+    cfg = dataclasses.replace(disgd_config(rt), backend="scan")
+    t0 = time.perf_counter()
+    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, cfg.grid.n_c,
+                                "cuda", [(u, i, cfg)], timeout=GRID_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    rows = [r[0] for r in run.results]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scan = rt.run_stream(u, i, cfg)
+    scan_peak = torch.cuda.max_memory_allocated()
+    err = _grid_agrees(np, rows, scan, cfg, "grid_path")
+    emit("grid_path", **_grid_row(run, rows, scan, _steps(u.size, cfg),
+                                  int(u.size)),
+         stream="synth_stream(MOVIELENS_25M, seed=0)",
+         cut=f"first {GRID_EVENTS} events (the eager worker, and 16 ranks "
+             f"on one card within the script's time limit)",
+         grid=[cfg.grid.n_i, cfg.grid.g], u_cap=U_CAP, i_cap=I_CAP,
+         micro_batch=MICRO_BATCH, bucket_capacity=cfg.bucket_capacity,
+         run_s=spawn_s, scan_peak_bytes=scan_peak, max_abs_err=err,
+         rtol=STREAM_RTOL, atol=STREAM_ATOL,
+         staging=("gloo stages the CUDA buffer through the host: each "
+                  "collective waits for the step's work"))
+    del scan, rows, run
+    torch.cuda.empty_cache()
+
+    # -- grid_agree ---------------------------------------------------------------
+    # drift_backends_agree's configurations and its scan runs, and DISGD
+    # under compressed() with its own.
+    sc = make_scenario("abrupt", events=DRIFT_SMALL_EVENTS, seed=0, at=0.3)
+    cases, scans = {}, {}
+    for algo, policy in (("dics", "adaptive"), ("bpr", "adaptive"),
+                         ("disgd", "fixed"), ("disgd", "compressed")):
+        cut = DRIFT_SMALL_CUT.get(algo, sc.n)
+        hyper = rt.get_algorithm(algo).default_hyper()._replace(
+            u_cap=256, i_cap=64)
+        base = rt.StreamConfig(algorithm=algo, grid=rt.GridSpec(2),
+                               micro_batch=256, hyper=hyper, backend="scan",
+                               device=DEVICE)
+        cfg_p = (dataclasses.replace(base,
+                                     storage=rt.StoragePolicy.compressed())
+                 if policy == "compressed" else _drift_cfgs(base)[policy])
+        name = f"{algo}.{policy}"
+        cases[name] = (sc.users[:cut], sc.items[:cut], cfg_p)
+        scans[name] = drift_scans.get(name)
+    t0 = time.perf_counter()
+    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, 4, "cuda",
+                                list(cases.values()), timeout=GRID_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for j, (name, (cu, ci, ccfg)) in enumerate(cases.items()):
+        rows = [r[j] for r in run.results]
+        scan = scans[name] or rt.run_stream(cu, ci, ccfg)
+        err = _grid_agrees(np, rows, scan, ccfg, f"grid_agree.{name}")
+        out[name] = dict(**_grid_row(run, rows, scan,
+                                     _steps(cu.size, ccfg), int(cu.size)),
+                         max_abs_err=err,
+                         scan_from=("drift_backends_agree"
+                                    if scans[name] else "this phase"))
+    if out["dics.adaptive"]["fires"] < 1:
+        fail("grid_agree: DICS adaptive never fired")
+    emit("grid_agree", stream=f"make_scenario('abrupt', events="
+         f"{DRIFT_SMALL_EVENTS}, seed=0, at=0.3)",
+         cut={a: f"first {n} events" for a, n in DRIFT_SMALL_CUT.items()},
+         grid=[2, 2], u_cap=256, i_cap=64, micro_batch=256, run_s=spawn_s,
+         rtol=STREAM_RTOL, atol=STREAM_ATOL, runs=out)
+
+    # -- grid_nccl ----------------------------------------------------------------
+    ncfg = dataclasses.replace(cases["disgd.fixed"][2],
+                               grid=rt.GridSpec.rect(1, 1))
+    nu, ni = sc.users[:GRID_NCCL_EVENTS], sc.items[:GRID_NCCL_EVENTS]
+    t0 = time.perf_counter()
+    run = mesh_lib.run_on_ranks(_grid_nccl_rank, 1, "cuda",
+                                [(nu, ni, ncfg)], timeout=GRID_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    if run.backend != "nccl":
+        fail(f"grid_nccl: the launcher chose {run.backend}")
+    rows = [run.results[0][0]]
+    scan = rt.run_stream(nu, ni, ncfg)
+    err = _grid_agrees(np, rows, scan, ncfg, "grid_nccl")
+    emit("grid_nccl", **_grid_row(run, rows, scan,
+                                  _steps(nu.size, ncfg), int(nu.size)),
+         policy="lru (bench_drift)", grid=[1, 1], run_s=spawn_s,
+         sync_debug="error inside every step", max_abs_err=err)
 
 
 def _llm_phases(torch, np, dev):

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import distributed
 from repro_torch.core import forgetting as forgetting_lib
 from repro_torch.core import prng, routing, state as state_lib
 from repro_torch.core import storage as storage_lib
@@ -104,10 +105,20 @@ def _occ_total(u_occ, i_occ) -> torch.Tensor:
     return u_occ.sum(dtype=torch.int32) + i_occ.sum(dtype=torch.int32)
 
 
-def _make_batch_step(cfg, worker_fn):
+def _make_batch_step(cfg, worker_fn, mesh=None):
     """The loop's step. ``worker_fn(states, ev_u, ev_i)`` runs on the
     compute form (``make_worker_fn(..., codecs=False)``): this step owns
-    the codecs."""
+    the codecs.
+
+    With ``mesh`` (``backend="shard_map"``, ``core.distributed``) the
+    states are this rank's worker, ``[1, ...]``, and ``worker_fn`` runs
+    on its row of the buckets. What every rank must then agree on comes
+    from one all-reduce: every slot's bits, the telemetry's list length
+    and pre-pass occupancy, and the occupancies, unless a forgetting pass
+    or the controller may change them after it, in which case a second
+    all-reduce gathers them after the pass. The routing, the re-queue,
+    the counters, the detector and the recall bits are computed by every
+    rank from the same values."""
     grid = cfg.grid
     n_c, g, n_i = grid.n_c, grid.g, grid.n_i
     cap = cfg.bucket_capacity
@@ -128,6 +139,8 @@ def _make_batch_step(cfg, worker_fn):
     coded = not policy.is_default
     # JAX encodes after the worker and decodes again for the pass.
     rounds = coded and (adaptive or forget) and storage_lib.is_lossy(policy)
+    # Whether a pass may change the occupancies after the worker.
+    passes = adaptive or forget
 
     def batch_step(carry, fu, fi):
         # Runs on every step, also where the JAX engine's lax.cond takes
@@ -154,11 +167,30 @@ def _make_batch_step(cfg, worker_fn):
         src = buckets.clamp(min=0).long()
         ev_u = torch.where(has, bu[src], -1)
         ev_i = torch.where(has, bi[src], -1)
+        lu, li = ((ev_u, ev_i) if mesh is None else
+                  (distributed.local_rows(mesh, ev_u),
+                   distributed.local_rows(mesh, ev_i)))
         # Precision@N denominator, on the bucket-start states.
-        list_len = (telemetry_lib.effective_list_len(states, ev_u,
+        list_len = (telemetry_lib.effective_list_len(states, lu,
                                                      top_n=top_n, g=g)
                     if tel_on else 0)
-        states, hits, evaluated = worker_fn(states, ev_u, ev_i)
+        states, hits, evaluated = worker_fn(states, lu, li)
+        occ_before = None
+        if tel_on and passes:
+            occ_before = _occ_total(*state_lib.occupancy(states.tables))
+        occ = None
+        if mesh is not None:
+            sums = [list_len] if tel_on else []
+            if occ_before is not None:
+                sums.append(occ_before)
+            hits, evaluated, occ, sums = distributed.gather_bits(
+                mesh, hits, evaluated,
+                () if passes else state_lib.occupancy(states.tables), sums)
+            occ = occ or None
+            if tel_on:
+                list_len = sums[0]
+            if occ_before is not None:
+                occ_before = sums[1]
 
         # Stream-order recall bits for this step (NaN = no evaluation).
         flat = buckets.reshape(-1).long()
@@ -185,9 +217,6 @@ def _make_batch_step(cfg, worker_fn):
         # Forgetting (fixed cadence) or drift control (adaptive): the
         # passes run every step, gated by device flags (no host read).
         fired = no_fire
-        occ_before = None
-        if tel_on and (adaptive or forget):
-            occ_before = _occ_total(*state_lib.occupancy(states.tables))
         if rounds:
             storage_lib.round_trip(states, policy)
         if adaptive:
@@ -207,7 +236,13 @@ def _make_batch_step(cfg, worker_fn):
                                 since)
             forgets = forgets + trigger.to(torch.int32)
 
-        u_occ, i_occ = state_lib.occupancy(states.tables)
+        if occ is not None:
+            u_occ, i_occ = occ
+        else:
+            u_occ, i_occ = state_lib.occupancy(states.tables)
+            if mesh is not None:
+                (u_occ, i_occ), _ = distributed.grid_all_reduce(
+                    mesh, [u_occ, i_occ])
         if tel_on:
             # Decay frees no row: only the net occupancy drop counts.
             evicted = (torch.clamp(occ_before - _occ_total(u_occ, i_occ),
@@ -341,9 +376,13 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
                       initial_detector=None):
     """Run the whole prequential stream on ``cfg.device``.
 
-    ``backend`` is ``"cuda"`` (kernel worker) or ``"scan"`` (eager
-    reference worker). ``initial_states``, when given, is updated in
-    place and returned as ``final_states``.
+    ``backend`` is ``"cuda"`` (kernel worker), ``"scan"`` (eager
+    reference worker) or ``"shard_map"``: the eager reference worker of
+    this rank of a process group of ``n_c`` ranks, one worker a rank
+    (``core.distributed``, ``launch.mesh.make_grid_mesh``), where every
+    rank passes the whole stream and gets the same result but for
+    ``final_states``, its own ``[1, ...]`` worker. ``initial_states``,
+    when given, is updated in place and returned as ``final_states``.
 
     With ``on_publish``, the stream runs in segments of ``publish_every``
     steps (the whole stream when 0) and ``on_publish(PublishEvent)``
@@ -378,8 +417,25 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
     xs_u = torch.as_tensor(fu).to(device)
     xs_i = torch.as_tensor(fi).to(device)
 
-    batch_step = _make_batch_step(cfg, make_worker_fn(cfg, backend,
-                                                      codecs=False))
+    mesh = None
+    if backend == "shard_map":
+        from repro_torch.launch.mesh import make_grid_mesh
+
+        given = [name for name, v in (
+            ("on_publish", on_publish), ("initial_states", initial_states),
+            ("initial_carry", initial_carry[0])) if v is not None]
+        if given:
+            raise ValueError(
+                f"backend='shard_map' does not take {', '.join(given)}: "
+                f"publishing, sessions, checkpoints and rescale on a "
+                f"process grid are ROADMAP Queue 1 item 14b")
+        mesh = make_grid_mesh(cfg.grid)
+        initial_states = distributed.init_grid_states(cfg, mesh)
+        batch_step = _make_batch_step(
+            cfg, make_worker_fn(cfg, "scan", codecs=False), mesh)
+    else:
+        batch_step = _make_batch_step(cfg, make_worker_fn(cfg, backend,
+                                                          codecs=False))
     carry = init_scan_carry(cfg, states=initial_states, carry=initial_carry,
                             detector=initial_detector)
     if device.type == "cuda":
@@ -388,6 +444,9 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
         if backend == "cuda":
             build.build_all()
         torch.cuda.synchronize(device)
+    if mesh is not None and mesh.group is not None:
+        # Every rank starts its clock together.
+        torch.distributed.barrier(group=mesh.group)
 
     seg = publish_every if publish_every > 0 else max(steps, 1)
     n_segments = max(math.ceil(steps / seg), 1)

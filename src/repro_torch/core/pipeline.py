@@ -4,7 +4,7 @@ Port of ``repro/core/pipeline.py``: ``StreamConfig`` (:49) with the same
 fields and ``bucket_capacity`` plus a ``device``, ``StreamResult`` (:88),
 ``init_states`` (:178) and ``run_stream`` (:188) for a registered
 algorithm (``"disgd"``, ``"dics"`` or ``"bpr"``, ``core/algorithm.py``),
-on one of three backends:
+on one of four backends:
 
   * ``backend="cuda"`` (alias ``"pallas"``, the JAX package's name) —
     the device loop of ``core/engine.py`` with the kernel worker
@@ -17,7 +17,16 @@ on one of three backends:
     (``_run_host``): numpy bucketing (``routing.bucket_dispatch_np``), an
     unbounded host re-queue drained at the end of the stream, and the
     eager reference worker on ``cfg.device``, one micro-batch at a time
-    with a host round trip each.
+    with a host round trip each;
+  * ``backend="shard_map"`` — the same device loop with one worker a
+    rank of a ``torch.distributed`` process group of ``n_c`` ranks
+    (``core.distributed``, ``launch.mesh``), each rank holding only its
+    own worker's state and running the eager reference worker, as JAX's
+    ``shard_map`` runs ``make_worker_step`` on each mesh coordinate.
+    Every rank calls ``run_stream`` with the whole stream; the result is
+    the same on every rank but ``final_states``, the rank's own ``[1,
+    ...]`` worker. It takes no publish hook, ``initial_states`` or
+    ``initial_carry`` yet (ROADMAP Queue 1 item 14b).
 
 ``run_stream``'s publish hooks (``publish_every``, ``on_publish``,
 ``publish_sync``) hand a copy of the states to the serving plane's
@@ -31,8 +40,7 @@ telemetry``, on by default as in JAX: ``StreamResult.telemetry`` and
 ``StreamResult.precision``) and storage policies (``StreamConfig.
 storage``, a ``core.storage.StoragePolicy``: the states stay resident in
 the policy's encoding and every step decodes, computes and encodes, as
-in JAX). The ``shard_map`` backend comes with a later slice and raises
-``ValueError`` naming it.
+in JAX).
 
 Checkpoints (``repro/core/pipeline.py:477-665``):
 ``save_stream_checkpoint`` writes the msgpack files of
@@ -66,8 +74,7 @@ __all__ = ["StreamConfig", "StreamResult", "RestoredCheckpoint",
            "StoragePolicyError", "LOGICAL_FORMAT"]
 
 _BACKENDS = {"cuda": "cuda", "pallas": "cuda", "scan": "scan",
-             "host": "host"}
-_LATER = {"shard_map": "the multi-GPU slice (ROADMAP Queue 1 item 14)"}
+             "host": "host", "shard_map": "shard_map"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +88,8 @@ class StreamConfig:
     hyper: Any = None                        # DisgdHyper / DicsHyper / BprHyper
     seed: int = 0
     record_every: int = 4                    # occupancy snapshot cadence
-    backend: str = "cuda"                    # "cuda" (= "pallas") | "scan" | "host"
+    # "cuda" (= "pallas") | "scan" | "host" | "shard_map"
+    backend: str = "cuda"
     carry_slots: int = 0                     # overflow re-queue size (0 = micro_batch)
     # Opt-in closed-loop drift policy (repro_torch.drift.DriftPolicy).
     # With mode "adaptive" the detector and controller replace the
@@ -119,7 +127,8 @@ class StreamResult:
     wall_seconds: float
     load_history: list        # per-batch worker loads (skew diagnostics)
     # Final worker states [n_c, ...] on cfg.device: the input to the
-    # serving plane (repro_torch.serve.plane.grid_topn).
+    # serving plane (repro_torch.serve.plane.grid_topn). Under
+    # backend="shard_map", this rank's own worker, [1, ...].
     final_states: Any = None
     # Forgetting passes fired (fixed cadence or adaptive controller).
     forgets: int = 0
@@ -166,8 +175,13 @@ def init_states(cfg: StreamConfig):
     """Zero states of every worker, stacked ``[n_c, ...]`` on cfg.device,
     in ``cfg.storage``'s resident encoding: one worker's state is encoded
     once, before the broadcast over the workers, as in JAX."""
+    return init_worker_states(cfg, cfg.grid.n_c)
+
+
+def init_worker_states(cfg: StreamConfig, n_c: int):
+    """:func:`init_states` for ``n_c`` workers (one rank's worker under
+    ``backend="shard_map"``, ``core.distributed.init_grid_states``)."""
     algo = algorithm_lib.get_algorithm(cfg.algorithm)
-    n_c = cfg.grid.n_c
     if cfg.storage.is_default:
         return algo.init_state(cfg.resolved_hyper(), batch=(n_c,),
                                device=cfg.device)
@@ -185,9 +199,6 @@ def init_states(cfg: StreamConfig):
 
 
 def _resolve_backend(cfg: StreamConfig) -> str:
-    if cfg.backend in _LATER:
-        raise ValueError(f"backend={cfg.backend!r} is not ported yet; it "
-                         f"comes with {_LATER[cfg.backend]}")
     if cfg.backend not in _BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; ported: "
                          f"{sorted(_BACKENDS)}")

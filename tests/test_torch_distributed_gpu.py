@@ -1,0 +1,152 @@
+"""The S&R worker grid across processes on the card.
+
+Every test carries the ``gpu`` marker and needs a CUDA device (decided in
+a fixture, never at import). This file imports no jax, and the ranks
+import it for their functions:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_distributed_gpu.py
+
+  * four gloo ranks sharing one card (``launch.mesh.run_on_ranks``)
+    against ``backend="scan"`` in one process on the card, for DISGD,
+    DICS and BPR-MF on ``tests/test_torch_distributed.py``'s stream:
+    counters, the load history and integers exactly, each rank's worker
+    against its row, floats within RTOL 1e-4 / ATOL 1e-5, recall bits
+    equal;
+  * with two cards or more, NCCL ranks, one a card, against the same;
+  * NCCL at world size 1 (``GridSpec.rect(1, 1)``): every step of the
+    loop runs under ``torch.cuda.set_sync_debug_mode("error")`` (NCCL
+    does not stage through the host), and the result equals ``scan``.
+"""
+
+import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import repro_torch as rt  # noqa: E402
+from repro_torch.core import convert, distributed, engine  # noqa: E402
+from repro_torch.data.stream import MOVIELENS_25M, scaled, synth_stream  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+
+RTOL, ATOL = 1e-4, 1e-5
+ALGOS = ("disgd", "dics", "bpr")
+HYPERS = {"disgd": rt.DisgdHyper, "dics": rt.DicsHyper, "bpr": rt.BprHyper}
+TIMEOUT = 600.0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the grid's ranks run on the card")
+    return torch.device("cuda")
+
+
+def _stream():
+    users, items, _ = synth_stream(scaled(MOVIELENS_25M, 0.002), seed=0)
+    return users[:1000], items[:1000]
+
+
+def _cfg(algo, grid=rt.GridSpec(2)):
+    return rt.StreamConfig(algorithm=algo, grid=grid, micro_batch=256,
+                           hyper=HYPERS[algo](u_cap=128, i_cap=32),
+                           backend="scan", device="cuda")
+
+
+def _cases(grid):
+    users, items = _stream()
+    return [(users, items, _cfg(a, grid)) for a in ALGOS]
+
+
+def _no_sync_rank(info, cases):
+    """``stream_on_rank`` with every loop step under sync debug mode
+    "error" (a synchronizing call raises)."""
+    make = engine._make_batch_step
+
+    def checked(*args):
+        step = make(*args)
+
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    engine._make_batch_step = checked
+    return distributed.stream_on_rank(info, cases)
+
+
+def _assert_grid_equals_scan(run, cases):
+    for (users, items, cfg), *outs in zip(cases, *run.results):
+        want = rt.run_stream(users, items, cfg)
+        states = convert.states_to_numpy(want.final_states)
+        for rank, out in enumerate(outs):
+            res = out.result
+            what = f"{cfg.algorithm} rank {rank}"
+            assert (res.events_processed, res.dropped) == (
+                want.events_processed, want.dropped), what
+            np.testing.assert_array_equal(np.stack(res.load_history),
+                                          np.stack(want.load_history))
+            a, b = res.recall.bits(), want.recall.bits()
+            differ = np.flatnonzero(~((a == b) | (np.isnan(a) & np.isnan(b))))
+            assert differ.size == 0, (
+                f"{what}: {differ.size} recall bits differ, the first at "
+                f"event {differ[:1]}")
+            for name, w in states.items():
+                got = res.final_states[name][0]
+                if w.dtype.kind == "f":
+                    np.testing.assert_allclose(got, w[rank], rtol=RTOL,
+                                               atol=ATOL, err_msg=name)
+                else:
+                    np.testing.assert_array_equal(got, w[rank], err_msg=name)
+            assert out.peak_bytes > 0
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_on_one_card_match_scan(cuda_device):
+    cases = _cases(rt.GridSpec(2))
+    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, 4, "cuda",
+                                cases, timeout=TIMEOUT)
+    if torch.cuda.device_count() < 4:
+        assert run.backend == "gloo"
+    _assert_grid_equals_scan(run, cases)
+
+
+@pytest.mark.gpu
+def test_nccl_ranks_match_scan(cuda_device):
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"NCCL takes one card a rank and this machine has "
+                    f"{cards}: the grid needs two cards or more")
+    grid = rt.GridSpec(2) if cards >= 4 else rt.GridSpec.rect(1, 2)
+    cases = _cases(grid)
+    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, grid.n_c,
+                                "cuda", cases, timeout=TIMEOUT)
+    assert run.backend == "nccl" and run.ranks_per_card == 1
+    _assert_grid_equals_scan(run, cases)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_never_syncs(cuda_device):
+    grid = rt.GridSpec.rect(1, 1)
+    cases = _cases(grid)
+    run = mesh_lib.run_on_ranks(_no_sync_rank, 1, "cuda", cases,
+                                timeout=TIMEOUT)
+    assert run.backend == "nccl"
+    _assert_grid_equals_scan(run, cases)
+    for (users, _, cfg), out in zip(cases, run.results[0]):
+        steps = (-(-users.size // cfg.micro_batch)
+                 + -(-cfg.micro_batch // cfg.bucket_capacity))
+        assert out.collectives["calls"] == steps
+
+
+@pytest.mark.gpu
+def test_one_worker_per_rank_holds_one_table(cuda_device):
+    """Shared nothing: a rank allocates its own worker's tables only."""
+    cfg = _cfg("disgd", rt.GridSpec.rect(1, 1))
+    states = distributed.init_grid_states(cfg,
+                                          mesh_lib.make_grid_mesh(cfg.grid))
+    assert states.rated.shape[0] == 1 and states.rated.is_cuda
