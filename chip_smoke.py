@@ -18,11 +18,12 @@ DISGD (K1-K3):
      that hold each column's users and each split's items without
      collisions (the ``rated`` tables alone are 4.2 GB); launch counts
      are zeroed just before and read just after;
-     then its first 64 micro-batches again under ``torch.profiler``
-     for the device busy share and the kernel time by name; the run folds
+     then its first ``PROFILE_STEPS`` micro-batches again under
+     ``torch.profiler`` for the device busy share and the kernel time by name; the run folds
      the telemetry vector (on by default): its events equal
      ``events_processed`` and its hits / evals the Recall@10;
-  2a. ``telemetry_cost``: the first 64 micro-batches with telemetry off
+  2a. ``telemetry_cost``: the first ``TELEMETRY_COST_BATCHES``
+     micro-batches with telemetry off
      and on, twice each (events/s), and once each under
      ``torch.profiler`` (device operations and card busy ms a step);
   3. serving: ``grid_topn`` for 8,192 stream users in calls of 1,024,
@@ -107,7 +108,8 @@ BPR-MF (K1 pairwise, K2, K3), after the DISGD state is freed:
      MovieLens-25M stream, grid and caps as phase 2 (``rated`` 4.2 GB);
      counts zeroed just before, read just after (``factor_update`` and
      ``masked_scores`` once a step); ``dropped`` must be 0; then
-     ``bpr_profile``: its first 64 micro-batches under ``torch.profiler``,
+     ``bpr_profile``: its first ``PROFILE_STEPS`` micro-batches under
+     ``torch.profiler``,
      with the negative sampler's device operations and times a step;
   5b. ``bpr_serve``: ``grid_topn(algorithm="bpr")`` for phase 3's queries,
      equal to the plain path;
@@ -237,7 +239,33 @@ as JAX's ``shard_map``; no kernel is launched):
      and drift flags too);
   9k. ``grid_nccl``: NCCL at world size 1 on ``GridSpec.rect(1, 1)``,
      every loop step under ``torch.cuda.set_sync_debug_mode("error")``,
-     against ``scan``.
+     against ``scan``;
+  9l. ``grid_session``: in 9i's group of 16 ranks, after its stream, a
+     ``StreamSession`` on ``backend="shard_map"`` at the same widths on
+     the first ``GRID_SESSION_EVENTS`` events, publishing every 2
+     micro-batches (sync), then ``recommend`` on 1,024 trained users and
+     256 unknown ids twice (a miss, then a hit), each rank serving its
+     own worker with K3 (``fused_topn``) and one all-gather a plane
+     call; against the same session on ``backend="scan"`` in this
+     process: every rank's worker (a digest of its bytes) equal to its
+     row, recall bits and answers equal; recommend p50 for a miss and a
+     hit over the ranks, collectives and their card ms a call, K3
+     launches a rank (the ``scan`` session's count, one a plane call);
+     then ``rescale`` live to ``GridSpec.rect(2, 4)`` (8 workers, 8 ranks
+     idle) and back, ``recommend`` after each, against the ``scan``
+     session's rescales: each rank's card peak over the two (the
+     exchange carries live records and entries, never a dense table)
+     must stay under the grid's dense ``rated``, and its ms;
+  9m. ``grid_elastic``: in 9j's group of 4 ranks, after its streams, a
+     DISGD and a DICS session on 9j's small configuration
+     (``GRID_ELASTIC_EVENTS`` events of its stream): ``checkpoint``
+     (rank 0 writes), ``restore`` at ``GridSpec.rect(2, 1)`` (2 workers,
+     2 ranks idle), then ``rescale`` back to ``GridSpec(2)``,
+     ``recommend`` after each; against ``scan``: the file's bytes, each
+     rank's worker and the answers equal at every step, and the serve
+     leaf's kernel (K3, K5) launched as often as by ``scan`` on every
+     rank that holds a worker (none on an idle rank); file bytes, write
+     and read seconds, rescale ms.
 
 LLM serving (K7), after the DICS state is freed:
 
@@ -312,6 +340,9 @@ UNKNOWN_QUERIES = 256
 # host thread for themselves.
 RECOMMEND_GAP_S = 0.005
 DEVICE = "cuda"
+# Micro-batches under torch.profiler in the DISGD, BPR-MF and forgetting
+# profiles (64 until the grid session phases needed the time).
+PROFILE_STEPS = 32
 
 # Card cycles of the busy wait that _time_ms(cover_enqueue=True) queues
 # ahead of its start event (~2 ms at the H100's 1.98 GHz boost clock).
@@ -612,7 +643,7 @@ def main():
                 occupancy=res.occupancy_summary(),
                 peak=torch.cuda.max_memory_allocated())
     states = res.final_states
-    _profile_steps(torch, rt, users, items, cfg, steps=64)
+    _profile_steps(torch, rt, users, items, cfg, steps=PROFILE_STEPS)
     _telemetry_cost(torch, rt, users, items, cfg)
 
     # -- 3. serving ----------------------------------------------------------
@@ -2058,7 +2089,7 @@ def _bpr_phases(torch, np, rt, dev, users, items, random_j, infos):
          events_processed=res.events_processed, dropped=res.dropped,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=path_counts)
-    _profile_steps(torch, rt, users, items, cfg, steps=64,
+    _profile_steps(torch, rt, users, items, cfg, steps=PROFILE_STEPS,
                    phase="bpr_profile",
                    sampler=_sampler_cost(torch, np, users, items, states,
                                          cfg))
@@ -2254,8 +2285,9 @@ FORGETTING_PRESETS = {
     "lfu": dict(policy="lfu", trigger_every=2048, lfu_min_freq=2),
     "gradual": dict(policy="gradual", trigger_every=2048,
                     gradual_gamma=0.9)}
-# Cut from 128 to leave the grid phases room within the time limit.
-TELEMETRY_COST_BATCHES = 64
+# Cut from 128, then 64, to leave the grid phases room within the time
+# limit.
+TELEMETRY_COST_BATCHES = 32
 # drift_path: the DICS deployment on an abrupt drift of Netflix's
 # profile with the scenarios' steeper popularity (DEFAULT_PROFILE's
 # item_zipf), cut to DRIFT_EVENTS raw events for the run's time limit.
@@ -2407,8 +2439,9 @@ def _forgetting_phases(torch, np, rt, users, items, cfg, main, batches):
         torch.cuda.empty_cache()
         if name == "lru":
             # Where the time goes with a pass every step.
-            _profile_steps(torch, rt, users, items, run_cfg, steps=64,
-                           phase="forgetting_profile", policy=name)
+            _profile_steps(torch, rt, users, items, run_cfg,
+                           steps=PROFILE_STEPS, phase="forgetting_profile",
+                           policy=name)
 
     # -- forgetting_serve ------------------------------------------------------
     kw = serve_kw(cfg)
@@ -3005,17 +3038,29 @@ SERVICE_QUERY_BATCH = 64
 # micro-batches in 16 ingest calls.
 AUTOSCALE_BATCHES, AUTOSCALE_CALLS, AUTOSCALE_MAX = 64, 16, 16
 DRIVERS_DIR = ROOT / "build" / "chip_smoke_drivers"
-# grid_path: the first events of the DISGD stream (8 micro-batches and
+# grid_path: the first events of the DISGD stream (4 micro-batches and
 # the 8 of the drain tail). The eager worker runs every event of a bucket
 # as its own few dozen launches, and 16 ranks share the card and the
-# host's cores: 32,768 events took 69 s with start-up, and 16,384 keep
-# the script within its time limit.
-GRID_EVENTS = 16_384
+# host's cores: 32,768 events took 69 s with start-up; 16,384, then 8,192
+# once grid_session ran in the same group, keep the script within its
+# time limit.
+GRID_EVENTS = 8_192
 # Seconds each group of ranks may take, start-up included.
 GRID_TIMEOUT = 420.0
 # grid_nccl: the first events of grid_agree's stream on one worker (a
 # bucket of 512 events a step; the LRU pass runs gated, without firing).
 GRID_NCCL_EVENTS = 1024
+# grid_session: the first events of the DISGD stream through a session
+# on the 16 ranks (4 micro-batches, publishing every 2), and its queries:
+# trained users, then ids no worker knows.
+GRID_SESSION_EVENTS, GRID_SESSION_EVERY = 8192, 2
+GRID_SESSION_USERS, GRID_SESSION_UNKNOWN = 1024, 256
+# ... and the grid it is then rescaled to live, and back.
+GRID_SESSION_RESCALE = (2, 4)
+# grid_elastic: the first events of grid_agree's stream through a DISGD
+# and a DICS session on its small configuration.
+GRID_ELASTIC_EVENTS = 2048
+GRID_ELASTIC_DIR = ROOT / "build" / "chip_smoke_grid_elastic"
 
 
 def ensemble_configs(rt):
@@ -3654,11 +3699,341 @@ def _grid_nccl_rank(info, cases):
     return distributed.stream_on_rank(info, cases)
 
 
+def _digests(states) -> dict:
+    """A SHA-256 of each leaf's bytes (``convert.states_to_numpy``): a
+    rank's worker is held to its row of the ``scan`` states without being
+    sent back."""
+    import hashlib
+
+    from repro_torch.core import convert
+
+    return {name: hashlib.sha256(leaf.tobytes()).hexdigest()
+            for name, leaf in convert.states_to_numpy(states).items()}
+
+
+def _row_digests(states, n_c) -> list:
+    """``_digests`` of every worker's row of a whole grid's states."""
+    import hashlib
+
+    from repro_torch.core import convert
+
+    host = convert.states_to_numpy(states)
+    return [{name: hashlib.sha256(leaf[w:w + 1].tobytes()).hexdigest()
+             for name, leaf in host.items()} for w in range(n_c)]
+
+
+def _grid_session_queries(np, users, known=GRID_SESSION_USERS,
+                          unknown=GRID_SESSION_UNKNOWN):
+    """``known`` distinct users of the cut, then ``unknown`` ids past
+    every user id (no worker knows them)."""
+    trained = np.random.default_rng(0).choice(np.unique(users), known,
+                                              replace=False)
+    return np.concatenate([trained, users.max() + 1 + np.arange(unknown)])
+
+
+def _answer(resp) -> dict:
+    return dict(ids=resp.ids, scores=resp.scores, known=resp.known,
+                version=resp.snapshot_version, hits=resp.cache_hits,
+                fallbacks=resp.fallbacks)
+
+
+def _answers_equal(np, a, b) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _bits_same(np, a, b) -> bool:
+    return a.shape == b.shape and bool(
+        ((a == b) | (np.isnan(a) & np.isnan(b))).all())
+
+
+def _grid_session(rt, cfg):
+    return rt.StreamSession(cfg, publish=rt.PublishPolicy(
+        every=GRID_SESSION_EVERY, mode="sync"))
+
+
+def _timed_recommend(torch, session, queries):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp = session.recommend(queries)
+    return _answer(resp), (time.perf_counter() - t0) * 1e3
+
+
+SERVE_KERNEL = {"disgd": "fused_topn", "bpr": "fused_topn",
+                "dics": "dics_topn"}
+
+
+def _counted_recommend(torch, session, queries):
+    """``_timed_recommend``'s answer with the launches of the session's
+    serve kernel (K3 or K5) in the call."""
+    from repro_torch.kernels import ops
+
+    kernel = SERVE_KERNEL[session.cfg.algorithm]
+    before = ops.launch_counts()[kernel]
+    answer = _timed_recommend(torch, session, queries)[0]
+    return answer, ops.launch_counts()[kernel] - before
+
+
+def _rescales(torch, rt, session, queries, digests):
+    """``rescale`` live to ``GridSpec.rect(*GRID_SESSION_RESCALE)`` and
+    back, ``recommend`` after each: ``(ms, digests, answer)`` a step and
+    the card's peak bytes over both."""
+    dev = session.states.tables.user_ids.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for grid in (rt.GridSpec.rect(*GRID_SESSION_RESCALE), session.cfg.grid):
+        t0 = time.perf_counter()
+        session.rescale(grid)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append((ms, digests(session.states, grid),
+                      _timed_recommend(torch, session, queries)[0]))
+    return steps, torch.cuda.max_memory_allocated(dev)
+
+
+def _session_rank(info, users, items, cfg, queries) -> dict:
+    """A ``shard_map`` session on this rank: ``ingest`` with publishing,
+    then ``recommend`` twice (a miss, then a hit)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import distributed, storage
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(cfg, backend="shard_map", device=info.device)
+    ops.reset_launch_counts()
+    s = _grid_session(rt, cfg)
+    distributed.reset_collective_stats()
+    t0 = time.perf_counter()
+    res = s.ingest(users, items)
+    ingest_s = time.perf_counter() - t0
+    ingest_coll = distributed.collective_stats()
+    distributed.reset_collective_stats()
+    calls = [_timed_recommend(torch, s, queries) for _ in range(2)]
+    out = dict(bits=res.recall.bits(),
+               counts=(res.events_processed, res.dropped),
+               digests=_digests(s.states), answers=[a for a, _ in calls],
+               ms=[t for _, t in calls], ingest_s=ingest_s,
+               ingest_collectives=ingest_coll,
+               serve_collectives=distributed.collective_stats(),
+               serve=s.frontend.stats_snapshot(),
+               store=s.store.stats_snapshot(),
+               fused_topn=ops.launch_counts()["fused_topn"],
+               nbytes=storage.total_nbytes(s.states))
+    distributed.reset_collective_stats()
+    out["rescales"], out["rescale_peak_bytes"] = _rescales(
+        torch, rt, s, queries, lambda st, grid: _digests(st))
+    out["rescale_collectives"] = distributed.collective_stats()
+    return out
+
+
+def _elastic_rank(info, users, items, cfg, queries) -> dict:
+    """``_elastic_steps`` on ``backend="shard_map"`` on this rank."""
+    import torch
+
+    import repro_torch as rt
+
+    cfg = dataclasses.replace(cfg, backend="shard_map", device=info.device)
+    return _elastic_steps(torch, rt, cfg, users, items, queries, "grid")
+
+
+def _elastic_steps(torch, rt, cfg, users, items, queries, name) -> dict:
+    """Ingest, ``checkpoint``, ``restore`` at ``GridSpec.rect(2, 1)``,
+    ``rescale`` back to ``cfg.grid``; ``recommend`` after each step, with
+    the serve kernel's launches. The states' digests are a rank's
+    worker's on the process grid, every row's in one process."""
+    import hashlib
+
+    from repro_torch.core import storage
+
+    def digests(states, grid):
+        if cfg.backend == "shard_map":
+            return _digests(states)
+        return _row_digests(states, grid.n_c)
+
+    name = f"{name}.{cfg.algorithm}"
+    s = _grid_session(rt, cfg)
+    s.ingest(users, items)
+    out = {"trained": (digests(s.states, cfg.grid),
+                       *_counted_recommend(torch, s, queries))}
+    t0 = time.perf_counter()
+    path = s.checkpoint(str(GRID_ELASTIC_DIR / name))
+    out["write_s"] = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        data = f.read()
+    out["file"] = (len(data), hashlib.sha256(data).hexdigest())
+    small = dataclasses.replace(cfg, grid=rt.GridSpec.rect(2, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = rt.StreamSession.restore(
+        str(GRID_ELASTIC_DIR / name), small,
+        publish=rt.PublishPolicy(every=GRID_SESSION_EVERY, mode="sync"))
+    torch.cuda.synchronize()
+    out["read_s"] = time.perf_counter() - t0
+    out["restored"] = (digests(t.states, small.grid),
+                       *_counted_recommend(torch, t, queries))
+    out["restored_bytes"] = storage.total_nbytes(t.states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.rescale(cfg.grid)
+    torch.cuda.synchronize()
+    out["rescale_ms"] = (time.perf_counter() - t0) * 1e3
+    out["rescaled"] = (digests(t.states, cfg.grid),
+                       *_counted_recommend(torch, t, queries))
+    return out
+
+
+def _grid_path_rank(info, cases, session):
+    """``grid_path``'s stream, then ``grid_session``'s session."""
+    from repro_torch.core import distributed
+
+    return (distributed.stream_on_rank(info, cases),
+            _session_rank(info, *session))
+
+
+def _grid_agree_rank(info, cases, elastic):
+    """``grid_agree``'s streams, then ``grid_elastic``'s sessions."""
+    from repro_torch.core import distributed
+
+    return (distributed.stream_on_rank(info, cases),
+            [_elastic_rank(info, *e) for e in elastic])
+
+
+def _grid_session_check(torch, np, rt, sessions, users, items, cfg,
+                        queries):
+    """``grid_session``: each rank's session against the ``scan`` session
+    of the same cut in this process; emits the phase's line."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    s = _grid_session(rt, cfg)
+    t0 = time.perf_counter()
+    res = s.ingest(users, items)
+    scan_ingest_s = time.perf_counter() - t0
+    calls = [_timed_recommend(torch, s, queries) for _ in range(2)]
+    scan_launches = ops.launch_counts()["fused_topn"]
+    rows = _row_digests(s.states, cfg.grid.n_c)
+    bits = res.recall.bits()
+    scan_rescales, scan_peak = _rescales(
+        torch, rt, s, queries, lambda st, g: _row_digests(st, g.n_c))
+    small = rt.GridSpec.rect(*GRID_SESSION_RESCALE)
+    dense_rated = cfg.grid.n_c * U_CAP * I_CAP
+    for rank, got in enumerate(sessions):
+        what = f"grid_session: rank {rank}"
+        if got["counts"] != (res.events_processed, res.dropped):
+            fail(f"{what}: processed / dropped differ from scan")
+        if not _bits_same(np, got["bits"], bits):
+            fail(f"{what}: recall bits differ from scan")
+        differ = [k for k, v in rows[rank].items() if got["digests"][k] != v]
+        if differ:
+            fail(f"{what}: worker differs from its scan row in {differ}")
+        for j, (a, (b, _)) in enumerate(zip(got["answers"], calls)):
+            if not _answers_equal(np, a, b):
+                fail(f"{what}: recommend call {j} differs from scan")
+        if got["fused_topn"] != scan_launches or scan_launches < 1:
+            fail(f"{what}: fused_topn launched {got['fused_topn']} times, "
+                 f"the scan session {scan_launches}")
+        for (_, want_rows, want), (_, got_d, got_a), grid in zip(
+                scan_rescales, got["rescales"], (small, cfg.grid)):
+            if not _answers_equal(np, got_a, want):
+                fail(f"{what}: recommend after rescale to {grid.shape} "
+                     f"differs from scan")
+            if rank < grid.n_c and got_d != want_rows[rank]:
+                fail(f"{what}: worker after rescale to {grid.shape} "
+                     f"differs from its scan row")
+        if got["rescale_peak_bytes"] >= dense_rated:
+            fail(f"{what}: {got['rescale_peak_bytes']} bytes at the peak "
+                 f"of a rescale, the grid's dense rated {dense_rated}")
+        if got["serve"]["collectives"] != got["serve"]["plane_batches"]:
+            fail(f"{what}: plane collectives != plane batches")
+    miss, hit = calls[0][0], calls[1][0]
+    if miss["hits"] != 0 or hit["hits"] != int((queries >= 0).sum()):
+        fail("grid_session: the second recommend is not all cache hits")
+    ranks = len(sessions)
+    serve = [g["serve_collectives"] for g in sessions]
+    emit("grid_session", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         cut=f"first {GRID_SESSION_EVENTS} events",
+         grid=[cfg.grid.n_i, cfg.grid.g], ranks=ranks, u_cap=U_CAP,
+         i_cap=I_CAP, micro_batch=MICRO_BATCH, publish_every=GRID_SESSION_EVERY,
+         queries=int(queries.size), unknown_ids=GRID_SESSION_UNKNOWN,
+         recall_at_10=res.recall.mean(),
+         fallbacks=miss["fallbacks"],
+         recommend_miss_ms_p50=statistics.median(g["ms"][0]
+                                                 for g in sessions),
+         recommend_hit_ms_p50=statistics.median(g["ms"][1]
+                                                for g in sessions),
+         scan_recommend_miss_ms=calls[0][1], scan_recommend_hit_ms=calls[1][1],
+         plane_calls=sessions[0]["serve"]["plane_batches"],
+         serve_collectives=serve[0]["calls"],
+         serve_collective_ms_per_call=[c["ms"] / max(c["calls"], 1)
+                                       for c in serve],
+         ingest_collectives=sessions[0]["ingest_collectives"]["calls"],
+         ingest_s=[g["ingest_s"] for g in sessions],
+         scan_ingest_s=scan_ingest_s,
+         publishes=sessions[0]["store"]["rotations"],
+         fused_topn_per_rank=[g["fused_topn"] for g in sessions],
+         scan_fused_topn=scan_launches,
+         resident_bytes_per_rank=sessions[0]["nbytes"],
+         rescaled_to=[small.n_i, small.g],
+         rescale_ms=[[r[0] for r in g["rescales"]] for g in sessions],
+         scan_rescale_ms=[r[0] for r in scan_rescales],
+         rescale_peak_bytes_per_rank=[g["rescale_peak_bytes"]
+                                      for g in sessions],
+         scan_rescale_peak_bytes=scan_peak, dense_rated_bytes=dense_rated,
+         rescale_collectives=sessions[0]["rescale_collectives"]["calls"],
+         rescale_collective_bytes_per_rank=[
+             g["rescale_collectives"]["bytes"] for g in sessions])
+
+
+def _grid_elastic_check(torch, np, rt, ranks, users, items, cfg, queries):
+    """``grid_elastic``: each rank's steps against ``scan``'s on one
+    configuration; returns its numbers."""
+    scan = _elastic_steps(torch, rt, cfg, users, items, queries, "scan")
+    small = rt.GridSpec.rect(2, 1)
+    kernel = SERVE_KERNEL[cfg.algorithm]
+    steps = ("trained", "restored", "rescaled")
+    for step, grid in zip(steps, (cfg.grid, small, cfg.grid)):
+        rows, want, launches = scan[step]
+        if launches < 1:
+            fail(f"grid_elastic {cfg.algorithm}: scan {step}: {kernel} "
+                 f"never launched")
+        for rank, got in enumerate(ranks):
+            what = f"grid_elastic {cfg.algorithm}: rank {rank} {step}"
+            if not _answers_equal(np, got[step][1], want):
+                fail(f"{what}: answers differ from scan")
+            if rank < grid.n_c and got[step][0] != rows[rank]:
+                fail(f"{what}: worker differs from its scan row")
+            if got[step][2] != (launches if rank < grid.n_c else 0):
+                fail(f"{what}: {kernel} launched {got[step][2]} times, "
+                     f"scan {launches}")
+    for rank, got in enumerate(ranks):
+        if (got["restored_bytes"] == 0) != (rank >= small.n_c):
+            fail(f"grid_elastic {cfg.algorithm}: rank {rank} holds "
+                 f"{got['restored_bytes']} bytes at {small}")
+    if any(r["file"] != scan["file"] for r in ranks):
+        fail(f"grid_elastic {cfg.algorithm}: the grid's checkpoint file is "
+             f"not scan's")
+    return dict(
+        grid=[cfg.grid.n_i, cfg.grid.g], restored_at=[small.n_i, small.g],
+        file_bytes=scan["file"][0],
+        write_s=[r["write_s"] for r in ranks], scan_write_s=scan["write_s"],
+        read_s=[r["read_s"] for r in ranks], scan_read_s=scan["read_s"],
+        rescale_ms=[r["rescale_ms"] for r in ranks],
+        scan_rescale_ms=scan["rescale_ms"],
+        restored_bytes_per_rank=[r["restored_bytes"] for r in ranks],
+        kernel=kernel,
+        launches_per_rank={step: [r[step][2] for r in ranks]
+                           for step in steps},
+        scan_launches={step: scan[step][2] for step in steps})
+
+
 def _grid_phases(torch, np, rt, users, items, drift_scans):
     """``grid_path``, ``grid_agree`` and ``grid_nccl``: ``backend=
     "shard_map"`` over ranks started by ``launch.mesh.run_on_ranks``,
     each against ``scan`` in this process (``drift_scans``:
     ``_drift_phases``' scan runs of the same configurations)."""
+    import shutil
+
     from repro_torch.core import distributed
     from repro_torch.drift import make_scenario
     from repro_torch.launch import mesh as mesh_lib
@@ -3666,11 +4041,15 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
     # -- grid_path ----------------------------------------------------------------
     u, i = users[:GRID_EVENTS], items[:GRID_EVENTS]
     cfg = dataclasses.replace(disgd_config(rt), backend="scan")
+    su, si = users[:GRID_SESSION_EVENTS], items[:GRID_SESSION_EVENTS]
+    queries = _grid_session_queries(np, su)
     t0 = time.perf_counter()
-    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, cfg.grid.n_c,
-                                "cuda", [(u, i, cfg)], timeout=GRID_TIMEOUT)
+    run = mesh_lib.run_on_ranks(_grid_path_rank, cfg.grid.n_c, "cuda",
+                                [(u, i, cfg)], (su, si, cfg, queries),
+                                timeout=GRID_TIMEOUT)
     spawn_s = time.perf_counter() - t0
-    rows = [r[0] for r in run.results]
+    sessions = [r[1] for r in run.results]
+    rows = [r[0][0] for r in run.results]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     scan = rt.run_stream(u, i, cfg)
@@ -3687,7 +4066,12 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
          rtol=STREAM_RTOL, atol=STREAM_ATOL,
          staging=("gloo stages the CUDA buffer through the host: each "
                   "collective waits for the step's work"))
-    del scan, rows, run
+    del scan, rows
+    torch.cuda.empty_cache()
+
+    # -- grid_session -------------------------------------------------------------
+    _grid_session_check(torch, np, rt, sessions, su, si, cfg, queries)
+    del sessions, run
     torch.cuda.empty_cache()
 
     # -- grid_agree ---------------------------------------------------------------
@@ -3709,13 +4093,22 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
         name = f"{algo}.{policy}"
         cases[name] = (sc.users[:cut], sc.items[:cut], cfg_p)
         scans[name] = drift_scans.get(name)
+    eu, ei = sc.users[:GRID_ELASTIC_EVENTS], sc.items[:GRID_ELASTIC_EVENTS]
+    eq = _grid_session_queries(np, eu, known=256, unknown=64)
+    elastic = [(eu, ei, dataclasses.replace(cases["disgd.fixed"][2],
+                                            forgetting=None), eq),
+               (eu, ei, dataclasses.replace(cases["dics.adaptive"][2],
+                                            drift=None), eq)]
+    # A stale checkpoint of another cut would be restored by both sides.
+    shutil.rmtree(GRID_ELASTIC_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    run = mesh_lib.run_on_ranks(distributed.stream_on_rank, 4, "cuda",
-                                list(cases.values()), timeout=GRID_TIMEOUT)
+    run = mesh_lib.run_on_ranks(_grid_agree_rank, 4, "cuda",
+                                list(cases.values()), elastic,
+                                timeout=GRID_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     out = {}
     for j, (name, (cu, ci, ccfg)) in enumerate(cases.items()):
-        rows = [r[j] for r in run.results]
+        rows = [r[0][j] for r in run.results]
         scan = scans[name] or rt.run_stream(cu, ci, ccfg)
         err = _grid_agrees(np, rows, scan, ccfg, f"grid_agree.{name}")
         out[name] = dict(**_grid_row(run, rows, scan,
@@ -3730,6 +4123,14 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
          cut={a: f"first {n} events" for a, n in DRIFT_SMALL_CUT.items()},
          grid=[2, 2], u_cap=256, i_cap=64, micro_batch=256, run_s=spawn_s,
          rtol=STREAM_RTOL, atol=STREAM_ATOL, runs=out)
+
+    # -- grid_elastic -------------------------------------------------------------
+    emit("grid_elastic", stream=f"make_scenario('abrupt', events="
+         f"{DRIFT_SMALL_EVENTS}, seed=0, at=0.3)",
+         cut=f"first {GRID_ELASTIC_EVENTS} events", ranks=len(run.results),
+         runs={e[2].algorithm: _grid_elastic_check(
+             torch, np, rt, [r[1][j] for r in run.results], *e)
+             for j, e in enumerate(elastic)})
 
     # -- grid_nccl ----------------------------------------------------------------
     ncfg = dataclasses.replace(cases["disgd.fixed"][2],

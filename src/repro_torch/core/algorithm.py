@@ -35,20 +35,26 @@ class Algorithm:
 
     name = ""
 
-    def extract_logical(self, states, grid, storage=None):
-        """Stacked ``[n_c, ...]`` states -> grid-portable ``LogicalState``."""
+    def extract_logical(self, states, grid, storage=None, workers=None):
+        """Stacked ``[n_c, ...]`` states -> grid-portable ``LogicalState``
+        (``workers``: the grid's workers the stack holds, default all)."""
         from repro_torch.core import regrid as regrid_lib
 
-        return regrid_lib.extract_logical(states, grid, storage=storage)
+        return regrid_lib.extract_logical(states, grid, storage=storage,
+                                          workers=workers)
 
     def build_states(self, logical, *, src, dst, u_cap: int, i_cap: int,
-                     merge: str = "fresh", storage=None):
-        """``LogicalState`` -> stacked states for the target grid."""
+                     merge: str = "fresh", storage=None, workers=None,
+                     relations=None):
+        """``LogicalState`` -> stacked states for the target grid
+        (``workers``: the destination's workers to build, default all;
+        ``relations``: ``rated`` and ``co`` as live entries)."""
         from repro_torch.core import regrid as regrid_lib
 
         return regrid_lib.build_states(logical, src=src, dst=dst,
                                        u_cap=u_cap, i_cap=i_cap, merge=merge,
-                                       storage=storage)
+                                       storage=storage, workers=workers,
+                                       relations=relations)
 
     def state_template(self, hyper, storage=None):
         """One worker's checkpoint schema in ``storage``'s resident

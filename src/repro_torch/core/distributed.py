@@ -24,10 +24,30 @@ is the bits). The engine's step (``core/engine.py``) folds its
 per-worker reductions (the telemetry list length, the occupancies) into
 the same buffer through :func:`gather_bits`.
 
+A group may hold more ranks than the grid has workers
+(``make_grid_mesh``, as ``jax.make_mesh`` takes ``n_c`` of more
+devices): the ranks from ``n_c`` up hold an empty ``[0, ...]`` state,
+run the same loop on no events and put zero rows into every collective,
+so that every rank issues the same collectives in the same order.
+
+The live session on the grid (``session.StreamSession`` with
+``backend="shard_map"``) exchanges four more things, each in one int32
+buffer a rank: the serving plane's partial lists
+(``serve.plane.grid_topn``) and the popularity head's item ids and
+weights (``gather_item_stats``), each in one all-gather
+(``grid_all_gather``); the logical state of a checkpoint, gathered on
+rank 0 only, which writes the file (``gather_logical``, one gather);
+and that of a rescale, which every rank needs to build its destination
+worker (``exchange_logical``): the live records and the live entries of
+``rated`` and ``co`` (``regrid.Relations``), never the dense tables, in
+two all-gathers (the lengths, then the padded entries). So only rank 0,
+at a checkpoint, ever holds the grid's dense tables.
+
 ``collective_stats()`` counts the collectives since the last
-``reset_collective_stats()`` and their milliseconds (CUDA events on a
-card, read when asked; the host clock on the CPU, where gloo's
-``all_reduce`` returns when it is done).
+``reset_collective_stats()``, the bytes they wrote on this rank and
+their milliseconds (CUDA events on a card, read when asked; the host
+clock on the CPU, where gloo's collectives return when they are
+done).
 """
 
 from __future__ import annotations
@@ -40,6 +60,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import state as state_lib
 from repro_torch.core.routing import GridSpec
 
 __all__ = [
@@ -50,31 +71,40 @@ __all__ = [
     "init_grid_states",
     "grid_state_specs",
     "local_rows",
+    "rank_workers",
+    "rank_states",
     "grid_all_reduce",
+    "grid_all_gather",
     "gather_bits",
+    "gather_item_stats",
+    "gather_logical",
+    "exchange_logical",
     "collective_stats",
     "reset_collective_stats",
     "RankStream",
     "stream_on_rank",
 ]
 
-# Collectives since the last reset: their count, host milliseconds (CPU)
-# and (start, end) CUDA event pairs (card).
-_stats = {"calls": 0, "host_ms": 0.0, "events": []}
+# Collectives since the last reset: their count, the bytes they wrote on
+# this rank, host milliseconds (CPU) and (start, end) CUDA event pairs
+# (card).
+_stats = {"calls": 0, "bytes": 0, "host_ms": 0.0, "events": []}
 
 
 def collective_stats() -> dict:
-    """``{"calls": n, "ms": t}``: collectives and their milliseconds since
-    the last reset (waits for the card's pending events)."""
+    """``{"calls": n, "bytes": b, "ms": t}``: collectives, the bytes they
+    wrote on this rank (an all-reduce's buffer, a gather's output) and
+    their milliseconds since the last reset (waits for the card's pending
+    events)."""
     ms = _stats["host_ms"]
     for a, b in _stats["events"]:
         b.synchronize()
         ms += a.elapsed_time(b)
-    return {"calls": _stats["calls"], "ms": ms}
+    return {"calls": _stats["calls"], "bytes": _stats["bytes"], "ms": ms}
 
 
 def reset_collective_stats() -> None:
-    _stats.update(calls=0, host_ms=0.0, events=[])
+    _stats.update(calls=0, bytes=0, host_ms=0.0, events=[])
 
 
 def grid_axes(mesh):
@@ -100,25 +130,59 @@ def _check_grid(cfg, mesh) -> None:
 
 
 def _worker(mesh) -> int:
-    """The worker this process runs: its rank (0 in a world of one)."""
+    """The worker this process runs: its rank (0 in a world of one; ``n_c``
+    or more on a rank that holds none)."""
     return mesh.rank or 0
+
+
+def _n_local(mesh) -> int:
+    """Workers this rank holds: 1, or 0 past the grid."""
+    return int(mesh.holds_worker)
+
+
+def rank_workers(mesh) -> range:
+    """The grid's workers this rank holds: its own, or none past the
+    grid (``regrid``'s ``workers=``)."""
+    w = _worker(mesh)
+    return range(w, w + _n_local(mesh))
 
 
 def local_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     """This rank's row ``[1, ...]`` of a worker-major ``[n_c, ...]``
-    tensor (a view)."""
+    tensor (a view; ``[0, ...]`` on a rank without a worker)."""
     w = _worker(mesh)
     return x[w:w + 1]
 
 
 def init_grid_states(cfg, mesh):
     """This rank's worker state, a ``[1, ...]`` stack on ``cfg.device`` in
-    ``cfg.storage``'s encoding. JAX's is the whole ``(n_i, g, ...)`` tree,
-    sharded; here no rank holds another rank's tables."""
+    ``cfg.storage``'s encoding (``[0, ...]``, no memory, on a rank without
+    a worker). JAX's is the whole ``(n_i, g, ...)`` tree, sharded; here no
+    rank holds another rank's tables."""
     from repro_torch.core import pipeline
 
     _check_grid(cfg, mesh)
-    return pipeline.init_worker_states(cfg, 1)
+    return pipeline.init_worker_states(cfg, _n_local(mesh))
+
+
+def rank_states(mesh, states):
+    """This rank's worker of ``states``: either its own ``[1, ...]``
+    worker (``[0, ...]`` past the grid), returned as it is, or the whole
+    grid's ``[n_c, ...]`` tree (JAX's ``initial_states``, what
+    ``restore_stream_checkpoint`` builds in one process), whose row is
+    copied out. Raises ``ValueError`` on any other leading size."""
+    lead = states.tables.user_ids.shape[0]
+    if lead == mesh.size:
+        return type(states)(
+            type(states.tables)(*(local_rows(mesh, t).clone()
+                                  for t in states.tables)),
+            *(None if t is None else local_rows(mesh, t).clone()
+              for t in states[1:]))
+    if lead == _n_local(mesh):
+        return states
+    raise ValueError(
+        f"states of {lead} workers are neither the grid's {mesh.size} nor "
+        f"rank {_worker(mesh)}'s {_n_local(mesh)}")
 
 
 def grid_state_specs(cfg, mesh):
@@ -135,22 +199,30 @@ def grid_state_specs(cfg, mesh):
                      *(None if t is None else spec for t in one[1:]))
 
 
+def _timed(buf: torch.Tensor, call, out_bytes: int | None = None) -> None:
+    """Run one collective ``call()`` on ``buf``'s device, counted with the
+    ``out_bytes`` it writes here (default: ``buf``'s)."""
+    _stats["calls"] += 1
+    _stats["bytes"] += (buf.numel() * buf.element_size()
+                        if out_bytes is None else out_bytes)
+    if buf.is_cuda:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        call()
+        b.record()
+        _stats["events"].append((a, b))
+    else:
+        t0 = time.perf_counter()
+        call()
+        _stats["host_ms"] += (time.perf_counter() - t0) * 1e3
+
+
 def _all_reduce(mesh, buf: torch.Tensor) -> None:
     import torch.distributed as dist
 
     if mesh.group is None:      # a world of one process
         return
-    _stats["calls"] += 1
-    if buf.is_cuda:
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        dist.all_reduce(buf, group=mesh.group)
-        b.record()
-        _stats["events"].append((a, b))
-    else:
-        t0 = time.perf_counter()
-        dist.all_reduce(buf, group=mesh.group)
-        _stats["host_ms"] += (time.perf_counter() - t0) * 1e3
+    _timed(buf, lambda: dist.all_reduce(buf, group=mesh.group))
 
 
 def grid_all_reduce(mesh, rows, scalars=()):
@@ -165,12 +237,13 @@ def grid_all_reduce(mesh, rows, scalars=()):
     n_c = mesh.size
     w = _worker(mesh)
     device = rows[0].device
-    sizes = [r[0].numel() for r in rows]
+    sizes = [math.prod(r.shape[1:]) for r in rows]
     buf = torch.zeros(n_c * sum(sizes) + len(scalars), dtype=torch.int32,
                       device=device)
     off = 0
     for r, m in zip(rows, sizes):
-        buf[off + w * m:off + (w + 1) * m] = r.reshape(-1)
+        if r.shape[0]:          # a rank past the grid adds zeros
+            buf[off + w * m:off + (w + 1) * m] = r.reshape(-1)
         off += n_c * m
     if scalars:
         buf[off:] = torch.stack([
@@ -183,6 +256,207 @@ def grid_all_reduce(mesh, rows, scalars=()):
         out.append(buf[off:off + n_c * m].view((n_c,) + tuple(r.shape[1:])))
         off += n_c * m
     return out, list(buf[off:])
+
+
+def _as_i32(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s 4-byte words (float32 and uint32 by their bits) or its
+    values (bool, int32), as int32."""
+    if t.dtype == torch.uint32:
+        return state_lib.signed(t.contiguous())
+    if t.dtype == torch.float32:
+        return t.contiguous().view(torch.int32)
+    if t.dtype in (torch.int32, torch.bool):
+        return t.to(torch.int32)
+    raise TypeError(f"no int32 form for {t.dtype}")
+
+
+def _from_i32(x: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return x.view(torch.float32)
+    if dtype == torch.uint32:
+        return x.view(torch.uint32)
+    return x != 0 if dtype == torch.bool else x
+
+
+def _own_rows(mesh, rows) -> torch.Tensor:
+    """This rank's ``[1, ...]`` rows as one flat int32 buffer (zeros of
+    the same length on a rank without a worker)."""
+    sizes = sum(math.prod(r.shape[1:]) for r in rows)
+    if not _n_local(mesh):
+        return torch.zeros(sizes, dtype=torch.int32, device=rows[0].device)
+    return torch.cat([_as_i32(r).reshape(-1) for r in rows])
+
+
+def _split_rows(mesh, out, rows):
+    """``out``'s ``[n_c, total]`` words back into ``rows``' dtypes and
+    ``[n_c, ...]`` shapes."""
+    got, off = [], 0
+    for r in rows:
+        m = math.prod(r.shape[1:])
+        x = out[:mesh.size, off:off + m].contiguous()
+        got.append(_from_i32(x, r.dtype).view((mesh.size,)
+                                              + tuple(r.shape[1:])))
+        off += m
+    return got
+
+
+def grid_all_gather(mesh, rows):
+    """One all-gather that gives every rank the whole grid's rows.
+
+    ``rows`` are this rank's ``[1, ...]`` tensors (``[0, ...]`` on a rank
+    without a worker, which adds zeros) of float32, uint32, int32 or
+    bool. Returns the ``[n_c, ...]`` tensors, worker ``w``'s row from rank
+    ``w``, in the rows' dtypes, bit for bit. One int32 buffer a rank."""
+    import torch.distributed as dist
+
+    if mesh.group is None:      # a world of one process
+        return list(rows)
+    buf = _own_rows(mesh, rows)
+    out = torch.empty((mesh.world, buf.numel()), dtype=torch.int32,
+                      device=buf.device)
+    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf,
+                                        group=mesh.group),
+           out.numel() * 4)
+    return _split_rows(mesh, out, rows)
+
+
+def gather_item_stats(mesh, states):
+    """The whole grid's ``state.item_stats``: item ids and popularity
+    weights ``[n_c, i_cap]`` from this rank's worker, one all-gather.
+    Gathered before any aggregation, so that an item replicated on ``g``
+    workers counts every replica once."""
+    ids, weight = state_lib.item_stats(states)
+    return tuple(grid_all_gather(mesh, [ids, weight]))
+
+
+def grid_gather(mesh, rows):
+    """``grid_all_gather`` to rank 0 only: the ``[n_c, ...]`` tensors
+    there, ``None`` on every other rank, which receives nothing. One
+    gather of one int32 buffer a rank."""
+    import torch.distributed as dist
+
+    if mesh.group is None:      # a world of one process
+        return list(rows)
+    buf = _own_rows(mesh, rows)
+    root = not mesh.rank
+    out = (torch.empty((mesh.world, buf.numel()), dtype=torch.int32,
+                       device=buf.device) if root else None)
+    _timed(buf, lambda: dist.gather(
+        buf, list(out.unbind(0)) if root else None, dst=0,
+        group=mesh.group), out.numel() * 4 if root else 0)
+    return _split_rows(mesh, out, rows) if root else None
+
+
+def _all_gather_var(mesh, parts):
+    """Every rank's int32 ``parts`` (1-D, their lengths free), on every
+    rank: ``[rank][part]``. Two all-gathers: the lengths, then each
+    rank's parts in one buffer padded to the longest."""
+    import torch.distributed as dist
+
+    if mesh.group is None:      # a world of one process
+        return [list(parts)]
+    dev = parts[0].device
+    lens = torch.tensor([p.numel() for p in parts], dtype=torch.int32,
+                        device=dev)
+    all_lens = torch.empty((mesh.world, lens.numel()), dtype=torch.int32,
+                           device=dev)
+    _timed(lens, lambda: dist.all_gather(list(all_lens.unbind(0)), lens,
+                                         group=mesh.group),
+           all_lens.numel() * 4)
+    all_lens = all_lens.tolist()
+    width = max(1, max(sum(x) for x in all_lens))
+    buf = torch.zeros(width, dtype=torch.int32, device=dev)
+    buf[:sum(p.numel() for p in parts)] = torch.cat(list(parts))
+    out = torch.empty((mesh.world, width), dtype=torch.int32, device=dev)
+    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf,
+                                        group=mesh.group), out.numel() * 4)
+    return [list(out[r].split(all_lens[r] + [width - sum(all_lens[r])])
+                 [:-1]) for r in range(mesh.world)]
+
+
+def _own_logical(mesh, states, grid, algorithm, storage):
+    return algorithm_lib.get_algorithm(algorithm).extract_logical(
+        states, grid, storage=storage, workers=rank_workers(mesh))
+
+
+def gather_logical(mesh, states, grid, algorithm: str, storage=None):
+    """The whole grid's ``regrid.LogicalState`` on rank 0, for the
+    checkpoint it writes, from each rank's worker ``states`` (resident
+    under ``storage``); ``None`` on every other rank. Each rank extracts
+    its share (``extract_logical(workers=rank_workers(mesh))``) and one
+    gather joins them on rank 0 (``grid_gather``), ``rated`` packed
+    (``storage.pack_bits``). Returns ``(logical, rated_bits)``:
+    ``logical.rated`` is the packed words, the rest equals
+    ``extract_logical`` of the whole grid's stacked states, bit for
+    bit."""
+    from repro_torch.core import storage as storage_lib
+
+    logical = _own_logical(mesh, states, grid, algorithm, storage)
+    n = _n_local(mesh)
+    per = {"u": states.tables.user_ids.shape[1],
+           "i": states.tables.item_ids.shape[1]}
+    rows = []
+    for name, leaf in zip(logical._fields, logical):
+        if name == "rated":
+            rows.append(storage_lib.pack_bits(leaf))
+        elif name in ("co", "clock"):
+            rows.append(leaf)
+        else:       # the flat records, [n * cap, ...] -> [n, cap, ...]
+            rows.append(leaf.unflatten(0, (n, per[name[0]])))
+    got = grid_gather(mesh, rows)
+    if got is None:
+        return None
+    out = {}
+    for name, leaf in zip(logical._fields, got):
+        if name == "clock":
+            out[name] = leaf.reshape(grid.n_i, grid.g)
+        elif name in ("rated", "co"):
+            out[name] = leaf
+        else:
+            out[name] = leaf.flatten(0, 1)
+    return type(logical)(**out), logical.rated.shape[-1]
+
+
+def exchange_logical(mesh, states, grid, algorithm: str, storage=None):
+    """What every rank needs to build its worker of a rescaled grid
+    (``regrid.build_states(relations=)``), from each rank's worker
+    ``states`` (resident under ``storage``). Returns ``(logical,
+    relations)``: the whole grid's live records (worker-major, in their
+    order) and clocks in ``logical``, whose ``rated`` and ``co`` are
+    ``[0, ...]``, and the whole grid's ``regrid.Relations``. Each rank
+    sends its own live records and entries (``regrid.relations_of``), so
+    what travels and what a rank holds is sized by what the stream
+    made, not by the tables: no dense ``rated`` or ``co`` leaves a
+    rank."""
+    from repro_torch.core import regrid
+
+    logical = _own_logical(mesh, states, grid, algorithm, storage)
+    rel = regrid.relations_of(logical, grid, workers=rank_workers(mesh))
+    u_live = logical.u_id >= 0
+    i_live = logical.i_id >= 0
+    parts = {}
+    for name, leaf in zip(logical._fields, logical):
+        if name not in ("rated", "co"):
+            live = (u_live if name[0] == "u" else i_live
+                    if name[0] == "i" else slice(None))
+            parts[name] = leaf[live]
+    parts.update(rel._asdict())
+    got = _all_gather_var(mesh, [_as_i32(p).reshape(-1)
+                                 for p in parts.values()])
+    names = list(parts)
+    joined = {}
+    for j, (name, own) in enumerate(parts.items()):
+        # A record's rows are its table's live ids (k may be 0).
+        lead = names.index(name[0] + "_id") if name[:2] in ("u_", "i_") else j
+        joined[name] = torch.cat([
+            _from_i32(got[r][j], own.dtype).view(
+                (got[r][lead].numel(),) + tuple(own.shape[1:]))
+            for r in range(mesh.size)])
+    joined["clock"] = joined["clock"].reshape(grid.n_i, grid.g)
+    empty = {name: getattr(logical, name)[:0] for name in ("rated", "co")}
+    out = type(logical)(**{name: joined.get(name, empty.get(name))
+                           for name in logical._fields})
+    return out, type(rel)(*(joined[name] for name in rel._fields))
 
 
 def gather_bits(mesh, hits, evaluated, rows=(), sums=()):

@@ -378,11 +378,18 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
 
     ``backend`` is ``"cuda"`` (kernel worker), ``"scan"`` (eager
     reference worker) or ``"shard_map"``: the eager reference worker of
-    this rank of a process group of ``n_c`` ranks, one worker a rank
-    (``core.distributed``, ``launch.mesh.make_grid_mesh``), where every
-    rank passes the whole stream and gets the same result but for
-    ``final_states``, its own ``[1, ...]`` worker. ``initial_states``,
-    when given, is updated in place and returned as ``final_states``.
+    this rank of a process group of at least ``n_c`` ranks, one worker a
+    rank (``core.distributed``, ``launch.mesh.make_grid_mesh``), where
+    every rank passes the whole stream and the same arguments and gets
+    the same result but for ``final_states``, its own ``[1, ...]`` worker
+    (``[0, ...]`` on a rank past the grid). ``initial_states``, when
+    given, is updated in place and returned as ``final_states``; under
+    ``shard_map`` it is the rank's own worker or the whole grid's
+    ``[n_c, ...]`` tree, of which the rank copies its row.
+    ``initial_carry`` and ``initial_detector`` are the grid's, the same
+    on every rank. A ``shard_map`` publish event's states are a copy of
+    the rank's worker and its scalars the grid's; it publishes in sync
+    mode only (``publish_sync=False`` raises, ROADMAP item 14c).
 
     With ``on_publish``, the stream runs in segments of ``publish_every``
     steps (the whole stream when 0) and ``on_publish(PublishEvent)``
@@ -421,16 +428,15 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
     if backend == "shard_map":
         from repro_torch.launch.mesh import make_grid_mesh
 
-        given = [name for name, v in (
-            ("on_publish", on_publish), ("initial_states", initial_states),
-            ("initial_carry", initial_carry[0])) if v is not None]
-        if given:
+        if on_publish is not None and not publish_sync:
             raise ValueError(
-                f"backend='shard_map' does not take {', '.join(given)}: "
-                f"publishing, sessions, checkpoints and rescale on a "
-                f"process grid are ROADMAP Queue 1 item 14b")
+                "backend='shard_map' publishes in sync mode only "
+                "(publish_sync=True): async publishing on a process grid "
+                "is ROADMAP Queue 1 item 14c")
         mesh = make_grid_mesh(cfg.grid)
-        initial_states = distributed.init_grid_states(cfg, mesh)
+        initial_states = (distributed.init_grid_states(cfg, mesh)
+                          if initial_states is None
+                          else distributed.rank_states(mesh, initial_states))
         batch_step = _make_batch_step(
             cfg, make_worker_fn(cfg, "scan", codecs=False), mesh)
     else:

@@ -25,8 +25,11 @@ on one of four backends:
     ``shard_map`` runs ``make_worker_step`` on each mesh coordinate.
     Every rank calls ``run_stream`` with the whole stream; the result is
     the same on every rank but ``final_states``, the rank's own ``[1,
-    ...]`` worker. It takes no publish hook, ``initial_states`` or
-    ``initial_carry`` yet (ROADMAP Queue 1 item 14b).
+    ...]`` worker. A group larger than the grid leaves its last ranks
+    without a worker (``[0, ...]`` states). It takes the sync publish
+    hook, ``initial_states`` (the rank's worker or the whole grid's),
+    ``initial_carry`` and ``initial_detector``; ``StreamSession`` runs
+    on it.
 
 ``run_stream``'s publish hooks (``publish_every``, ``on_publish``,
 ``publish_sync``) hand a copy of the states to the serving plane's
@@ -459,7 +462,8 @@ def _host_tuple(tup):
 
 def save_stream_checkpoint(directory: str, events_processed: int, states,
                            carry=(None, None), grid=None, algorithm=None,
-                           detector=None, storage: StoragePolicy = None):
+                           detector=None, storage: StoragePolicy = None,
+                           mesh=None):
     """Persist worker states (+ the re-queue carry) mid-stream, in the
     JAX package's format (``repro/core/pipeline.py:477``).
 
@@ -473,8 +477,16 @@ def save_stream_checkpoint(directory: str, events_processed: int, states,
     ``co_scale``, packed ``rated`` with ``rated_bits``, bf16 factors as
     bf16. ``detector`` (a ``DetectorState``, e.g. ``StreamResult.
     final_detector``) rides along in either format. Returns the path.
+
+    With ``mesh`` (a rank of the process grid, ``backend="shard_map"``:
+    ``states`` is the rank's worker, ``grid`` required) every rank
+    extracts its share of the logical state and one gather joins the
+    whole grid's on rank 0 only (``core.distributed.gather_logical``),
+    which writes the file, the same bytes a one-process session writes
+    at the same point; every rank returns its path. The caller waits at
+    a barrier before anyone reads it.
     """
-    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint import checkpointer, save_checkpoint
 
     if storage is None:
         storage = StoragePolicy()
@@ -489,12 +501,32 @@ def save_stream_checkpoint(directory: str, events_processed: int, states,
     if detector is not None:
         tree["detector"] = _host_tuple(detector)
     if grid is None:
+        if mesh is not None:
+            raise ValueError("a process grid writes the grid-portable "
+                             "format only: pass grid=")
         tree["states"] = states
     else:
         if algorithm is None:
             algorithm = algorithm_lib.infer_algorithm(states)
-        logical = algorithm_lib.get_algorithm(algorithm).extract_logical(
-            states, grid, storage=storage)
+        if mesh is None:
+            logical = algorithm_lib.get_algorithm(algorithm).extract_logical(
+                states, grid, storage=storage)
+            n_bits = logical.rated.shape[-1]
+            words = (storage_lib.pack_bits(logical.rated)
+                     if storage.rated == "packed" else None)
+        else:
+            from repro_torch.core import distributed
+
+            gathered = distributed.gather_logical(mesh, states, grid,
+                                                  algorithm, storage)
+            if gathered is None:        # rank 0 writes
+                return checkpointer._path(directory, events_processed)
+            logical, n_bits = gathered
+            words = logical.rated
+            # A dense `rated` is unpacked on the host, where it is written.
+            logical = logical._replace(
+                rated=None if storage.rated == "packed"
+                else storage_lib.unpack_bits(words.cpu(), n_bits))
         # Re-encode the heavy logical leaves per the policy, so the bytes
         # on disk match the resident footprint.
         if storage.factors == "bf16":
@@ -508,9 +540,8 @@ def save_stream_checkpoint(directory: str, events_processed: int, states,
         elif storage.co == "bf16":
             logical = logical._replace(co=logical.co.to(torch.bfloat16))
         if storage.rated == "packed":
-            tree["rated_bits"] = int(logical.rated.shape[-1])
-            logical = logical._replace(
-                rated=storage_lib.pack_bits(logical.rated))
+            tree["rated_bits"] = int(n_bits)
+            logical = logical._replace(rated=words)
         tree.update({
             "format": LOGICAL_FORMAT,
             "algorithm": algorithm,
@@ -543,7 +574,8 @@ def _leaves(tree) -> list:
 
 
 def restore_stream_checkpoint(directory: str, cfg: StreamConfig,
-                              step: int | None = None) -> RestoredCheckpoint:
+                              step: int | None = None,
+                              mesh=None) -> RestoredCheckpoint:
     """Restore worker states shaped like ``init_states(cfg)`` from a file
     of either package (``repro/core/pipeline.py:577``).
 
@@ -554,9 +586,16 @@ def restore_stream_checkpoint(directory: str, cfg: StreamConfig,
     another storage policy than ``cfg.storage`` raises
     ``StoragePolicyError``, another algorithm or an unknown format
     ``ValueError``.
+
+    A logical file's ``rated`` and ``co`` are decoded one source worker
+    at a time into their live entries, so the device never holds the
+    grid's dense tables. With ``mesh`` (a rank of the process grid at
+    ``cfg.grid``) the rank reads the file and builds its own worker
+    only, ``[1, ...]`` (``[0, ...]`` past the grid): no rank allocates
+    another's tables.
     """
     from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.core import convert
+    from repro_torch.core import convert, distributed
     from repro_torch.core import regrid as regrid_lib
 
     events_processed, tree = restore_checkpoint(directory, step)
@@ -583,24 +622,44 @@ def restore_stream_checkpoint(directory: str, cfg: StreamConfig,
                 f"config asks for {cfg.algorithm!r}")
         n_i, g = (int(x) for x in np.asarray(tree["grid"]))
         src = routing.GridSpec.rect(n_i, g)
-        logical = regrid_lib.LogicalState(
-            *(convert.to_tensor(leaf, dev) for leaf in tree["logical"]))
+        # The records on the device; `rated` and `co` stay in the file's
+        # buffers, decoded there one worker at a time into their live
+        # entries (`regrid.relations_of`): no dense table of the grid is
+        # ever on the device.
+        leaves = dict(zip(regrid_lib.LogicalState._fields, tree["logical"]))
+        records = {name: convert.to_tensor(leaf, dev)
+                   for name, leaf in leaves.items()
+                   if name not in ("rated", "co")}
         # Back to the compute form build_states expects.
         if saved_policy.factors == "bf16":
-            logical = logical._replace(
-                u_vec=logical.u_vec.to(torch.float32),
-                i_vec=logical.i_vec.to(torch.float32))
-        if saved_policy.co in ("uint16", "int8"):
-            logical = logical._replace(co=storage_lib.dequantize_rows(
-                logical.co, convert.to_tensor(tree["co_scale"], dev)))
-        elif saved_policy.co == "bf16":
-            logical = logical._replace(co=logical.co.to(torch.float32))
-        if saved_policy.rated == "packed":
-            logical = logical._replace(rated=storage_lib.unpack_bits(
-                logical.rated, int(tree["rated_bits"])))
+            records["u_vec"] = records["u_vec"].to(torch.float32)
+            records["i_vec"] = records["i_vec"].to(torch.float32)
+        co_scale = (np.asarray(tree["co_scale"])
+                    if saved_policy.co in ("uint16", "int8") else None)
+
+        def block(j):
+            rated = convert.to_tensor(leaves["rated"][j], dev)
+            if saved_policy.rated == "packed":
+                rated = storage_lib.unpack_bits(rated,
+                                                int(tree["rated_bits"]))
+            co = convert.to_tensor(leaves["co"][j], dev)
+            if co_scale is not None:
+                co = storage_lib.dequantize_rows(
+                    co, convert.to_tensor(co_scale[j], dev))
+            return rated, co.to(torch.float32)
+
+        side = np.asarray(leaves["co"]).shape[1:]
+        logical = regrid_lib.LogicalState(
+            rated=torch.zeros((0, hyper.u_cap, 0), dtype=torch.bool,
+                              device=dev),
+            co=torch.zeros((0,) + side, dtype=torch.float32, device=dev),
+            **records)
+        relations = regrid_lib.relations_of(logical, src, block=block)
         states = algo.build_states(
             logical, src=src, dst=cfg.grid,
-            u_cap=hyper.u_cap, i_cap=hyper.i_cap, storage=cfg.storage)
+            u_cap=hyper.u_cap, i_cap=hyper.i_cap, storage=cfg.storage,
+            workers=None if mesh is None else distributed.rank_workers(mesh),
+            relations=relations)
         return RestoredCheckpoint(events_processed, states, carry, detector)
 
     # Legacy fixed-shape payload: validate against the algorithm's schema
@@ -628,5 +687,7 @@ def restore_stream_checkpoint(directory: str, cfg: StreamConfig,
     leaves = iter(leaf(s, dtype) for s, (_, dtype) in zip(flat_s, flat_t))
     tables = type(one.tables)(*(next(leaves) for _ in one.tables))
     rest = [None if t is None else next(leaves) for t in one[1:]]
-    return RestoredCheckpoint(events_processed, type(one)(tables, *rest),
-                              carry, detector)
+    states = type(one)(tables, *rest)
+    if mesh is not None:
+        states = distributed.rank_states(mesh, states)
+    return RestoredCheckpoint(events_processed, states, carry, detector)

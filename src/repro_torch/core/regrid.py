@@ -29,10 +29,16 @@ Two departures from the JAX code, neither visible in the result:
 
   * flat slot addresses are int64 (JAX's are int32, which wraps past
     2^31 elements: DISGD's deployment ``rated`` has 4.22e9);
-  * ``rated`` is rebuilt from its live pairs (``nonzero``, worker by
-    worker), not through JAX's dense ``[n_c, u_cap, i_cap]`` index
-    temporaries (33.8 GB of int64 at that size). That reads the number
-    of pairs on the host: regrid runs between stream segments.
+  * ``rated`` and ``co`` are rebuilt from their live entries
+    (``Relations``: ``nonzero``, worker by worker), not through JAX's
+    dense ``[n_c, u_cap, i_cap]`` index temporaries (33.8 GB of int64 at
+    that size). That reads the number of entries on the host: regrid
+    runs between stream segments. A zero ``co`` entry adds nothing, so
+    the sums are JAX's.
+
+``Relations`` are also what a process grid exchanges for a rescale
+(``core.distributed.exchange_logical``): their size is what the stream
+made, not the tables'.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from repro_torch.core import storage as storage_lib
 from repro_torch.core.routing import GridSpec
 from repro_torch.core.state import DicsState, DisgdState, Tables
 
-__all__ = ["LogicalState", "CheckpointShapeError", "extract_logical",
-           "build_states", "regrid"]
+__all__ = ["LogicalState", "Relations", "CheckpointShapeError",
+           "extract_logical", "relations_of", "build_states", "regrid"]
 
 
 class CheckpointShapeError(ValueError):
@@ -100,22 +106,35 @@ class LogicalState(NamedTuple):
     clock: torch.Tensor     # i32[n_i, g] per-worker event clocks
 
 
-def extract_logical(states, grid: GridSpec, storage=None) -> LogicalState:
+def extract_logical(states, grid: GridSpec, storage=None,
+                    workers: range | None = None) -> LogicalState:
     """Flatten stacked ``[n_c, ...]`` worker states into a LogicalState.
 
     ``storage`` names the policy the states are resident under; the
     logical form is always the decoded compute form (a new tensor for
     every decoded table), so it is policy-portable.
+
+    ``workers`` names the grid's workers the stack holds (default: all of
+    them, ``range(grid.n_c)``); the records' provenance is their grid
+    coordinates (``w // g``, ``w % g``). A rank of the process grid
+    passes its own (``range(w, w + 1)``, or an empty range past the grid)
+    and gets its share: its records, its ``rated`` and ``co`` blocks and
+    its clock as ``[len(workers)]``, which ``core.distributed.
+    gather_logical`` joins into the whole grid's.
     """
     if storage is not None:
         states = storage_lib.decode_state(states, storage)
     t = states.tables
     n_c, u_cap = t.user_ids.shape
     i_cap = t.item_ids.shape[1]
-    if n_c != grid.n_c:
+    whole = workers is None
+    if whole:
+        workers = range(grid.n_c)
+    if n_c != len(workers):
         raise CheckpointShapeError(n_c, grid, "stacked states/grid mismatch")
     dev = t.user_ids.device
-    w = torch.arange(n_c, dtype=torch.int32, device=dev)
+    w = torch.arange(workers.start, workers.stop, dtype=torch.int32,
+                     device=dev)
     u_row = (w // grid.g)[:, None].expand(n_c, u_cap).reshape(-1)
     i_col = (w % grid.g)[:, None].expand(n_c, i_cap).reshape(-1)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -142,7 +161,7 @@ def extract_logical(states, grid: GridSpec, storage=None) -> LogicalState:
         i_freq=t.item_freq.reshape(-1), i_ts=t.item_ts.reshape(-1),
         i_vec=i_vec, i_cnt=i_cnt,
         rated=states.rated, co=co,
-        clock=t.clock.reshape(grid.n_i, grid.g),
+        clock=t.clock.reshape(grid.n_i, grid.g) if whole else t.clock,
     )
 
 
@@ -223,40 +242,101 @@ def _scatter_merge(*, ids, ts, freq, dest, n_slots: int, vec=None, cnt=None,
             out_vec, out_cnt)
 
 
-def _rated_pairs(logical: LogicalState):
-    """The live ``(global user, global item)`` pairs of the logical
-    relation, worker by worker (each ``nonzero`` under 2^31 elements)."""
-    src_nc, s_ucap, s_icap = logical.rated.shape
-    u_tab = logical.u_id.reshape(src_nc, s_ucap)
-    i_tab = logical.i_id.reshape(src_nc, s_icap)
-    us, is_ = [], []
-    for w in range(src_nc):
-        su, si = logical.rated[w].nonzero(as_tuple=True)
-        us.append(u_tab[w][su])
-        is_.append(i_tab[w][si])
-    return torch.cat(us), torch.cat(is_)
+class Relations(NamedTuple):
+    """A ``LogicalState``'s ``rated`` and ``co`` as lists of their live
+    entries by global id, source worker-major, each worker's in row-major
+    order: all that ``build_states`` reads of them."""
+
+    pu: torch.Tensor        # i32, global user of each rated pair
+    pi: torch.Tensor        # i32, global item of each rated pair
+    c_col: torch.Tensor     # i32, source grid column of each co entry
+    c_p: torch.Tensor       # i32, global item of its row
+    c_q: torch.Tensor       # i32, global item of its column
+    c_v: torch.Tensor       # f32, its count (non-zero)
+
+
+def relations_of(logical: LogicalState, grid: GridSpec,
+                 workers: range | None = None, block=None) -> Relations:
+    """The live entries of ``logical``'s ``rated`` and ``co``, worker by
+    worker (each ``nonzero`` under 2^31 elements). ``workers`` are the
+    grid's workers the records hold (default all); ``block(j)`` gives
+    the ``j``-th one's ``(rated, co)`` in compute form on the records'
+    device (default: ``logical.rated[j]``, ``logical.co[j]``), so that a
+    caller may hold the tables elsewhere and decode one worker at a
+    time."""
+    if workers is None:
+        workers = range(grid.n_c)
+    if block is None:
+        def block(j):
+            return logical.rated[j], logical.co[j]
+    parts = []
+    for j, w in enumerate(workers):
+        u_tab = logical.u_id.reshape(len(workers), -1)
+        i_tab = logical.i_id.reshape(len(workers), -1)
+        rated, co = block(j)
+        su, si = rated.nonzero(as_tuple=True)
+        pu, pi = u_tab[j][su], i_tab[j][si]
+        ok = (pu >= 0) & (pi >= 0)
+        a, b = co.nonzero(as_tuple=True)
+        cp, cq = i_tab[j][a], i_tab[j][b]
+        live = (cp >= 0) & (cq >= 0)
+        cp, cq = cp[live], cq[live]
+        parts.append((pu[ok], pi[ok], torch.full_like(cp, w % grid.g), cp,
+                      cq, co[a[live], b[live]]))
+    if not parts:
+        dev = logical.u_id.device
+        i32 = torch.zeros(0, dtype=torch.int32, device=dev)
+        return Relations(i32, i32, i32, i32, i32,
+                         torch.zeros(0, dtype=torch.float32, device=dev))
+    return Relations(*(torch.cat(x) for x in zip(*parts)))
+
+
+def _local(dest, src_idx, ids, lo: int, n: int, cap: int):
+    """The records whose destination slot lies in workers ``[lo, lo +
+    n)``, their slots counted from worker ``lo``. Filtering keeps the
+    records' order, so the tie-break on the lowest index is unchanged."""
+    keep = (dest >= lo * cap) & (dest < (lo + n) * cap)
+    return dest[keep] - lo * cap, src_idx[keep], ids[keep]
 
 
 def build_states(logical: LogicalState, *, src: GridSpec, dst: GridSpec,
-                 u_cap: int, i_cap: int, merge: str = "fresh", storage=None):
+                 u_cap: int, i_cap: int, merge: str = "fresh", storage=None,
+                 workers: range | None = None,
+                 relations: Relations | None = None):
     """Rebuild stacked ``[dst.n_c, ...]`` worker states from a LogicalState.
 
     ``u_cap`` / ``i_cap`` are the target capacities (a shrink evicts as a
     slot insert would: the freshest tenant wins). The algorithm is carried
     by the leaves (zero-width ``co`` means DISGD). ``storage`` encodes the
     rebuilt states (the target policy when regrid migrates policies).
+
+    ``workers`` (a ``range`` of the destination's workers, default all)
+    builds those workers only, ``[len(workers), ...]``, equal bit for bit
+    to the same rows of the whole build: a rank of the process grid
+    builds its own worker and allocates no other's tables.
+
+    ``relations`` (default ``relations_of(logical, src)``) stand in for
+    ``logical.rated`` and ``logical.co``, which are then not read but
+    for their trailing shape (``[0, ...]`` will do); the records may then
+    be any worker-major subset that keeps every live one (a process
+    grid's exchange sends the live records only).
     """
     is_disgd = logical.co.shape[-1] == 0
-    n_c = dst.n_c
+    if workers is None:
+        workers = range(dst.n_c)
+    lo, n_c = workers.start, len(workers)
     gcd_n = math.gcd(src.n_i, dst.n_i)
     gcd_g = math.gcd(src.g, dst.g)
     dev = logical.u_id.device
+    if relations is None:
+        relations = relations_of(logical, src)
 
     # --- user replicas: split by id % g', re-replicated over dst rows ---
     rows, u_src = _tile_records(logical.u_row, gcd_n, dst.n_i // gcd_n)
     uid = logical.u_id[u_src]
     u_dest = ((rows.long() * dst.g + uid % dst.g) * u_cap
               + state_lib.user_slot(uid, dst, u_cap))
+    u_dest, u_src, uid = _local(u_dest, u_src, uid, lo, n_c, u_cap)
     user_ids, user_freq, user_ts, user_vecs, _ = _scatter_merge(
         ids=uid, ts=logical.u_ts[u_src], freq=logical.u_freq[u_src],
         dest=u_dest, n_slots=n_c * u_cap, vec=logical.u_vec[u_src],
@@ -267,6 +347,7 @@ def build_states(logical: LogicalState, *, src: GridSpec, dst: GridSpec,
     iid = logical.i_id[i_src]
     i_dest = (((iid.long() % dst.n_i) * dst.g + cols) * i_cap
               + state_lib.item_slot(iid, dst, i_cap))
+    i_dest, i_src, iid = _local(i_dest, i_src, iid, lo, n_c, i_cap)
     item_ids, item_freq, item_ts, item_vecs, item_cnt = _scatter_merge(
         ids=iid, ts=logical.i_ts[i_src], freq=logical.i_freq[i_src],
         dest=i_dest, n_slots=n_c * i_cap, vec=logical.i_vec[i_src],
@@ -277,10 +358,10 @@ def build_states(logical: LogicalState, *, src: GridSpec, dst: GridSpec,
 
     # --- rated pairs: exactly partitioned, each pair has ONE target; it
     # survives where both its ids won their target slots ---
-    pu, pi = _rated_pairs(logical)
-    ok = (pu >= 0) & (pi >= 0)
-    pu, pi = pu[ok], pi[ok]
+    pu, pi = relations.pu, relations.pi
     pw = ((pi % dst.n_i) * dst.g + (pu % dst.g)).long()
+    mine = (pw >= lo) & (pw < lo + n_c)
+    pu, pi, pw = pu[mine], pi[mine], pw[mine] - lo
     psu = state_lib.user_slot(pu, dst, u_cap).long()
     psi = state_lib.item_slot(pi, dst, i_cap).long()
     keep = (uid_tab[pw, psu] == pu) & (iid_tab[pw, psi] == pi)
@@ -289,39 +370,35 @@ def build_states(logical: LogicalState, *, src: GridSpec, dst: GridSpec,
 
     # --- DICS co-occurrence blocks: re-partition by the new item splits,
     # merge across congruent source columns (JAX's loop) ---
-    if is_disgd:
-        co = torch.zeros((n_c, 0, 0), dtype=logical.co.dtype, device=dev)
+    if is_disgd or not n_c:
+        side = 0 if is_disgd else i_cap
+        co = torch.zeros((n_c, side, side), dtype=logical.co.dtype,
+                         device=dev)
     else:
-        src_nc, s_icap = logical.co.shape[0], logical.co.shape[-1]
         n_co = n_c * i_cap * i_cap
-        co_flat = torch.zeros((n_co + 1,), dtype=logical.co.dtype,
-                              device=dev)
-        src_col = (torch.arange(src_nc, dtype=torch.int64, device=dev)
-                   % src.g)[:, None, None]
-        ids = logical.i_id.reshape(src_nc, s_icap).long()
-        p3, q3 = ids[:, :, None], ids[:, None, :]
-        prow = p3 % dst.n_i
-        sp = state_lib.item_slot(p3, dst, i_cap)
-        sq = state_lib.item_slot(q3, dst, i_cap)
-        pair_ok = (p3 >= 0) & (q3 >= 0) & (prow == q3 % dst.n_i)
+        co_flat = torch.zeros((n_co,), dtype=relations.c_v.dtype, device=dev)
+        p, q = relations.c_p.long(), relations.c_q.long()
+        prow = p % dst.n_i
+        same_row = prow == q % dst.n_i
+        sp = state_lib.item_slot(p, dst, i_cap).long()
+        sq = state_lib.item_slot(q, dst, i_cap).long()
+        col = relations.c_col.long() % gcd_g
         iid_l = iid_tab.long()
         for t in range(dst.g // gcd_g):
-            c_new = src_col % gcd_g + t * gcd_g
-            cw = prow * dst.g + c_new
-            keep_co = (pair_ok & (iid_l[cw, sp] == p3)
-                       & (iid_l[cw, sq] == q3))
-            c_dest = torch.where(keep_co, (cw * i_cap + sp) * i_cap + sq,
-                                 n_co)
-            co_flat.index_add_(0, c_dest.reshape(-1),
-                               logical.co.reshape(-1))
-        co = co_flat[:n_co].reshape(n_c, i_cap, i_cap)
+            cw = prow * dst.g + col + t * gcd_g
+            sel = (same_row & (cw >= lo) & (cw < lo + n_c)).nonzero()[:, 0]
+            cw_s, sp_s, sq_s = cw[sel] - lo, sp[sel], sq[sel]
+            ok = (iid_l[cw_s, sp_s] == p[sel]) & (iid_l[cw_s, sq_s] == q[sel])
+            co_flat.index_add_(0, ((cw_s * i_cap + sp_s) * i_cap + sq_s)[ok],
+                               relations.c_v[sel][ok])
+        co = co_flat.reshape(n_c, i_cap, i_cap)
 
     # --- per-worker clocks: max over the merged source rectangle ---
     m = logical.clock.reshape(src.n_i // gcd_n, gcd_n, src.g // gcd_g,
                               gcd_g).amax(dim=(0, 2))
     r = (torch.arange(dst.n_i, device=dev) % gcd_n)[:, None]
     c = (torch.arange(dst.g, device=dev) % gcd_g)[None, :]
-    clock = m[r, c].reshape(n_c)
+    clock = m[r, c].reshape(-1)[lo:lo + n_c]
 
     tables = Tables(
         user_ids=uid_tab, item_ids=iid_tab,
@@ -333,8 +410,8 @@ def build_states(logical: LogicalState, *, src: GridSpec, dst: GridSpec,
     )
     if is_disgd:
         out = DisgdState(tables=tables,
-                         user_vecs=user_vecs.reshape(n_c, u_cap, -1),
-                         item_vecs=item_vecs.reshape(n_c, i_cap, -1),
+                         user_vecs=user_vecs.unflatten(0, (n_c, u_cap)),
+                         item_vecs=item_vecs.unflatten(0, (n_c, i_cap)),
                          rated=rated)
     else:
         out = DicsState(tables=tables, co=co,

@@ -23,7 +23,8 @@ front:
 Rank ``r`` binds ``cuda:{r % device_count}`` unless the CPU is asked
 for, and takes its share of the host's cores for its CPU threads. A
 rank that raises fails the call and the others are stopped; so is a
-group that outlives its timeout.
+group that outlives its timeout. ``session_on_rank`` is a ready entry
+for it: a ``StreamSession`` on the process grid.
 """
 
 from __future__ import annotations
@@ -37,27 +38,36 @@ import time
 from typing import Any, Callable, NamedTuple
 
 __all__ = ["Mesh", "make_production_mesh", "make_cpu_mesh",
-           "make_grid_mesh", "RankInfo", "RankRun", "run_on_ranks"]
+           "make_grid_mesh", "RankInfo", "RankRun", "run_on_ranks",
+           "RankSession", "session_on_rank"]
 
 
 class Mesh(NamedTuple):
     """A grid of ranks on named axes (``shape`` maps axis name to size,
     in ``axis_names`` order). ``group`` and ``rank`` are the process
     group and this process's rank when the mesh is bound to one, else
-    ``None`` (a layout only, or a world of one process)."""
+    ``None`` (a layout only, or a world of one process); ``world`` is the
+    group's size, which may exceed the mesh's (the ranks from ``size`` up
+    hold no coordinate)."""
 
     axis_names: tuple
     shape: dict
     group: Any = None
     rank: int | None = None
+    world: int = 1
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    @property
+    def holds_worker(self) -> bool:
+        """Whether this rank holds a coordinate of the mesh (a worker)."""
+        return (self.rank or 0) < self.size
 
-def _layout(sizes, axes, group=None, rank=None) -> Mesh:
-    return Mesh(tuple(axes), dict(zip(axes, sizes)), group, rank)
+
+def _layout(sizes, axes, group=None, rank=None, world=1) -> Mesh:
+    return Mesh(tuple(axes), dict(zip(axes, sizes)), group, rank, world)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -87,22 +97,20 @@ def _world():
 def make_grid_mesh(grid) -> Mesh:
     """A ``(data=g, model=n_i)`` mesh bound to the default process group,
     one rank per worker of the S&R ``GridSpec`` (``core/distributed.py``
-    places worker ``w`` on rank ``w``). Raises ``ValueError`` unless the
-    group has exactly ``n_c`` ranks: with fewer, JAX's message; with more,
-    because every rank of the group runs the stream in step and a rank
-    without a worker cannot sit it out. Without a process group the world
-    is this one process."""
+    places worker ``w`` on rank ``w``). As ``jax.make_mesh``, it takes
+    the first ``n_c`` ranks of a larger group: the ranks from ``n_c`` up
+    hold no worker (``Mesh.holds_worker``) but run the same loop and
+    issue the same collectives, adding nothing to them. Raises
+    ``ValueError`` with JAX's message when the group has fewer than
+    ``n_c`` ranks. Without a process group the world is this one
+    process."""
     group, rank, have = _world()
     needed = grid.n_c
     if have < needed:
         raise ValueError(
             f"S&R grid needs {needed} devices ({grid.n_i}x{grid.g}); "
             f"only {have} available")
-    if have > needed:
-        raise ValueError(
-            f"S&R grid of {needed} workers ({grid.n_i}x{grid.g}) runs on "
-            f"exactly {needed} ranks; the process group has {have}")
-    return _layout((grid.g, grid.n_i), ("data", "model"), group, rank)
+    return _layout((grid.g, grid.n_i), ("data", "model"), group, rank, have)
 
 
 def _choose_backend(n_ranks: int, device: str) -> str:
@@ -204,3 +212,47 @@ def run_on_ranks(fn: Callable, n_ranks: int, device: str, *args,
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return RankRun(backend, per_card, results)
+
+
+class RankSession(NamedTuple):
+    """One session of :func:`session_on_rank`, as a rank saw it: the
+    ``ingest``'s ``StreamResult`` (``final_states`` as host arrays, the
+    rank's worker), ``recommend``'s ``ServeResponse`` (the grid's answer,
+    the same on every rank), the collectives the rank issued
+    (``core.distributed.collective_stats()``) and its kernel launches
+    (``kernels.ops.launch_counts()``)."""
+
+    result: Any
+    response: Any
+    collectives: dict
+    launches: dict
+
+
+def session_on_rank(info: RankInfo, cases, publish_every: int = 2) -> list:
+    """``run_on_ranks`` entry: each ``(users, items, cfg, queries)`` case
+    through a ``StreamSession`` with ``backend="shard_map"`` on this
+    rank's device: ``ingest`` under a sync ``PublishPolicy(every=
+    publish_every)``, then ``recommend(queries)``. Returns a
+    :class:`RankSession` per case."""
+    import dataclasses
+
+    from repro_torch.core import convert, distributed
+    from repro_torch.kernels import ops
+    from repro_torch.serve.policy import PublishPolicy
+    from repro_torch.session import StreamSession
+
+    out = []
+    for users, items, cfg, queries in cases:
+        cfg = dataclasses.replace(cfg, backend="shard_map",
+                                  device=info.device)
+        distributed.reset_collective_stats()
+        ops.reset_launch_counts()
+        s = StreamSession(cfg, publish=PublishPolicy(every=publish_every,
+                                                     mode="sync"))
+        res = s.ingest(users, items)
+        resp = s.recommend(queries)
+        res = dataclasses.replace(
+            res, final_states=convert.states_to_numpy(res.final_states))
+        out.append(RankSession(res, resp, distributed.collective_stats(),
+                               ops.launch_counts()))
+    return out

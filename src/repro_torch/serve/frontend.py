@@ -26,6 +26,13 @@ The front-end is synchronous and single-threaded by design: one
 the calling thread's current stream, so during training they queue
 behind the training steps already enqueued there. Staleness is enforced
 at acquire time via ``ServeConfig.publish.max_staleness_events``.
+
+On the process grid (the store's ``mesh``, ``backend="shard_map"``)
+every rank runs ``serve`` with the same ids: its cache, generations,
+micro-batches and fallback rows evolve alike on every rank, so every
+rank makes the same plane calls, each one all-gather of the partial
+lists (``plane.grid_topn(mesh=)``), and gets the same answer. The serve
+stats then also count the ranks and those collectives.
 """
 
 from __future__ import annotations
@@ -229,6 +236,7 @@ class QueryFrontend:
         """
         cfg = self.cfg
         device = snap.states.tables.user_ids.device
+        mesh = getattr(self.store, "mesh", None)
         computed = {}
         queue = collections.deque(uids)
         while queue:
@@ -241,9 +249,11 @@ class QueryFrontend:
                 algorithm=cfg.algorithm, grid=cfg.grid,
                 top_n=cfg.top_n, u_cap=cfg.u_cap, qcap=cfg.qcap,
                 k_nn=cfg.k_nn, use_kernel=cfg.use_kernel,
-                storage=cfg.storage)
+                storage=cfg.storage, mesh=mesh)
             ids, scores, known, served = (t.cpu().numpy() for t in out)
             self._c["plane_batches"].inc()
+            if mesh is not None:
+                self._grid_collectives().inc()
             progress = False
             for j, uid in enumerate(batch):
                 if served[j]:
@@ -328,11 +338,23 @@ class QueryFrontend:
 
     # -- stats ------------------------------------------------------------
 
+    def _grid_collectives(self):
+        return self.metrics.counter(
+            "serve_collectives_total",
+            "Plane collectives on the process grid (one all-gather a "
+            "micro-batch)")
+
     def stats_snapshot(self) -> dict[str, int]:
         """The serve counters as plain ints (registry-backed).
 
         Same key vocabulary as the pre-registry ``stats`` dict; the
         counters themselves live in ``self.metrics`` as
-        ``serve_<key>_total``.
+        ``serve_<key>_total``. On the process grid, also ``ranks`` (the
+        group's size) and ``collectives`` (the plane's all-gathers).
         """
-        return {k: int(c.value) for k, c in self._c.items()}
+        out = {k: int(c.value) for k, c in self._c.items()}
+        mesh = getattr(self.store, "mesh", None)
+        if mesh is not None:
+            out["ranks"] = mesh.world
+            out["collectives"] = int(self._grid_collectives().value)
+        return out

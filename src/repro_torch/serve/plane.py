@@ -12,6 +12,14 @@ worker scores its column's bucket in ONE kernel launch over all ``n_c``
 workers (``fused_topn`` for DISGD, ``dics_topn`` for DICS, as the
 registered algorithm's serve leaf chooses), and the merged lists are
 scattered back to request order.
+
+On the process grid (``mesh=``, ``backend="shard_map"``) each rank
+holds one worker and scores its column's bucket alone, one launch of the
+same leaf; one all-gather (``core.distributed.grid_all_gather``) gives
+every rank the ``[n_c, qcap, N]`` partial lists and ``known`` flags,
+and every rank merges them as one process does. The leaf scores each
+worker on its own, so the answer is the one-process answer, bit for
+bit, on every rank.
 """
 
 from __future__ import annotations
@@ -36,12 +44,14 @@ def query_capacity(batch_size: int, g: int, factor: float = 2.0) -> int:
 def grid_topn(states, user_ids, *, algorithm: str = "disgd",
               grid: routing.GridSpec = routing.GridSpec(1), top_n: int = 10,
               u_cap: int = 1024, qcap: int = 64, k_nn: int = 10,
-              use_kernel: bool = True, storage=None):
+              use_kernel: bool = True, storage=None, mesh=None):
     """Grid-wide top-N for a batch of users, merged across item splits.
 
     Args:
       states: stacked worker states ``[n_c, ...]`` (worker key =
-        row * g + col), e.g. ``StreamResult.final_states``.
+        row * g + col), e.g. ``StreamResult.final_states``; with
+        ``mesh``, this rank's own worker ``[1, ...]`` (``[0, ...]`` past
+        the grid).
       user_ids: int ``[Q]`` global user ids; ``-1`` entries are padding.
       algorithm: registry key (``core/algorithm.py``); its serve leaf
         scores the splits.
@@ -52,6 +62,8 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
         False runs its plain version.
       storage: the ``StoragePolicy`` the states are resident under (None
         = compute form); the leaf decodes lazily, never a whole table.
+      mesh: the process grid's ``launch.mesh.Mesh`` (every rank calls
+        with the same ``user_ids``), or None in one process.
 
     Returns:
       ids i32[Q, N] merged top-N global item ids, -1 padded;
@@ -73,7 +85,11 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
     leaf = algorithm_lib.get_algorithm(algorithm).make_serve_leaf(
         top_n=top_n, g=g, u_cap=u_cap, k_nn=k_nn, use_kernel=use_kernel,
         storage=storage)
-    p_ids, p_scores, p_known = leaf(states, qu.repeat(n_i, 1))
+    if mesh is None:
+        p_ids, p_scores, p_known = leaf(states, qu.repeat(n_i, 1))
+    else:
+        p_ids, p_scores, p_known = _rank_partials(mesh, leaf, states, qu,
+                                                  top_n)
     n_part = p_ids.shape[-1]
     # [n_i, g, qcap, N] -> [g, qcap, n_i, N]: merge over the split axis.
     m_ids, m_scores = ops.topn_merge(
@@ -98,3 +114,22 @@ def grid_topn(states, user_ids, *, algorithm: str = "disgd",
     out_scores[tgt] = m_scores.reshape(-1, n)
     out_known[tgt] = known.reshape(-1)
     return out_ids[:q], out_scores[:q], out_known[:q] & valid, served
+
+
+def _rank_partials(mesh, leaf, states, qu, top_n: int):
+    """The grid's partial lists from this rank's worker: the leaf on its
+    column's bucket (``w % g``), then one all-gather. A rank past the
+    grid adds empty rows."""
+    from repro_torch.core import distributed
+
+    g, qcap = qu.shape
+    if mesh.holds_worker:
+        col = (mesh.rank or 0) % g
+        rows = leaf(states, qu[col:col + 1])
+    else:       # the leaf's list width: min(top_n, i_cap)
+        n = min(top_n, states.tables.item_ids.shape[-1])
+        dev = qu.device
+        rows = (torch.empty((0, qcap, n), dtype=torch.int32, device=dev),
+                torch.empty((0, qcap, n), dtype=torch.float32, device=dev),
+                torch.empty((0, qcap), dtype=torch.bool, device=dev))
+    return distributed.grid_all_gather(mesh, list(rows))

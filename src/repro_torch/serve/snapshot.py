@@ -41,6 +41,12 @@ than ``max_staleness_events`` processed events behind that progress.
 Each snapshot also carries the grid-wide popularity head
 (``popularity_topn`` over the paper's frequency statistics), the
 front-end's fallback answer for unknown users.
+
+On the process grid (``mesh=``, ``backend="shard_map"``) a snapshot
+holds the rank's own worker, and the popularity head is aggregated from
+every rank's item ids and weights, gathered in one collective on the
+publishing thread; every rank publishes at the same points, and only
+synchronously (``publish_async`` raises: ROADMAP item 14c).
 """
 
 from __future__ import annotations
@@ -63,18 +69,25 @@ class StaleSnapshotError(RuntimeError):
     """The front snapshot violates the caller's staleness bound."""
 
 
-def popularity_topn(states, top_n: int):
+def popularity_topn(states, top_n: int, mesh=None):
     """Grid-wide most-popular items from a (stacked) worker state.
 
     Aggregates per-worker item rating mass (``state.item_stats``) by
     global id — an item replicated across the ``g`` workers of its row
     contributes all replicas' local counts — and returns the ``top_n``
-    head ordered by (mass desc, id asc).
+    head ordered by (mass desc, id asc). With ``mesh`` (the process grid)
+    ``states`` is this rank's worker and every rank's stats are gathered
+    first (one collective), so every rank gets the grid's head.
 
     Returns:
       (ids int64[top_n] (-1 padded), mass float64[top_n]).
     """
-    ids, weight = state_lib.item_stats(states)
+    if mesh is None:
+        ids, weight = state_lib.item_stats(states)
+    else:
+        from repro_torch.core import distributed
+
+        ids, weight = distributed.gather_item_stats(mesh, states)
     return _popularity_head(ids.cpu().numpy(), weight.cpu().numpy(), top_n)
 
 
@@ -157,9 +170,13 @@ class SnapshotStore:
     """
 
     def __init__(self, slots: int = 2, fallback_n: int = 100,
-                 registry: metrics_lib.MetricsRegistry | None = None):
+                 registry: metrics_lib.MetricsRegistry | None = None,
+                 mesh=None):
         if slots < 2:
             raise ValueError("double-buffering needs at least 2 slots")
+        # The process grid the published states are a rank's worker of
+        # (``launch.mesh.Mesh``), or None in one process.
+        self.mesh = mesh
         self._slots: list[Snapshot | None] = [None] * slots
         self._front = -1
         self._version = 0
@@ -206,7 +223,7 @@ class SnapshotStore:
     def _rotate(self, states, events_processed: int, forgets: int,
                 mode: str, popular=None) -> Snapshot:
         if popular is None:
-            popular = popularity_topn(states, self._fallback_n)
+            popular = popularity_topn(states, self._fallback_n, self.mesh)
         popular_ids, popular_mass = popular
         with self._lock:
             self._version += 1
@@ -254,8 +271,14 @@ class SnapshotStore:
         the card. ``events_processed`` / ``forgets`` may be 0-d tensors.
         A hand-off still pending is replaced by this one and counted as
         coalesced: the freshest state is served, never a queue of stale
-        ones.
+        ones. Raises ``ValueError`` on a process grid: how many publishes
+        coalesce differs by rank, and the ranks must agree on the
+        snapshot they serve (ROADMAP item 14c).
         """
+        if self.mesh is not None:
+            raise ValueError(
+                "async publishing on a process grid (backend='shard_map') "
+                "is ROADMAP Queue 1 item 14c; publish synchronously")
         handoff = _handoff(states, events_processed, forgets, telemetry)
         with self._lock:
             if self._pending is not None:

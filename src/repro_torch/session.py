@@ -26,6 +26,25 @@ grid-portable checkpoint (detector included) that either package
 restores; ``restore`` resumes one at any grid; ``rescale`` reshapes the
 live grid, its capacities and its storage policy in one regrid
 (``repro/session.py:222-291``).
+
+With ``backend="shard_map"`` the session runs on a process grid: every
+rank of a ``torch.distributed`` group (``launch.mesh.run_on_ranks``)
+runs the same session code with the same arguments (SPMD) and holds
+only its own worker (``launch.mesh.make_grid_mesh``: worker ``w`` on
+rank ``w``; ranks past the grid hold none). ``states`` is the rank's
+worker; the snapshots, the popularity head, ``recommend``'s answers,
+``checkpoint``'s file, ``restore`` and ``rescale`` equal the one-process
+session's, through the collectives of ``core.distributed``. Publishing
+is synchronous there: an async policy raises (ROADMAP item 14c).
+
+    def rank(info, users, items, cfg):  # cfg.backend == "shard_map"
+        s = StreamSession(cfg, publish=PublishPolicy(every=2, mode="sync"))
+        s.ingest(users, items)
+        return s.recommend(users[:4]).ids
+    launch.mesh.run_on_ranks(rank, 4, "cuda", users, items, cfg)
+
+(``rank`` must be importable by the spawned ranks: a module-level
+function; ``launch.mesh.session_on_rank`` is one.)
 """
 
 from __future__ import annotations
@@ -35,6 +54,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core import algorithm as algorithm_lib
+from repro_torch.core import distributed
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import state as state_lib
 from repro_torch.core import storage as storage_lib
@@ -43,6 +63,7 @@ from repro_torch.core.pipeline import (RestoredCheckpoint, StreamConfig,
                                        restore_stream_checkpoint, run_stream,
                                        save_stream_checkpoint)
 from repro_torch.core.routing import GridSpec
+from repro_torch.launch.mesh import make_grid_mesh
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import telemetry as telemetry_lib
 from repro_torch.obs import trace as trace_lib
@@ -67,12 +88,14 @@ class StreamSession:
                  metrics: metrics_lib.MetricsRegistry | None = None):
         self.cfg = cfg
         self.algorithm = algorithm_lib.get_algorithm(cfg.algorithm)
+        # The process grid this rank is part of (backend="shard_map").
+        self._mesh = _grid_mesh(cfg)
         # One registry spans the session: loop telemetry, snapshot store,
         # query front-end and stage spans all land here.
         self.metrics = (metrics if metrics is not None
                         else metrics_lib.MetricsRegistry())
         self.store = SnapshotStore(slots=snapshot_slots,
-                                   registry=self.metrics)
+                                   registry=self.metrics, mesh=self._mesh)
         # Publish boundaries carry the loop's telemetry vector; the store
         # hands it to this folder (on the publisher thread when async).
         self._telemetry = telemetry_lib.TelemetryFolder(self.metrics)
@@ -86,9 +109,16 @@ class StreamSession:
             publish = serve.publish
         else:
             serve = dataclasses.replace(serve, publish=publish)
+        if (self._mesh is not None and publish.every > 0
+                and publish.is_async):
+            raise ValueError(
+                "an async PublishPolicy on a process grid (backend="
+                "'shard_map') is ROADMAP Queue 1 item 14c; use "
+                "mode='sync' or every=0")
         self.publish_policy = publish
         self._frontend = QueryFrontend(self.store, serve)
-        self._states = pipeline_lib.init_states(cfg)
+        self._states = (pipeline_lib.init_states(cfg) if self._mesh is None
+                        else distributed.init_grid_states(cfg, self._mesh))
         self._carry: tuple = (None, None)
         self._detector = None
         self.events_processed = 0
@@ -113,7 +143,8 @@ class StreamSession:
     @property
     def states(self):
         """Current stacked ``[n_c, ...]`` worker states (live: the next
-        ``ingest`` updates them in place)."""
+        ``ingest`` updates them in place); on a process grid, this rank's
+        own worker, ``[1, ...]`` (``[0, ...]`` past the grid)."""
         return self._states
 
     @property
@@ -213,12 +244,16 @@ class StreamSession:
 
     def checkpoint(self, directory: str) -> str:
         """Write a grid-portable checkpoint (detector state included) of
-        the live states in their resident encoding; returns its path."""
-        return save_stream_checkpoint(
+        the live states in their resident encoding; returns its path. On a
+        process grid rank 0 writes the grid's file and every rank waits
+        for it at a barrier."""
+        path = save_stream_checkpoint(
             directory, self.events_processed, self._states,
             carry=self._carry, grid=self.cfg.grid,
             algorithm=self.cfg.algorithm, detector=self._detector,
-            storage=self.cfg.storage)
+            storage=self.cfg.storage, mesh=self._mesh)
+        _barrier(self._mesh)
+        return path
 
     @classmethod
     def restore(cls, directory: str, cfg: StreamConfig,
@@ -231,11 +266,13 @@ class StreamSession:
         """Resume a session from ``checkpoint`` output (either package's),
         at ``cfg.grid``: a grid-portable checkpoint regrids to the
         configured shape on the way, so restoring at another ``(n_i, g)``
-        is the scale-out path (see :meth:`rescale` for live states)."""
-        ck: RestoredCheckpoint = restore_stream_checkpoint(directory, cfg,
-                                                           step)
+        is the scale-out path (see :meth:`rescale` for live states). On a
+        process grid every rank reads the file and builds its own worker
+        at ``cfg.grid`` (any grid that fits the group)."""
         session = cls(cfg, serve=serve, publish=publish,
                       snapshot_slots=snapshot_slots, metrics=metrics)
+        ck: RestoredCheckpoint = restore_stream_checkpoint(
+            directory, cfg, step, mesh=session._mesh)
         session._states = ck.states
         session._carry = ck.carry
         session._detector = ck.detector
@@ -258,21 +295,51 @@ class StreamSession:
         answer from the new grid. ``storage`` migrates the resident
         encoding in the same pass (a new ``StoragePolicy``; default: keep
         the current one).
+
+        On a process grid ``grid`` may have any ``n_c`` up to the group's
+        size: each rank extracts its worker's logical state, the ranks
+        exchange their live records and entries
+        (``core.distributed.exchange_logical``), and each rank builds its
+        own destination worker only.
         """
         hyper = self.cfg.resolved_hyper()
         new_u = u_cap if u_cap is not None else hyper.u_cap
         new_i = i_cap if i_cap is not None else hyper.i_cap
         new_storage = storage if storage is not None else self.cfg.storage
         with trace_lib.span("regrid", self.metrics):
-            logical = self.algorithm.extract_logical(
-                self._states, self.cfg.grid, storage=self.cfg.storage)
+            mesh, relations = None, None
+            if self._mesh is None:
+                logical = self.algorithm.extract_logical(
+                    self._states, self.cfg.grid, storage=self.cfg.storage)
+            else:
+                mesh = make_grid_mesh(grid)
+                logical, relations = distributed.exchange_logical(
+                    self._mesh, self._states, self.cfg.grid,
+                    self.cfg.algorithm, self.cfg.storage)
             self._states = self.algorithm.build_states(
                 logical, src=self.cfg.grid, dst=grid,
-                u_cap=new_u, i_cap=new_i, merge=merge, storage=new_storage)
-            del logical
+                u_cap=new_u, i_cap=new_i, merge=merge, storage=new_storage,
+                workers=None if mesh is None else distributed.rank_workers(
+                    mesh), relations=relations)
+            del logical, relations
             self.cfg = dataclasses.replace(
                 self.cfg, grid=grid, storage=new_storage,
                 hyper=hyper._replace(u_cap=new_u, i_cap=new_i))
+            self._mesh = self.store.mesh = mesh
             self._telemetry.set_capacity(new_u + new_i)
             self._publish()
             self._frontend.retarget(grid, u_cap=u_cap, storage=new_storage)
+
+
+def _grid_mesh(cfg):
+    """The process grid of a ``shard_map`` config, else None."""
+    if pipeline_lib._resolve_backend(cfg) != "shard_map":
+        return None
+    return make_grid_mesh(cfg.grid)
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None and mesh.group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)

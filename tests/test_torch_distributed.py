@@ -24,10 +24,14 @@ case below asserting on what they returned:
     DICS's adaptive drift policy and ``StoragePolicy.compressed()`` on
     ``make_scenario("abrupt", events=6144, seed=0)``: everything bit for
     bit, the telemetry vector, ``forgets`` and the drift flags included;
-  * the mesh: ``make_grid_mesh``'s two refusals, ``grid_from_mesh`` as
-    its inverse, the production layouts, ``grid_state_specs``; the
-    launcher's failures (a rank that fails before the rendezvous, a
-    group past its timeout).
+  * the mesh: ``make_grid_mesh``'s refusal of a grid larger than the
+    group, a smaller grid bound to the group's first ranks (as
+    ``jax.make_mesh``), ``grid_from_mesh`` as its inverse, the
+    production layouts, ``grid_state_specs``; the launcher's failures
+    (a rank that fails before the rendezvous, a group past its timeout).
+
+The session, publishing, checkpoints, restore and rescale on the grid
+are ``tests/test_torch_grid_session.py``'s.
 
 Three spawns in all, each with its own timeout.
 """
@@ -124,13 +128,19 @@ def _policy_cfg(name, backend="scan"):
 def _mesh_checks() -> dict:
     """What ``make_grid_mesh`` does inside a group of RANKS."""
     out = {}
-    for name, grid in (("fewer", rt.GridSpec(4)),
-                       ("more", rt.GridSpec.rect(1, 1))):
-        try:
-            mesh_lib.make_grid_mesh(grid)
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
+    try:
+        mesh_lib.make_grid_mesh(rt.GridSpec(4))
+        out["fewer"] = None
+    except ValueError as e:
+        out["fewer"] = str(e)
+    # A grid smaller than the group binds its first n_c ranks.
+    one = rt.GridSpec.rect(1, 1)
+    small = mesh_lib.make_grid_mesh(one)
+    cfg = dataclasses.replace(_step_cfg("disgd"), grid=one)
+    out["more"] = dict(shape=dict(small.shape), rank=small.rank,
+                       world=small.world, holds=small.holds_worker,
+                       rated=tuple(distributed.init_grid_states(cfg, small)
+                                   .rated.shape))
     mesh = mesh_lib.make_grid_mesh(GRID)
     out["grid"] = distributed.grid_from_mesh(mesh)
     out["shape"] = dict(mesh.shape)
@@ -365,7 +375,12 @@ def test_grid_mesh_inside_a_group(runs, what):
             assert m["fewer"] == ("S&R grid needs 16 devices (4x4); only 4 "
                                   "available")
         elif what == "more":
-            assert "exactly 1 ranks; the process group has 4" in m["more"]
+            # As jax.make_mesh: the first n_c ranks hold the workers, the
+            # others hold an empty state.
+            assert m["more"] == dict(shape={"data": 1, "model": 1},
+                                     rank=rank, world=RANKS,
+                                     holds=rank == 0,
+                                     rated=(int(rank == 0), 64, 32))
         else:
             assert m["grid"] == GRID and m["rank"] == rank
             assert m["shape"] == {"data": 2, "model": 2}
@@ -427,19 +442,6 @@ def test_init_grid_states_holds_one_worker():
     assert states.rated.shape == (1, 128, 32)
     with pytest.raises(ValueError, match="does not match the mesh"):
         distributed.init_grid_states(_stream_cfg("disgd"), mesh)
-
-
-@pytest.mark.parametrize("kw", ["on_publish", "initial_states",
-                                "initial_carry"])
-def test_shard_map_options_raise(kw):
-    users, items = _stream()
-    cfg = _stream_cfg("disgd", backend="shard_map")
-    arg = {"on_publish": dict(on_publish=lambda ev: None),
-           "initial_states": dict(
-               initial_states=rt.core.pipeline.init_states(cfg)),
-           "initial_carry": dict(initial_carry=(users[:4], items[:4]))}[kw]
-    with pytest.raises(ValueError, match=f"{kw}.*item 14b"):
-        rt.run_stream(users, items, cfg, **arg)
 
 
 def test_shard_map_runs_the_reference_worker():

@@ -15,7 +15,11 @@ import it for their functions:
   * with two cards or more, NCCL ranks, one a card, against the same;
   * NCCL at world size 1 (``GridSpec.rect(1, 1)``): every step of the
     loop runs under ``torch.cuda.set_sync_debug_mode("error")`` (NCCL
-    does not stage through the host), and the result equals ``scan``.
+    does not stage through the host), and the result equals ``scan``;
+  * a ``StreamSession`` on two gloo ranks sharing the card
+    (``GridSpec.rect(1, 2)``, publishing every 2 micro-batches): its
+    ``recommend`` equals the one-process ``scan`` session's bit for bit,
+    and each rank launched ``fused_topn`` for its own worker.
 """
 
 import pytest
@@ -28,6 +32,7 @@ import torch  # noqa: E402
 import repro_torch as rt  # noqa: E402
 from repro_torch.core import convert, distributed, engine  # noqa: E402
 from repro_torch.data.stream import MOVIELENS_25M, scaled, synth_stream  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -150,3 +155,31 @@ def test_one_worker_per_rank_holds_one_table(cuda_device):
     states = distributed.init_grid_states(cfg,
                                           mesh_lib.make_grid_mesh(cfg.grid))
     assert states.rated.shape[0] == 1 and states.rated.is_cuda
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,kernel", [("disgd", "fused_topn"),
+                                         ("dics", "dics_topn")])
+def test_grid_session_on_one_card_matches_scan(cuda_device, algo, kernel):
+    """Two ranks sharing the card: every rank's answer is the ``scan``
+    session's, and each launches the serve leaf's kernel as often as the
+    ``scan`` session does (one launch a plane call)."""
+    cfg = _cfg(algo, rt.GridSpec.rect(1, 2))
+    users, items = _stream()
+    q = np.concatenate([np.unique(users)[:100], [10**6]])
+    run = mesh_lib.run_on_ranks(mesh_lib.session_on_rank, 2, "cuda",
+                                [(users, items, cfg, q)], timeout=TIMEOUT)
+    s = rt.StreamSession(cfg, publish=rt.PublishPolicy(every=2, mode="sync"))
+    s.ingest(users, items)
+    ops.reset_launch_counts()
+    want = s.recommend(q)
+    launches = ops.launch_counts()[kernel]
+    assert launches > 0
+    for (out,) in run.results:
+        assert out.launches[kernel] == launches
+        got = out.response
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.scores, want.scores)
+        np.testing.assert_array_equal(got.known, want.known)
+        assert (got.snapshot_version, got.fallbacks) == (
+            want.snapshot_version, want.fallbacks)
