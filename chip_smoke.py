@@ -174,7 +174,8 @@ sessions), after the drift runs are freed:
      algorithm (BPR-MF, DICS, DISGD) on the DICS deployment (4 x 4,
      micro-batch 2,048, u_cap 98,560, i_cap 768, k = 10, each with
      ``DriftPolicy()``) over ``make_scenario("recurring", events=131_072,
-     profile=Netflix with item zipf 1.3)`` in bench_ensemble's 32 segments,
+     profile=Netflix with item zipf 1.3)`` in ``ENSEMBLE_PATH_SEGMENTS``
+     segments (16, cut for the script's time; bench_ensemble has 32),
      then 8 ``recommend`` calls of 1,024 users in blend mode and 8 in switch
      mode; counts zeroed before the ingest, read after the serving (K1 both
      modes, K2-K5); each member's states and recall bits equal to a
@@ -185,9 +186,9 @@ sessions), after the drift runs are freed:
      standalone members' walls, the weight trail, resets, windowed
      Recall@10 (window 400) of blend, switch, best and worst single member,
      recommend p50s, ``fuse_topn`` ms a call, peak memory;
-  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 16
+  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 8
      (``build/chip_smoke_ensemble``), restored at the same grid and run
-     through segments 17-32: weigher, states and recall bits equal to the
+     through segments 9-16: weigher, states and recall bits equal to the
      uninterrupted run's; file bytes, write and restore seconds;
   9e. ``ensemble_bar``: ``bench_ensemble.smoke_rows``'s configuration (DICS
      + DISGD, recurring, 8,192 events, 2 x 2, micro-batch 256, u_cap 256,
@@ -239,7 +240,12 @@ as JAX's ``shard_map``; no kernel is launched):
      and drift flags too);
   9k. ``grid_nccl``: NCCL at world size 1 on ``GridSpec.rect(1, 1)``,
      every loop step under ``torch.cuda.set_sync_debug_mode("error")``,
-     against ``scan``;
+     against ``scan``; then a session publishing every step
+     asynchronously with a reader thread's ``GRID_NCCL_READS`` calls
+     during its second ingest, every step, async boundary and
+     ``publish_async`` under the same mode (the reader takes turns with
+     them: the mode is the process's), each read against a ``scan``
+     replay at the agreed snapshot;
   9l. ``grid_session``: in 9i's group of 16 ranks, after its stream, a
      ``StreamSession`` on ``backend="shard_map"`` at the same widths on
      the first ``GRID_SESSION_EVENTS`` events, publishing every 2
@@ -265,7 +271,25 @@ as JAX's ``shard_map``; no kernel is launched):
      rank's worker and the answers equal at every step, and the serve
      leaf's kernel (K3, K5) launched as often as by ``scan`` on every
      rank that holds a worker (none on an idle rank); file bytes, write
-     and read seconds, rescale ms.
+     and read seconds, rescale ms;
+  9n. ``grid_async``: in 9i's group, after ``grid_session``, the same
+     session under ``PublishPolicy(every=2, mode="async")`` through
+     ``run_service(mode="threaded")``: closed-loop query batches of
+     ``GRID_ASYNC_QUERY_BATCH`` ids while it ingests, each rank a reader
+     thread; every answer and agreement equal to rank 0's, rank 0's equal
+     to the ``scan`` session of 9l replayed at the agreed snapshot (a
+     fresh front-end on each served snapshot as it rotates), every worker
+     its ``scan`` row, K3 launches a rank = plane calls, ``async_rotations``
+     = the boundaries and nothing coalesced; ingest s beside the sync
+     session's, query p50 / p99 / max, the positions served, agreement
+     ms, launch counts;
+  9o. ``grid_service``: in 9j's group, after ``grid_elastic``, on 9m's
+     configuration under an async policy: interleaved ``run_service``
+     (DISGD), the ``Autoscaler`` from one worker (micro-batch 64,
+     capacity factor 0.25, 8 carry slots) and a DICS + DISGD
+     ``EnsembleSession`` over two segments, each against ``scan``
+     (answers, records, decisions, weights, K3 / K5 launches a rank,
+     every worker its row).
 
 LLM serving (K7), after the DICS state is freed:
 
@@ -2295,9 +2319,12 @@ DRIFT_EVENTS, DRIFT_AT = 131_072, 0.3
 # drift_backends_agree: benchmarks/bench_drift.py's small configuration;
 # BPR-MF cut to the stream's first events (its eager worker, on scan and
 # host, takes ~45 s over the whole stream on the card: ~1.3 s a step of
-# 128 events a worker).
+# 128 events a worker; 2,048 until the grid's async phases needed the
+# time). DISGD and DICS keep the whole stream (8,958 events, the drift
+# at 3,293): DISGD's backends must agree across the drift, and DICS's
+# adaptive run must fire and recover.
 DRIFT_SMALL_EVENTS = 32_768
-DRIFT_SMALL_CUT = {"bpr": 2048}
+DRIFT_SMALL_CUT = {"bpr": 1024}
 
 
 def _stream_counters(registry) -> dict:
@@ -3019,11 +3046,15 @@ def _window_pairs(np, s, window, causal):
 
 # ensemble_path: every registered algorithm on the DICS deployment, on
 # drift_path's profile and size under the recurring scenario, ingested
-# in bench_ensemble's 32 segments (benchmarks/bench_ensemble.py:40-46),
-# windowed recall over its 400-event window, served in 8 blend and 8
-# switch calls of SERVE_BATCH users; checkpointed after segment 16.
+# in 16 segments (bench_ensemble's 32, benchmarks/bench_ensemble.py:40-46,
+# until the grid's async phases needed the time: every ingest call runs
+# the 8-step drain tail, so halving the calls halves the phase), windowed
+# recall over its 400-event window, served in 8 blend and 8 switch calls
+# of SERVE_BATCH users; checkpointed after segment 8. ensemble_bar keeps
+# bench_ensemble's 32 segments.
 ENSEMBLE_EVENTS = 131_072
-ENSEMBLE_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 32, 16
+ENSEMBLE_SEGMENTS = 32
+ENSEMBLE_PATH_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 16, 8
 ENSEMBLE_WINDOW, ENSEMBLE_MARGIN = 400, 0.01
 ENSEMBLE_SERVE_CALLS = 8
 # ensemble_bar: bench_ensemble.smoke_rows's configuration.
@@ -3061,6 +3092,20 @@ GRID_SESSION_RESCALE = (2, 4)
 # and a DICS session on its small configuration.
 GRID_ELASTIC_EVENTS = 2048
 GRID_ELASTIC_DIR = ROOT / "build" / "chip_smoke_grid_elastic"
+# grid_async: grid_session's session again under an async policy, through
+# run_service(mode="threaded"): closed-loop query batches of this many ids
+# during the ingest, at least GRID_ASYNC_BATCHES of them.
+GRID_ASYNC_BATCHES, GRID_ASYNC_QUERY_BATCH = 8, 64
+# grid_service: interleaved run_service on grid_elastic's DISGD session
+# (chunks of 512 events, this many query batches of 64 ids), the
+# autoscaler from one worker (tests/test_torch_autoscaler.py's undersized
+# grid: micro-batch 64, capacity factor 0.25, 8 carry slots) over this many
+# ingest calls of 512 random events, and a DICS + DISGD ensemble over two
+# segments of this many events.
+GRID_SERVICE_BATCHES, GRID_AUTOSCALE_ROUNDS, GRID_ENSEMBLE_SEGMENT = 8, 6, 512
+# grid_nccl's session: the first events of its stream, publishing every
+# step, a reader's calls during the second of two ingests.
+GRID_NCCL_SESSION_EVENTS, GRID_NCCL_READS = 512, 4
 
 
 def ensemble_configs(rt):
@@ -3190,7 +3235,7 @@ def _ensemble_phases(torch, np, rt):
                        profile=dataclasses.replace(NETFLIX, item_zipf=1.3))
     gen_s = time.perf_counter() - t0
     cfgs = ensemble_configs(rt)
-    bounds = _segments(np, sc.n, ENSEMBLE_SEGMENTS)
+    bounds = _segments(np, sc.n, ENSEMBLE_PATH_SEGMENTS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ens = rt.EnsembleSession(cfgs)
@@ -3675,28 +3720,64 @@ def _grid_row(run, rows, scan, steps, events) -> dict:
                if rows[0].result.drift_flags is not None else None))
 
 
-def _grid_nccl_rank(info, cases):
+def _grid_nccl_rank(info, cases, session):
     """``stream_on_rank`` with every loop step under sync debug mode
-    "error": a synchronizing call inside the loop raises."""
+    "error" (a synchronizing call inside the loop raises); then a session
+    publishing every step asynchronously with a reader thread during its
+    second ingest, every step, every boundary (``engine._publish_event``)
+    and every ``publish_async`` under the same mode. The mode is global
+    to the process: the reader's calls (which read their answers back)
+    take turns with them behind one lock."""
+    import threading
+
     import torch
 
+    import repro_torch as rt
     from repro_torch.core import distributed, engine
 
+    gate = threading.Lock()
+
+    def checked(fn):
+        def call(*a, **k):
+            with gate:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return call
+
     make = engine._make_batch_step
+    engine._make_batch_step = lambda *a: checked(make(*a))
+    rows = distributed.stream_on_rank(info, cases)
+    engine._publish_event = checked(engine._publish_event)
+    users, items, cfg, queries = session
+    cfg = dataclasses.replace(cfg, backend="shard_map", device=info.device)
+    s = rt.StreamSession(cfg, publish=rt.PublishPolicy(every=1,
+                                                       mode="async"))
+    s.store.publish_async = checked(s.store.publish_async)
+    half = users.size // 2
+    s.ingest(users[:half], items[:half])
+    reads, errors = [], []
 
-    def checked(*args):
-        step = make(*args)
+    def reader():
+        try:
+            for _ in range(GRID_NCCL_READS):
+                with gate:
+                    r = s.recommend(queries)
+                    reads.append((_answer(r), s.store.last_agreement))
+                time.sleep(0.01)
+        except BaseException as e:      # reported by the parent
+            errors.append(repr(e))
 
-        def run(*a):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return step(*a)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return run
-
-    engine._make_batch_step = checked
-    return distributed.stream_on_rank(info, cases)
+    t = threading.Thread(target=reader)
+    t.start()
+    res = s.ingest(users[half:], items[half:])
+    t.join(GRID_TIMEOUT)
+    return rows, dict(reads=reads, errors=errors, alive=t.is_alive(),
+                      final=_answer(s.recommend(queries)),
+                      bits=res.recall.bits(), store=s.store.stats_snapshot(),
+                      digests=_digests(s.states))
 
 
 def _digests(states) -> dict:
@@ -3815,7 +3896,7 @@ def _session_rank(info, users, items, cfg, queries) -> dict:
                digests=_digests(s.states), answers=[a for a, _ in calls],
                ms=[t for _, t in calls], ingest_s=ingest_s,
                ingest_collectives=ingest_coll,
-               serve_collectives=distributed.collective_stats(),
+               serve_collectives=distributed.collective_stats("serve"),
                serve=s.frontend.stats_snapshot(),
                store=s.store.stats_snapshot(),
                fused_topn=ops.launch_counts()["fused_topn"],
@@ -3883,33 +3964,204 @@ def _elastic_steps(torch, rt, cfg, users, items, queries, name) -> dict:
     return out
 
 
+def _answer_digest(answer) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(answer):
+        h.update(repr(answer[key]).encode() if not hasattr(
+            answer[key], "tobytes") else answer[key].tobytes())
+    return h.hexdigest()
+
+
+def _capturing(session, answers):
+    """Record each ``recommend`` answer of ``session`` with its agreement
+    (None in one process) and its ids (``run_service`` calls
+    ``session.recommend``)."""
+    import numpy as np
+
+    call = session.recommend
+
+    def recommend(user_ids, n=None):
+        resp = call(user_ids, n)
+        answers.append((_answer(resp), session.store.last_agreement,
+                        np.asarray(user_ids, np.int64).copy()))
+        return resp
+    session.recommend = recommend
+
+
+def _same_but_version(np, a, b) -> bool:
+    """Answers equal but for the snapshot version (an async ``scan``
+    session's versions count what it coalesced; the grid's do not)."""
+    return all(np.array_equal(a[k], b[k]) for k in a if k != "version")
+
+
+def _async_rank(info, users, items, cfg) -> dict:
+    """``grid_async`` on this rank: ``grid_session``'s session under an
+    async policy through ``run_service(mode="threaded")``; every answer
+    (rank 0) or its digest (the others), with its agreement; the time of
+    each agreement; K3 launches and the plane's calls."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+    from repro_torch.serve.loadgen import LoadConfig
+    from repro_torch.serve.service import ServiceConfig, run_service
+
+    cfg = dataclasses.replace(cfg, backend="shard_map", device=info.device)
+    s = rt.StreamSession(cfg, publish=rt.PublishPolicy(
+        every=GRID_SESSION_EVERY, mode="async"))
+    answers, agree_ms = [], []
+    agree = s.store.agree
+
+    def timed_agree(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return agree(*a, **k)
+        finally:
+            agree_ms.append((time.perf_counter() - t0) * 1e3)
+    s.store.agree = timed_agree
+    _capturing(s, answers)
+    ops.reset_launch_counts()
+    distributed.reset_collective_stats()
+    torch.cuda.synchronize()
+    rep = run_service(
+        s, users, items,
+        LoadConfig(n_users=int(users.max()) + 1, seed=0,
+                   query_batch=GRID_ASYNC_QUERY_BATCH, arrival="closed"),
+        ServiceConfig(mode="threaded", query_batches=GRID_ASYNC_BATCHES))
+    return dict(
+        ingest_s=rep.ingest_wall_s, wall_s=rep.wall_s,
+        summary=rep.summary(),
+        under_load=[r.under_load for r in rep.records],
+        answers=[(a if not info.rank else _answer_digest(a), g, q)
+                 for a, g, q in answers],
+        agree_ms=agree_ms, fused_topn=ops.launch_counts()["fused_topn"],
+        serve=s.frontend.stats_snapshot(), store=s.store.stats_snapshot(),
+        train_collectives=distributed.collective_stats("train"),
+        serve_collectives=distributed.collective_stats("serve"),
+        events=s.events_processed, digests=_digests(s.states))
+
+
 def _grid_path_rank(info, cases, session):
-    """``grid_path``'s stream, then ``grid_session``'s session."""
+    """``grid_path``'s stream, then ``grid_session``'s session and
+    ``grid_async``'s."""
     from repro_torch.core import distributed
 
     return (distributed.stream_on_rank(info, cases),
-            _session_rank(info, *session))
+            _session_rank(info, *session), _async_rank(info, *session[:3]))
 
 
-def _grid_agree_rank(info, cases, elastic):
-    """``grid_agree``'s streams, then ``grid_elastic``'s sessions."""
+def _service_steps(torch, np, rt, cfgs, users, items, queries) -> dict:
+    """``grid_service``'s steps under an async policy on ``cfgs`` (DISGD,
+    DICS; their backend decides where): interleaved ``run_service`` on
+    DISGD, the ``Autoscaler`` from one worker, a two-segment DICS + DISGD
+    ensemble; answers, states (digests: a rank's worker on the grid,
+    every row in one process) and the serve kernels' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.loadgen import LoadConfig
+    from repro_torch.serve.service import ServiceConfig, run_service
+
+    disgd, dics = cfgs
+    grid = disgd.backend == "shard_map"
+
+    def digests(states, g):
+        return _digests(states) if grid else _row_digests(states, g.n_c)
+
+    def policy():
+        return rt.PublishPolicy(every=GRID_SESSION_EVERY, mode="async")
+
+    def launches():
+        c = ops.launch_counts()
+        return c["fused_topn"], c["dics_topn"]
+
+    out = {}
+    s = rt.StreamSession(disgd, publish=policy())
+    answers = []
+    _capturing(s, answers)
+    before = launches()
+    rep = run_service(
+        s, users, items, LoadConfig(n_users=int(users.max()) + 1, seed=5,
+                                    query_batch=64),
+        ServiceConfig(mode="interleaved", events_per_chunk=512,
+                      query_batches=GRID_SERVICE_BATCHES))
+    out["interleaved"] = dict(
+        answers=[a for a, _, _ in answers],
+        records=[(r.staleness_events, r.snapshot_forgets, r.cache_hits,
+                  r.fallbacks) for r in rep.records],
+        store=s.store.stats_snapshot(), digests=digests(s.states, disgd.grid),
+        p50_ms=rep.summary().get("p50_ms"),
+        launches=[a - b for a, b in zip(launches(), before)])
+
+    a_cfg = dataclasses.replace(disgd, grid=rt.GridSpec.rect(1, 1),
+                                micro_batch=64, capacity_factor=0.25,
+                                carry_slots=8)
+    s = rt.StreamSession(a_cfg, publish=policy())
+    scaler = rt.Autoscaler(s, rt.AutoscalePolicy(max_workers=4, cooldown=0))
+    rng = np.random.default_rng(7)
+    actions, dropped, answers = [], 0, []
+    for _ in range(GRID_AUTOSCALE_ROUNDS):
+        u = rng.integers(0, 400, 512).astype(np.int32)
+        i = rng.integers(0, 160, 512).astype(np.int32)
+        dropped += s.ingest(u, i).dropped
+        answers.append(_answer(s.recommend(u[:8])))
+        actions.append(scaler.step())
+    out["autoscale"] = dict(actions=actions, dropped=dropped,
+                            answers=answers, grid=list(s.grid.shape),
+                            store=s.store.stats_snapshot(),
+                            digests=digests(s.states, s.grid))
+
+    e = rt.EnsembleSession([dics, disgd], publish=policy())
+    weights = []
+    for j in range(2):
+        lo, hi = j * GRID_ENSEMBLE_SEGMENT, (j + 1) * GRID_ENSEMBLE_SEGMENT
+        weights.append({k: v.tolist() for k, v in
+                        e.ingest(users[lo:hi], items[lo:hi]).weights.items()})
+    before = launches()
+    answer = _answer(e.recommend(queries))
+    out["ensemble"] = dict(
+        weights=weights, answer=answer, resets=e.exploration_resets,
+        launches=[a - b for a, b in zip(launches(), before)],
+        digests={name: digests(m.states, m.grid)
+                 for name, m in e.members.items()})
+    return out
+
+
+def _grid_agree_rank(info, cases, elastic, service):
+    """``grid_agree``'s streams, then ``grid_elastic``'s sessions and
+    ``grid_service``'s steps."""
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
     from repro_torch.core import distributed
 
+    cfgs, users, items, queries = service
+    cfgs = [dataclasses.replace(c, backend="shard_map", device=info.device)
+            for c in cfgs]
     return (distributed.stream_on_rank(info, cases),
-            [_elastic_rank(info, *e) for e in elastic])
+            [_elastic_rank(info, *e) for e in elastic],
+            _service_steps(torch, np, rt, cfgs, users, items, queries))
 
 
 def _grid_session_check(torch, np, rt, sessions, users, items, cfg,
-                        queries):
+                        queries, served):
     """``grid_session``: each rank's session against the ``scan`` session
-    of the same cut in this process; emits the phase's line."""
+    of the same cut in this process; emits the phase's line. The
+    ``scan`` session also replays ``grid_async``: ``served`` maps a
+    version to the ids the grid answered from it, and each is answered
+    by a fresh front-end on that snapshot as it rotates (no copy kept).
+    Returns ``({(version, ids): (events, answer)}, the scan worker
+    rows' digests)``."""
     from repro_torch.kernels import ops
 
-    ops.reset_launch_counts()
     s = _grid_session(rt, cfg)
+    replay = _replayed(rt, s, served)
     t0 = time.perf_counter()
     res = s.ingest(users, items)
     scan_ingest_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
     calls = [_timed_recommend(torch, s, queries) for _ in range(2)]
     scan_launches = ops.launch_counts()["fused_topn"]
     rows = _row_digests(s.states, cfg.grid.n_c)
@@ -3983,6 +4235,151 @@ def _grid_session_check(torch, np, rt, sessions, users, items, cfg,
          rescale_collectives=sessions[0]["rescale_collectives"]["calls"],
          rescale_collective_bytes_per_rank=[
              g["rescale_collectives"]["bytes"] for g in sessions])
+    return replay, rows
+
+
+def _replayed(rt, session, served) -> dict:
+    """Answer, as ``session``'s snapshots rotate, the ids a grid answered
+    from the same version (``served``: version -> ids arrays), each by a
+    fresh front-end on that snapshot alone, so that no snapshot is kept.
+    Returns the dict it fills: ``{(version, ids bytes): (events,
+    answer)}``."""
+    replay = {}
+
+    def answer_at(snap):
+        for ids in served.get(snap.version, ()):
+            one = rt.SnapshotStore()
+            one.publish(snap.states, snap.events_processed, snap.forgets)
+            front = rt.QueryFrontend(one, session.frontend.cfg)
+            replay[(snap.version, ids.tobytes())] = (
+                snap.events_processed, _answer(front.serve(ids)))
+
+    session.store.subscribe(answer_at)
+    return replay
+
+
+def _replay_equal(np, answer, agreement, ids, replay) -> bool:
+    events, want = replay[(agreement.version, ids.tobytes())]
+    return agreement.events_processed == events and all(
+        np.array_equal(answer[k], want[k])
+        for k in ("ids", "scores", "known", "fallbacks"))
+
+
+def _grid_async_check(np, asyncs, sessions, cfg, replay, rows, n) -> dict:
+    """``grid_async``: every rank's threaded service run under an async
+    policy against rank 0's and the ``scan`` replay; returns the phase's
+    numbers."""
+    base = asyncs[0]
+    boundaries = math.ceil(_steps(n, cfg) / GRID_SESSION_EVERY)
+    for rank, got in enumerate(asyncs):
+        what = f"grid_async: rank {rank}"
+        if len(got["answers"]) != len(base["answers"]):
+            fail(f"{what}: {len(got['answers'])} query batches, rank 0 "
+                 f"{len(base['answers'])}")
+        for j, ((a, ga, qa), (b, gb, qb)) in enumerate(
+                zip(got["answers"], base["answers"])):
+            if ga != gb or not np.array_equal(qa, qb) or (
+                    rank and a != _answer_digest(b)):
+                fail(f"{what}: batch {j} differs from rank 0's")
+        if got["under_load"] != base["under_load"]:
+            fail(f"{what}: under-load batches differ from rank 0's")
+        if got["events"] != n:
+            fail(f"{what}: {got['events']} events processed of {n}")
+        st = got["store"]
+        if st["coalesced"] or st["async_rotations"] != boundaries:
+            fail(f"{what}: {st} against {boundaries} boundaries")
+        plane = got["serve"]["plane_batches"]
+        if got["fused_topn"] != plane or plane < 1:
+            fail(f"{what}: fused_topn launched {got['fused_topn']} times "
+                 f"for {plane} plane calls")
+        if got["serve_collectives"]["calls"] != (
+                got["serve"]["collectives"] + got["serve"]["agreements"]):
+            fail(f"{what}: serve-group calls are not the plane's and the "
+                 f"agreements'")
+        differ = [k for k, v in rows[rank].items() if got["digests"][k] != v]
+        if differ:
+            fail(f"{what}: worker differs from its scan row in {differ}")
+    positions = []
+    for j, (answer, agreement, ids) in enumerate(base["answers"]):
+        if not _replay_equal(np, answer, agreement, ids, replay):
+            fail(f"grid_async: batch {j} differs from the scan replay at "
+                 f"v{agreement.version}")
+        positions.append(agreement.events_processed)
+    if sum(base["under_load"]) < 1:
+        fail("grid_async: no query batch ran during the ingest")
+    lat = [g["summary"] for g in asyncs]
+    return dict(
+        query_batches=len(base["answers"]),
+        under_load=sum(base["under_load"]),
+        positions_served=sorted(set(positions)),
+        ingest_s=[g["ingest_s"] for g in asyncs],
+        sync_ingest_s=[g["ingest_s"] for g in sessions],
+        query_p50_ms=statistics.median(x["p50_ms"] for x in lat),
+        query_p99_ms=statistics.median(x["p99_ms"] for x in lat),
+        query_max_ms=max(x["max_ms"] for x in lat),
+        agree_ms_p50=[statistics.median(g["agree_ms"]) for g in asyncs],
+        agree_ms_max=[max(g["agree_ms"]) for g in asyncs],
+        agreements=base["serve"]["agreements"],
+        plane_calls=base["serve"]["plane_batches"],
+        fused_topn_per_rank=[g["fused_topn"] for g in asyncs],
+        serve_collective_ms=[g["serve_collectives"]["ms"] for g in asyncs],
+        train_collectives=base["train_collectives"]["calls"],
+        boundaries=boundaries,
+        async_rotations_plus_coalesced=(base["store"]["async_rotations"]
+                                        + base["store"]["coalesced"]))
+
+
+def _grid_service_check(torch, np, rt, ranks, cfgs, users, items,
+                        queries) -> dict:
+    """``grid_service``: each rank's steps against ``scan``'s; returns the
+    phase's numbers."""
+    scan = _service_steps(torch, np, rt, cfgs, users, items, queries)
+    for rank, got in enumerate(ranks):
+        what = f"grid_service: rank {rank}"
+        a, b = got["interleaved"], scan["interleaved"]
+        if a["records"] != b["records"] or len(a["answers"]) != len(
+                b["answers"]) or not all(
+                _same_but_version(np, x, y)
+                for x, y in zip(a["answers"], b["answers"])):
+            fail(f"{what}: interleaved run differs from scan")
+        if a["store"]["coalesced"] or a["store"]["async_rotations"] != (
+                b["store"]["async_rotations"] + b["store"]["coalesced"]):
+            fail(f"{what}: async publishes {a['store']} against scan's "
+                 f"{b['store']}")
+        if a["digests"] != b["digests"][rank] or a["launches"] != b[
+                "launches"]:
+            fail(f"{what}: interleaved worker or K3 launches differ")
+        a, b = got["autoscale"], scan["autoscale"]
+        if [a[k] for k in ("actions", "dropped", "grid")] != [
+                b[k] for k in ("actions", "dropped", "grid")] or not all(
+                _same_but_version(np, x, y)
+                for x, y in zip(a["answers"], b["answers"])):
+            fail(f"{what}: autoscaler {a['actions']} / {a['dropped']} "
+                 f"against scan's {b['actions']} / {b['dropped']}")
+        n_c = b["grid"][0] * b["grid"][1]
+        if rank < n_c and a["digests"] != b["digests"][rank]:
+            fail(f"{what}: autoscaled worker differs from its scan row")
+        a, b = got["ensemble"], scan["ensemble"]
+        if (a["weights"], a["resets"], a["launches"]) != (
+                b["weights"], b["resets"], b["launches"]) or not (
+                _same_but_version(np, a["answer"], b["answer"])):
+            fail(f"{what}: ensemble differs from scan")
+        for name, rows in b["digests"].items():
+            if a["digests"][name] != rows[rank]:
+                fail(f"{what}: ensemble member {name} differs from its row")
+    if "grow" not in scan["autoscale"]["actions"]:
+        fail("grid_service: the autoscaler never grew")
+    if min(scan["ensemble"]["launches"]) < 1:
+        fail("grid_service: the ensemble's recommend launched no K3 / K5")
+    return dict(
+        interleaved_batches=GRID_SERVICE_BATCHES,
+        interleaved_p50_ms=[r["interleaved"]["p50_ms"] for r in ranks],
+        scan_interleaved_p50_ms=scan["interleaved"]["p50_ms"],
+        k3_per_rank=[r["interleaved"]["launches"][0] for r in ranks],
+        autoscale_actions=scan["autoscale"]["actions"],
+        autoscale_grid=scan["autoscale"]["grid"],
+        ensemble_weights=scan["ensemble"]["weights"][-1],
+        ensemble_k3_k5_per_rank=[r["ensemble"]["launches"] for r in ranks])
 
 
 def _grid_elastic_check(torch, np, rt, ranks, users, items, cfg, queries):
@@ -4049,6 +4446,7 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
                                 timeout=GRID_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     sessions = [r[1] for r in run.results]
+    asyncs = [r[2] for r in run.results]
     rows = [r[0][0] for r in run.results]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4070,8 +4468,22 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
     torch.cuda.empty_cache()
 
     # -- grid_session -------------------------------------------------------------
-    _grid_session_check(torch, np, rt, sessions, su, si, cfg, queries)
-    del sessions, run
+    served = {}
+    for _, agreement, ids in asyncs[0]["answers"]:
+        served.setdefault(agreement.version, []).append(ids)
+    replay, scan_rows = _grid_session_check(torch, np, rt, sessions, su, si,
+                                            cfg, queries, served)
+
+    # -- grid_async ---------------------------------------------------------------
+    emit("grid_async", stream="synth_stream(MOVIELENS_25M, seed=0)",
+         cut=f"first {GRID_SESSION_EVENTS} events",
+         grid=[cfg.grid.n_i, cfg.grid.g], ranks=len(asyncs),
+         publish=f"every {GRID_SESSION_EVERY}, async",
+         service=f"threaded, closed loop, {GRID_ASYNC_QUERY_BATCH} ids a "
+                 f"batch, at least {GRID_ASYNC_BATCHES} batches",
+         **_grid_async_check(np, asyncs, sessions, cfg, replay, scan_rows,
+                             int(su.size)))
+    del sessions, asyncs, replay, run
     torch.cuda.empty_cache()
 
     # -- grid_agree ---------------------------------------------------------------
@@ -4099,11 +4511,12 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
                                             forgetting=None), eq),
                (eu, ei, dataclasses.replace(cases["dics.adaptive"][2],
                                             drift=None), eq)]
+    service = ((elastic[0][2], elastic[1][2]), eu, ei, eq)
     # A stale checkpoint of another cut would be restored by both sides.
     shutil.rmtree(GRID_ELASTIC_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     run = mesh_lib.run_on_ranks(_grid_agree_rank, 4, "cuda",
-                                list(cases.values()), elastic,
+                                list(cases.values()), elastic, service,
                                 timeout=GRID_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     out = {}
@@ -4132,23 +4545,69 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
              torch, np, rt, [r[1][j] for r in run.results], *e)
              for j, e in enumerate(elastic)})
 
+    # -- grid_service -------------------------------------------------------------
+    emit("grid_service", stream=f"make_scenario('abrupt', events="
+         f"{DRIFT_SMALL_EVENTS}, seed=0, at=0.3)",
+         cut=f"first {GRID_ELASTIC_EVENTS} events", ranks=len(run.results),
+         publish=f"every {GRID_SESSION_EVERY}, async",
+         autoscale=f"from GridSpec.rect(1, 1), micro-batch 64, capacity "
+                   f"factor 0.25, {GRID_AUTOSCALE_ROUNDS} ingests of 512 "
+                   f"random events",
+         **_grid_service_check(torch, np, rt, [r[2] for r in run.results],
+                               *service))
+
     # -- grid_nccl ----------------------------------------------------------------
     ncfg = dataclasses.replace(cases["disgd.fixed"][2],
                                grid=rt.GridSpec.rect(1, 1))
     nu, ni = sc.users[:GRID_NCCL_EVENTS], sc.items[:GRID_NCCL_EVENTS]
+    scfg = dataclasses.replace(ncfg, forgetting=None)
+    su, si = nu[:GRID_NCCL_SESSION_EVENTS], ni[:GRID_NCCL_SESSION_EVENTS]
+    nq = _grid_session_queries(np, su, known=64, unknown=16)
     t0 = time.perf_counter()
     run = mesh_lib.run_on_ranks(_grid_nccl_rank, 1, "cuda",
-                                [(nu, ni, ncfg)], timeout=GRID_TIMEOUT)
+                                [(nu, ni, ncfg)], (su, si, scfg, nq),
+                                timeout=GRID_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     if run.backend != "nccl":
         fail(f"grid_nccl: the launcher chose {run.backend}")
-    rows = [run.results[0][0]]
+    rows = [run.results[0][0][0]]
     scan = rt.run_stream(nu, ni, ncfg)
     err = _grid_agrees(np, rows, scan, ncfg, "grid_nccl")
+    # The async session against a sync scan session (the same versions:
+    # the grid never coalesces), replayed at the versions the reader got.
+    got = run.results[0][1]
+    if got["errors"] or got["alive"] or len(got["reads"]) != GRID_NCCL_READS:
+        fail(f"grid_nccl: the reader failed: {got['errors']}")
+    served = {}
+    for _, agreement in got["reads"]:
+        served.setdefault(agreement.version, []).append(nq)
+    s = rt.StreamSession(scfg, publish=rt.PublishPolicy(every=1,
+                                                        mode="sync"))
+    replay = _replayed(rt, s, served)
+    half = su.size // 2
+    s.ingest(su[:half], si[:half])
+    res = s.ingest(su[half:], si[half:])
+    for j, (answer, agreement) in enumerate(got["reads"]):
+        if not _replay_equal(np, answer, agreement, nq, replay):
+            fail(f"grid_nccl: read {j} differs from the scan replay")
+    if not (_bits_same(np, got["bits"], res.recall.bits())
+            and got["digests"] == _row_digests(s.states, 1)[0]
+            and all(np.array_equal(got["final"][k], v)
+                    for k, v in _answer(s.recommend(nq)).items()
+                    if k in ("ids", "scores", "known", "fallbacks"))):
+        fail("grid_nccl: the async session differs from scan")
+    if got["store"]["coalesced"]:
+        fail(f"grid_nccl: {got['store']['coalesced']} publishes coalesced")
     emit("grid_nccl", **_grid_row(run, rows, scan,
                                   _steps(nu.size, ncfg), int(nu.size)),
          policy="lru (bench_drift)", grid=[1, 1], run_s=spawn_s,
-         sync_debug="error inside every step", max_abs_err=err)
+         sync_debug="error inside every step, async boundary and "
+                    "publish_async",
+         session=dict(publish="every 1, async", events=int(su.size),
+                      reads=len(got["reads"]),
+                      versions_read=[a.version for _, a in got["reads"]],
+                      async_rotations=got["store"]["async_rotations"]),
+         max_abs_err=err)
 
 
 def _llm_phases(torch, np, dev):

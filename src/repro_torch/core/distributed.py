@@ -43,11 +43,22 @@ worker (``exchange_logical``): the live records and the live entries of
 two all-gathers (the lengths, then the padded entries). So only rank 0,
 at a checkpoint, ever holds the grid's dense tables.
 
-``collective_stats()`` counts the collectives since the last
-``reset_collective_stats()``, the bytes they wrote on this rank and
+Two groups of the same ranks carry them (``launch.mesh.Mesh``): the
+default group (``group="train"``) every collective of the trainer's
+thread (the steps, the boundaries' popularity gathers, checkpoints and
+rescales), the serve group (``group="serve"``) the reader's: the
+plane's all-gathers and the agreement of a ``serve`` call
+(:func:`serve_agree`, one all-reduce of a few int64 words). A thread
+never issues a collective on the other's group, so a ``recommend``
+during ``ingest`` cannot pair one rank's all-gather with another's
+all-reduce.
+
+``collective_stats(group)`` counts a group's collectives since the
+last ``reset_collective_stats()``, the bytes they wrote on this rank and
 their milliseconds (CUDA events on a card, read when asked; the host
 clock on the CPU, where gloo's collectives return when they are
-done).
+done). Each group has its own counter: the trainer's thread and the
+reader's never share one.
 """
 
 from __future__ import annotations
@@ -79,32 +90,55 @@ __all__ = [
     "gather_item_stats",
     "gather_logical",
     "exchange_logical",
+    "serve_agree",
     "collective_stats",
     "reset_collective_stats",
     "RankStream",
     "stream_on_rank",
 ]
 
-# Collectives since the last reset: their count, the bytes they wrote on
-# this rank, host milliseconds (CPU) and (start, end) CUDA event pairs
-# (card).
-_stats = {"calls": 0, "bytes": 0, "host_ms": 0.0, "events": []}
+# The mesh's groups by name: the trainer's and the reader's.
+GROUPS = ("train", "serve")
 
 
-def collective_stats() -> dict:
-    """``{"calls": n, "bytes": b, "ms": t}``: collectives, the bytes they
+def _zero() -> dict:
+    return {"calls": 0, "bytes": 0, "host_ms": 0.0, "events": []}
+
+
+# A group's collectives since the last reset: their count, the bytes they
+# wrote on this rank, host milliseconds (CPU) and (start, end) CUDA event
+# pairs (card).
+_stats = {name: _zero() for name in GROUPS}
+
+
+def collective_stats(group: str = "train") -> dict:
+    """``{"calls": n, "bytes": b, "ms": t}``: ``group``'s collectives
+    (``"train"``, the default group, or ``"serve"``), the bytes they
     wrote on this rank (an all-reduce's buffer, a gather's output) and
     their milliseconds since the last reset (waits for the card's pending
     events)."""
-    ms = _stats["host_ms"]
-    for a, b in _stats["events"]:
+    st = _stats[group]
+    ms = st["host_ms"]
+    for a, b in list(st["events"]):
         b.synchronize()
         ms += a.elapsed_time(b)
-    return {"calls": _stats["calls"], "bytes": _stats["bytes"], "ms": ms}
+    return {"calls": st["calls"], "bytes": st["bytes"], "ms": ms}
 
 
 def reset_collective_stats() -> None:
-    _stats.update(calls=0, bytes=0, host_ms=0.0, events=[])
+    """Zero every group's counter."""
+    for name in GROUPS:
+        _stats[name] = _zero()
+
+
+def _group(mesh, group: str):
+    """The process group ``group`` names on ``mesh`` (None in a world of
+    one process)."""
+    if group == "train":
+        return mesh.group
+    if group == "serve":
+        return mesh.serve_group
+    raise ValueError(f"unknown group {group!r}; one of {GROUPS}")
 
 
 def grid_axes(mesh):
@@ -199,30 +233,54 @@ def grid_state_specs(cfg, mesh):
                      *(None if t is None else spec for t in one[1:]))
 
 
-def _timed(buf: torch.Tensor, call, out_bytes: int | None = None) -> None:
-    """Run one collective ``call()`` on ``buf``'s device, counted with the
-    ``out_bytes`` it writes here (default: ``buf``'s)."""
-    _stats["calls"] += 1
-    _stats["bytes"] += (buf.numel() * buf.element_size()
-                        if out_bytes is None else out_bytes)
+def _timed(buf: torch.Tensor, call, out_bytes: int | None = None,
+           group: str = "train") -> None:
+    """Run one collective ``call()`` on ``buf``'s device, counted in
+    ``group``'s stats with the ``out_bytes`` it writes here (default:
+    ``buf``'s)."""
+    st = _stats[group]
+    st["calls"] += 1
+    st["bytes"] += (buf.numel() * buf.element_size()
+                    if out_bytes is None else out_bytes)
     if buf.is_cuda:
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         call()
         b.record()
-        _stats["events"].append((a, b))
+        st["events"].append((a, b))
     else:
         t0 = time.perf_counter()
         call()
-        _stats["host_ms"] += (time.perf_counter() - t0) * 1e3
+        st["host_ms"] += (time.perf_counter() - t0) * 1e3
 
 
-def _all_reduce(mesh, buf: torch.Tensor) -> None:
+def _all_reduce(mesh, buf: torch.Tensor, group: str = "train",
+                op=None) -> None:
     import torch.distributed as dist
 
-    if mesh.group is None:      # a world of one process
+    pg = _group(mesh, group)
+    if pg is None:      # a world of one process
         return
-    _timed(buf, lambda: dist.all_reduce(buf, group=mesh.group))
+    op = dist.ReduceOp.SUM if op is None else op
+    _timed(buf, lambda: dist.all_reduce(buf, op=op, group=pg), group=group)
+
+
+def serve_agree(mesh, values, device="cpu") -> list:
+    """The agreement of a ``serve`` call: the largest of each of
+    ``values`` (ints) over the ranks, by one all-reduce (MAX) of one
+    int64 buffer on the serve group; every rank gets the same list. On
+    the host under gloo, on ``device`` (the rank's card) under NCCL,
+    which reduces card buffers only."""
+    import torch.distributed as dist
+
+    pg = mesh.serve_group
+    if pg is None:      # a world of one process
+        return [int(v) for v in values]
+    dev = "cpu" if dist.get_backend(pg) == "gloo" else device
+    buf = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                       device=dev)
+    _all_reduce(mesh, buf, "serve", dist.ReduceOp.MAX)
+    return buf.tolist()
 
 
 def grid_all_reduce(mesh, rows, scalars=()):
@@ -300,8 +358,9 @@ def _split_rows(mesh, out, rows):
     return got
 
 
-def grid_all_gather(mesh, rows):
-    """One all-gather that gives every rank the whole grid's rows.
+def grid_all_gather(mesh, rows, group: str = "train"):
+    """One all-gather on ``group`` that gives every rank the whole grid's
+    rows.
 
     ``rows`` are this rank's ``[1, ...]`` tensors (``[0, ...]`` on a rank
     without a worker, which adds zeros) of float32, uint32, int32 or
@@ -309,51 +368,54 @@ def grid_all_gather(mesh, rows):
     ``w``, in the rows' dtypes, bit for bit. One int32 buffer a rank."""
     import torch.distributed as dist
 
-    if mesh.group is None:      # a world of one process
+    pg = _group(mesh, group)
+    if pg is None:      # a world of one process
         return list(rows)
     buf = _own_rows(mesh, rows)
     out = torch.empty((mesh.world, buf.numel()), dtype=torch.int32,
                       device=buf.device)
-    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf,
-                                        group=mesh.group),
-           out.numel() * 4)
+    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf, group=pg),
+           out.numel() * 4, group)
     return _split_rows(mesh, out, rows)
 
 
-def gather_item_stats(mesh, states):
+def gather_item_stats(mesh, states, group: str = "train"):
     """The whole grid's ``state.item_stats``: item ids and popularity
-    weights ``[n_c, i_cap]`` from this rank's worker, one all-gather.
-    Gathered before any aggregation, so that an item replicated on ``g``
-    workers counts every replica once."""
+    weights ``[n_c, i_cap]`` from this rank's worker, one all-gather on
+    ``group``. Gathered before any aggregation, so that an item
+    replicated on ``g`` workers counts every replica once."""
     ids, weight = state_lib.item_stats(states)
-    return tuple(grid_all_gather(mesh, [ids, weight]))
+    return tuple(grid_all_gather(mesh, [ids, weight], group))
 
 
 def grid_gather(mesh, rows):
     """``grid_all_gather`` to rank 0 only: the ``[n_c, ...]`` tensors
     there, ``None`` on every other rank, which receives nothing. One
-    gather of one int32 buffer a rank."""
+    gather of one int32 buffer a rank, on the default group."""
     import torch.distributed as dist
 
-    if mesh.group is None:      # a world of one process
+    pg = mesh.group
+    if pg is None:      # a world of one process
         return list(rows)
     buf = _own_rows(mesh, rows)
     root = not mesh.rank
     out = (torch.empty((mesh.world, buf.numel()), dtype=torch.int32,
                        device=buf.device) if root else None)
     _timed(buf, lambda: dist.gather(
-        buf, list(out.unbind(0)) if root else None, dst=0,
-        group=mesh.group), out.numel() * 4 if root else 0)
+        buf, list(out.unbind(0)) if root else None, dst=0, group=pg),
+        out.numel() * 4 if root else 0)
     return _split_rows(mesh, out, rows) if root else None
 
 
 def _all_gather_var(mesh, parts):
     """Every rank's int32 ``parts`` (1-D, their lengths free), on every
-    rank: ``[rank][part]``. Two all-gathers: the lengths, then each
-    rank's parts in one buffer padded to the longest."""
+    rank: ``[rank][part]``. Two all-gathers on the default group: the
+    lengths, then each rank's parts in one buffer padded to the
+    longest."""
     import torch.distributed as dist
 
-    if mesh.group is None:      # a world of one process
+    pg = mesh.group
+    if pg is None:      # a world of one process
         return [list(parts)]
     dev = parts[0].device
     lens = torch.tensor([p.numel() for p in parts], dtype=torch.int32,
@@ -361,15 +423,15 @@ def _all_gather_var(mesh, parts):
     all_lens = torch.empty((mesh.world, lens.numel()), dtype=torch.int32,
                            device=dev)
     _timed(lens, lambda: dist.all_gather(list(all_lens.unbind(0)), lens,
-                                         group=mesh.group),
+                                         group=pg),
            all_lens.numel() * 4)
     all_lens = all_lens.tolist()
     width = max(1, max(sum(x) for x in all_lens))
     buf = torch.zeros(width, dtype=torch.int32, device=dev)
     buf[:sum(p.numel() for p in parts)] = torch.cat(list(parts))
     out = torch.empty((mesh.world, width), dtype=torch.int32, device=dev)
-    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf,
-                                        group=mesh.group), out.numel() * 4)
+    _timed(buf, lambda: dist.all_gather(list(out.unbind(0)), buf, group=pg),
+           out.numel() * 4)
     return [list(out[r].split(all_lens[r] + [width - sum(all_lens[r])])
                  [:-1]) for r in range(mesh.world)]
 

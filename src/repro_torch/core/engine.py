@@ -388,8 +388,12 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
     ``[n_c, ...]`` tree, of which the rank copies its row.
     ``initial_carry`` and ``initial_detector`` are the grid's, the same
     on every rank. A ``shard_map`` publish event's states are a copy of
-    the rank's worker and its scalars the grid's; it publishes in sync
-    mode only (``publish_sync=False`` raises, ROADMAP item 14c).
+    the rank's worker and its scalars the grid's, in either mode: with
+    ``publish_sync=False`` they are 0-d tensor copies, as on ``cuda``,
+    and the boundary reads nothing back (its only collective is the
+    subscriber's: ``SnapshotStore.publish_async`` gathers the grid's
+    item stats there, on the default group, at the same boundary on
+    every rank).
 
     With ``on_publish``, the stream runs in segments of ``publish_every``
     steps (the whole stream when 0) and ``on_publish(PublishEvent)``
@@ -428,11 +432,6 @@ def run_stream_device(users: np.ndarray, items: np.ndarray, cfg, backend: str,
     if backend == "shard_map":
         from repro_torch.launch.mesh import make_grid_mesh
 
-        if on_publish is not None and not publish_sync:
-            raise ValueError(
-                "backend='shard_map' publishes in sync mode only "
-                "(publish_sync=True): async publishing on a process grid "
-                "is ROADMAP Queue 1 item 14c")
         mesh = make_grid_mesh(cfg.grid)
         initial_states = (distributed.init_grid_states(cfg, mesh)
                           if initial_states is None

@@ -9,6 +9,15 @@ is bound to the running group, that group and this process's rank.
 Importing the module starts no process and touches neither the process
 group nor CUDA.
 
+A bound mesh carries two groups of the same ranks and backend: the
+default group, which carries the trainer's collectives (the steps'
+all-reduces, the boundaries' gathers, checkpoints and rescales), and a
+serve group, which carries the reader's (``serve``'s agreement and the
+plane's all-gathers), so that a ``recommend`` on another thread during
+``ingest`` never interleaves its collectives with the trainer's on one
+group. ``make_grid_mesh`` creates the serve group once per process, the
+first time every rank calls it.
+
 ``run_on_ranks`` starts such a group on one host (the tests' and the
 smoke's launcher): ``n_ranks`` processes by ``torch.multiprocessing``'s
 spawn, a ``file://`` rendezvous in a fresh temporary directory (so two
@@ -48,13 +57,16 @@ class Mesh(NamedTuple):
     group and this process's rank when the mesh is bound to one, else
     ``None`` (a layout only, or a world of one process); ``world`` is the
     group's size, which may exceed the mesh's (the ranks from ``size`` up
-    hold no coordinate)."""
+    hold no coordinate). ``serve_group`` is the group of the same ranks
+    that the serving plane's collectives run on (``None`` with
+    ``group``)."""
 
     axis_names: tuple
     shape: dict
     group: Any = None
     rank: int | None = None
     world: int = 1
+    serve_group: Any = None
 
     @property
     def size(self) -> int:
@@ -66,8 +78,10 @@ class Mesh(NamedTuple):
         return (self.rank or 0) < self.size
 
 
-def _layout(sizes, axes, group=None, rank=None, world=1) -> Mesh:
-    return Mesh(tuple(axes), dict(zip(axes, sizes)), group, rank, world)
+def _layout(sizes, axes, group=None, rank=None, world=1,
+            serve_group=None) -> Mesh:
+    return Mesh(tuple(axes), dict(zip(axes, sizes)), group, rank, world,
+                serve_group)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -84,14 +98,37 @@ def make_cpu_mesh(data: int = 1, model: int = 1) -> Mesh:
     return _layout((data, model), ("data", "model"))
 
 
+# The serve group of the running default group: (default group, serve
+# group), made by the first ``make_grid_mesh`` of the process group.
+_serve = (None, None)
+# The timeout ``run_on_ranks`` gave the default group, for the serve group.
+_timeout = None
+
+
+def _serve_group(world_group):
+    """The serve group beside ``world_group``: the same ranks and
+    backend, created once (every rank must create it in the same order,
+    so it is made where every rank calls ``make_grid_mesh``)."""
+    global _serve
+    import torch.distributed as dist
+
+    if _serve[0] is not world_group:
+        kw = {} if _timeout is None else {"timeout": _timeout}
+        _serve = (world_group, dist.new_group(
+            backend=dist.get_backend(world_group), **kw))
+    return _serve[1]
+
+
 def _world():
-    """(process group, rank, world size) of the running default group;
-    ``(None, 0, 1)`` without one."""
+    """(process group, rank, world size, serve group) of the running
+    default group; ``(None, 0, 1, None)`` without one."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.group.WORLD, dist.get_rank(), dist.get_world_size()
-    return None, 0, 1
+        world = dist.group.WORLD
+        return (world, dist.get_rank(), dist.get_world_size(),
+                _serve_group(world))
+    return None, 0, 1, None
 
 
 def make_grid_mesh(grid) -> Mesh:
@@ -103,14 +140,16 @@ def make_grid_mesh(grid) -> Mesh:
     issue the same collectives, adding nothing to them. Raises
     ``ValueError`` with JAX's message when the group has fewer than
     ``n_c`` ranks. Without a process group the world is this one
-    process."""
-    group, rank, have = _world()
+    process. The first call in a process group creates the mesh's serve
+    group (``Mesh.serve_group``): every rank must make it."""
+    group, rank, have, serve = _world()
     needed = grid.n_c
     if have < needed:
         raise ValueError(
             f"S&R grid needs {needed} devices ({grid.n_i}x{grid.g}); "
             f"only {have} available")
-    return _layout((grid.g, grid.n_i), ("data", "model"), group, rank, have)
+    return _layout((grid.g, grid.n_i), ("data", "model"), group, rank, have,
+                   serve)
 
 
 def _choose_backend(n_ranks: int, device: str) -> str:
@@ -143,6 +182,7 @@ class RankRun(NamedTuple):
 
 
 def _rank_main(rank, world, device, backend, tmp, timeout):
+    global _timeout
     import torch
     import torch.distributed as dist
 
@@ -160,10 +200,10 @@ def _rank_main(rank, world, device, backend, tmp, timeout):
         index = rank % torch.cuda.device_count()
         torch.cuda.set_device(index)
         dev = f"cuda:{index}"
+    _timeout = datetime.timedelta(seconds=timeout)
     dist.init_process_group(
         backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
-        world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout))
+        world_size=world, rank=rank, timeout=_timeout)
     try:
         out = fn(RankInfo(rank, world, dev, backend), *args)
     finally:

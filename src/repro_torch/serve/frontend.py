@@ -28,11 +28,18 @@ behind the training steps already enqueued there. Staleness is enforced
 at acquire time via ``ServeConfig.publish.max_staleness_events``.
 
 On the process grid (the store's ``mesh``, ``backend="shard_map"``)
-every rank runs ``serve`` with the same ids: its cache, generations,
-micro-batches and fallback rows evolve alike on every rank, so every
-rank makes the same plane calls, each one all-gather of the partial
-lists (``plane.grid_topn(mesh=)``), and gets the same answer. The serve
-stats then also count the ranks and those collectives.
+every rank runs ``serve`` with the same ids, one call at a time. A call
+that may race the trainer (on a reader thread, or while ``ingest``
+runs) begins with the ranks' agreement on the snapshot
+(``SnapshotStore.agree``: one all-reduce on the mesh's serve group; a
+call in program order between ``ingest`` calls needs none), so every rank
+answers from the same snapshot, stamps its cache with the same
+generation and decides the staleness bound from the same values,
+whenever its own publisher rotated: its cache, micro-batches and
+fallback rows evolve alike on every rank, so every rank makes the same
+plane calls, each one all-gather of the partial lists on the serve
+group (``plane.grid_topn(mesh=)``), and gets the same answer. The serve
+stats then also count the ranks, those all-gathers and the agreements.
 """
 
 from __future__ import annotations
@@ -253,7 +260,7 @@ class QueryFrontend:
             ids, scores, known, served = (t.cpu().numpy() for t in out)
             self._c["plane_batches"].inc()
             if mesh is not None:
-                self._grid_collectives().inc()
+                self._grid_counter("collectives").inc()
             progress = False
             for j, uid in enumerate(batch):
                 if served[j]:
@@ -270,11 +277,22 @@ class QueryFrontend:
                     f"qcap={cfg.qcap} cannot be right for batch={batch}")
         return computed
 
-    def serve(self, user_ids) -> ServeResponse:
-        """Answer a batch of point queries (any length, duplicates fine)."""
+    def serve(self, user_ids, agree: bool = True) -> ServeResponse:
+        """Answer a batch of point queries (any length, duplicates fine).
+
+        On a process grid the call begins with the ranks' agreement
+        unless ``agree`` is false: the caller knows that every rank's
+        front is already the same snapshot (between the ``ingest`` calls
+        of the thread that runs them, in program order)."""
         t0 = time.perf_counter()
         cfg = self.cfg
-        snap = self.store.acquire(cfg.publish.max_staleness_events)
+        bound = cfg.publish.max_staleness_events
+        if getattr(self.store, "mesh", None) is None or not agree:
+            snap, progress = self.store.acquire(bound), None
+        else:
+            snap, agreement = self.store.agree(bound)
+            progress = agreement.progress
+            self._grid_counter("agreements").inc(agreement.rounds)
         gen = self._generation(snap)
         self._note_epoch(gen)
 
@@ -326,7 +344,9 @@ class QueryFrontend:
                 fallbacks += 1
         self._c["cache_hits"].inc(cache_hits)
         self._c["fallbacks"].inc(fallbacks)
-        staleness = max(0, self.store.progress - snap.events_processed)
+        if progress is None:
+            progress = self.store.progress
+        staleness = max(0, progress - snap.events_processed)
         self._h_staleness.observe(staleness)
         self._h_latency.observe(time.perf_counter() - t0)
         return ServeResponse(
@@ -338,11 +358,17 @@ class QueryFrontend:
 
     # -- stats ------------------------------------------------------------
 
-    def _grid_collectives(self):
-        return self.metrics.counter(
-            "serve_collectives_total",
-            "Plane collectives on the process grid (one all-gather a "
-            "micro-batch)")
+    _GRID_HELP = {
+        "collectives": "Plane collectives on the process grid (one "
+                       "all-gather a micro-batch)",
+        "agreements": "Snapshot agreement all-reduces on the process "
+                      "grid (one a serve call, two for a call that waits "
+                      "for the first boundary)",
+    }
+
+    def _grid_counter(self, key: str):
+        return self.metrics.counter(f"serve_{key}_total",
+                                    self._GRID_HELP[key])
 
     def stats_snapshot(self) -> dict[str, int]:
         """The serve counters as plain ints (registry-backed).
@@ -350,11 +376,14 @@ class QueryFrontend:
         Same key vocabulary as the pre-registry ``stats`` dict; the
         counters themselves live in ``self.metrics`` as
         ``serve_<key>_total``. On the process grid, also ``ranks`` (the
-        group's size) and ``collectives`` (the plane's all-gathers).
+        group's size), ``collectives`` (the plane's all-gathers) and
+        ``agreements`` (the serve calls' all-reduces), both on the serve
+        group.
         """
         out = {k: int(c.value) for k, c in self._c.items()}
         mesh = getattr(self.store, "mesh", None)
         if mesh is not None:
             out["ranks"] = mesh.world
-            out["collectives"] = int(self._grid_collectives().value)
+            for key in self._GRID_HELP:
+                out[key] = int(self._grid_counter(key).value)
         return out

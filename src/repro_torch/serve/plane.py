@@ -15,7 +15,8 @@ scattered back to request order.
 
 On the process grid (``mesh=``, ``backend="shard_map"``) each rank
 holds one worker and scores its column's bucket alone, one launch of the
-same leaf; one all-gather (``core.distributed.grid_all_gather``) gives
+same leaf; one all-gather on the mesh's serve group (the reader's,
+``core.distributed.grid_all_gather(group="serve")``) gives
 every rank the ``[n_c, qcap, N]`` partial lists and ``known`` flags,
 and every rank merges them as one process does. The leaf scores each
 worker on its own, so the answer is the one-process answer, bit for
@@ -132,4 +133,4 @@ def _rank_partials(mesh, leaf, states, qu, top_n: int):
         rows = (torch.empty((0, qcap, n), dtype=torch.int32, device=dev),
                 torch.empty((0, qcap, n), dtype=torch.float32, device=dev),
                 torch.empty((0, qcap), dtype=torch.bool, device=dev))
-    return distributed.grid_all_gather(mesh, list(rows))
+    return distributed.grid_all_gather(mesh, list(rows), "serve")

@@ -22,6 +22,19 @@ that, in two modes:
     the card both enqueue on the default stream, so a query's kernels
     wait behind the trainer's steps already queued there.
 
+On a process grid (a ``backend="shard_map"`` session, every rank
+running ``run_service`` with the same arguments) the same two modes
+run on every rank. Interleaved: each query batch drains the rank's
+async backlog, then ``recommend``'s agreement picks the snapshot, so
+the answers are the same pure function of the schedule. Threaded: the
+loop's iteration count, its pauses and ``under_load`` must be the same
+on every rank, or the ranks' serve-group collectives would mismatch, so
+each decision is taken from the last call's agreement
+(``SnapshotStore.last_agreement.training``: whether any rank's trainer
+still ran), never from this rank's own clock; the trainer is counted
+running (``SnapshotStore.begin_training``) from before its thread
+starts until it is done.
+
 Every query batch records its latency, the snapshot version and
 forgetting counter it was answered from, and its staleness-at-answer
 (events the snapshot trailed the reported stream position). The report
@@ -265,6 +278,17 @@ def run_service(session, users, items, load: LoadConfig,
         done = threading.Event()
         ingest_span = [0.0]
         ingest_err: list[BaseException | None] = [None]
+        store = session.store
+        grid = getattr(store, "mesh", None) is not None
+
+        # On a grid: whether the last call's agreement saw a trainer
+        # running on any rank (counted from before the thread starts).
+        agreed = [True]
+
+        def running() -> bool:
+            """Whether the trainer runs, as every rank sees it on a grid,
+            else as this thread sees it."""
+            return agreed[0] if grid else not done.is_set()
 
         def _ingest():
             ti = time.perf_counter()
@@ -274,6 +298,8 @@ def run_service(session, users, items, load: LoadConfig,
                 ingest_err[0] = e
             finally:
                 ingest_span[0] = time.perf_counter() - ti
+                if grid:
+                    store.end_training()
                 done.set()
 
         trainer = threading.Thread(target=_ingest, name="service-ingest")
@@ -287,21 +313,26 @@ def run_service(session, users, items, load: LoadConfig,
         sys.setswitchinterval(1e-4)
         t0 = time.perf_counter()
         try:
+            if grid:
+                store.begin_training()
             trainer.start()
             issued = 0
             # Open loop: issue batches paced by the arrival schedule while
             # the trainer runs; keep serving until both the stream ends
             # and the batch budget is spent, so the tail always includes
-            # under-load batches.
-            while issued < svc.query_batches or not done.is_set():
+            # under-load batches. On a grid a batch is under load when
+            # its agreement saw a trainer running.
+            while issued < svc.query_batches or running():
                 batch, pause = gen.batch(), gen.gap()
-                live = not done.is_set()
+                live = running()
                 rec = _serve_one(session, batch)
+                if grid:
+                    agreed[0] = live = store.last_agreement.training
                 rec.under_load = live
                 records.append(observe(rec))
                 issued += 1
                 if pause and not (issued >= svc.query_batches
-                                  and done.is_set()):
+                                  and not running()):
                     time.sleep(min(pause, 0.05))
             trainer.join()
             if ingest_err[0] is not None:

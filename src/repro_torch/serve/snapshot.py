@@ -45,12 +45,24 @@ front-end's fallback answer for unknown users.
 On the process grid (``mesh=``, ``backend="shard_map"``) a snapshot
 holds the rank's own worker, and the popularity head is aggregated from
 every rank's item ids and weights, gathered in one collective on the
-publishing thread; every rank publishes at the same points, and only
-synchronously (``publish_async`` raises: ROADMAP item 14c).
+publishing thread: the trainer's, on the default group, at the same
+boundary on every rank (``publish`` and ``publish_async`` alike; the
+publisher thread issues no collective). Every rank publishes the same
+boundaries in the same order, and async publishes never coalesce
+there: the trainer waits while two hand-offs are outstanding instead.
+So a snapshot's ``version`` is the same boundary on every rank (the
+grid's publish sequence), and ``agree`` (the front-end's first step of
+a ``serve`` call, on the reader's thread) picks the one every rank
+serves: one all-reduce on the mesh's serve group of each rank's front
+version, progress, trainer flag and failure flag; every rank serves
+the newest front, waiting for its own publisher to rotate it if it
+lags, and keeps the snapshots from its front at the call on until it
+has them (``_pin``), so the agreed one cannot rotate away meanwhile.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Any, Callable, NamedTuple
@@ -62,14 +74,17 @@ from repro_torch.core import state as state_lib
 from repro_torch.obs import metrics as metrics_lib
 
 __all__ = ["Snapshot", "SnapshotStore", "StaleSnapshotError",
-           "popularity_topn"]
+           "Agreement", "popularity_topn"]
+
+# Seconds a rank waits for its publisher to rotate the agreed snapshot.
+AGREE_TIMEOUT = 300.0
 
 
 class StaleSnapshotError(RuntimeError):
     """The front snapshot violates the caller's staleness bound."""
 
 
-def popularity_topn(states, top_n: int, mesh=None):
+def popularity_topn(states, top_n: int, mesh=None, group: str = "train"):
     """Grid-wide most-popular items from a (stacked) worker state.
 
     Aggregates per-worker item rating mass (``state.item_stats``) by
@@ -77,7 +92,8 @@ def popularity_topn(states, top_n: int, mesh=None):
     contributes all replicas' local counts — and returns the ``top_n``
     head ordered by (mass desc, id asc). With ``mesh`` (the process grid)
     ``states`` is this rank's worker and every rank's stats are gathered
-    first (one collective), so every rank gets the grid's head.
+    first (one collective on the mesh's ``group``), so every rank gets
+    the grid's head.
 
     Returns:
       (ids int64[top_n] (-1 padded), mass float64[top_n]).
@@ -87,7 +103,7 @@ def popularity_topn(states, top_n: int, mesh=None):
     else:
         from repro_torch.core import distributed
 
-        ids, weight = distributed.gather_item_stats(mesh, states)
+        ids, weight = distributed.gather_item_stats(mesh, states, group)
     return _popularity_head(ids.cpu().numpy(), weight.cpu().numpy(), top_n)
 
 
@@ -120,6 +136,21 @@ class Snapshot:
     popular_mass: np.ndarray  # its rating mass (fallback "scores")
 
 
+class Agreement(NamedTuple):
+    """What the ranks agreed on for one ``serve`` call on the process
+    grid: the snapshot's ``version`` and stream position, the grid's
+    ``progress`` (the largest a rank reported), whether a rank's
+    trainer was running (``SnapshotStore.begin_training``) and the
+    all-reduces it took (two when no rank had a snapshot yet while a
+    trainer ran, else one)."""
+
+    version: int
+    events_processed: int
+    progress: int
+    training: bool
+    rounds: int = 1
+
+
 class _Handoff(NamedTuple):
     """What an async publish's rotation reads, on the host or on its way
     there: ``done`` (a CUDA event, or None for CPU tensors) marks the end
@@ -134,10 +165,10 @@ class _Handoff(NamedTuple):
     done: Any
 
 
-def _handoff(states, events_processed, forgets, telemetry) -> _Handoff:
-    """Enqueue the boundary's copies to the host; never waits for the
-    card."""
-    ids, weight = state_lib.item_stats(states)
+def _handoff(states, ids, weight, events_processed, forgets,
+             telemetry) -> _Handoff:
+    """Enqueue the boundary's copies (``ids`` / ``weight``: the item stats
+    the head aggregates) to the host; never waits for the card."""
     if ids.device.type != "cuda":
         scalars = (x.clone() if torch.is_tensor(x) else x
                    for x in (events_processed, forgets))
@@ -177,24 +208,50 @@ class SnapshotStore:
         # The process grid the published states are a rank's worker of
         # (``launch.mesh.Mesh``), or None in one process.
         self.mesh = mesh
-        self._slots: list[Snapshot | None] = [None] * slots
-        self._front = -1
+        # The snapshots kept, oldest first, the front last: the last
+        # ``slots`` and, while a grid reader agrees (``agree``), every
+        # one from ``_pin`` on.
+        self._slots = slots
+        self._history: collections.deque[Snapshot] = collections.deque()
+        self._pin: int | None = None
         self._version = 0
         self._progress = 0
         self._fallback_n = fallback_n
         self._lock = threading.Lock()
+        # Signalled (under ``_lock``) after every rotation and hand-off.
+        self._cond = threading.Condition(self._lock)
         self._listeners: list[Callable[[Snapshot], None]] = []
-        # Async publish machinery: at most one pending hand-off, drained
-        # by a lazily-started daemon thread; ``_idle`` is set whenever
-        # nothing is pending and no rotation is in flight. ``_draining``
-        # is the spawn gate: it flips true when a drain thread is started
-        # and false only in the same critical section where that thread
+        # Async publish machinery: pending hand-offs (at most one in one
+        # process, where a newer one replaces it; on a grid at most two
+        # outstanding, rotating included, in order), drained by a
+        # lazily-started daemon thread; ``_idle`` is set whenever nothing
+        # is pending and no rotation is in flight. ``_draining`` is the
+        # spawn gate: it flips true when a drain thread is started and
+        # false only in the same critical section where that thread
         # decides to exit, so an enqueue can never observe a thread that
         # is alive but already past its exit decision.
-        self._pending: _Handoff | None = None
+        self._pending: collections.deque[_Handoff] = collections.deque()
+        self._rotating = 0
+        # On a grid: the hand-offs queued and taken up so far, and the
+        # number of the one whose rotation failed (``_failed``).
+        self._queued = 0
+        self._taken = 0
+        self._failed: BaseException | None = None
+        self._failed_at = 0
         self._draining = False
         self._idle = threading.Event()
         self._idle.set()
+        # Grid serving: trainers running on this rank (``begin_training``;
+        # ``_train_lock`` guards the count), what the last ``agree``
+        # returned, and the session's publish of its live states for a
+        # call that finds no snapshot on any rank (``agree``).
+        self._training = 0
+        self._train_lock = threading.Lock()
+        self.last_agreement: Agreement | None = None
+        self.cold_publish: Callable[[], Any] | None = None
+        # The rank's device (its card under NCCL, where the agreement's
+        # buffer lives); the session sets it.
+        self.device: Any = "cpu"
         # Publish-plane instruments, shared with whoever passed the
         # registry in (StreamSession wires one registry through store and
         # front-end); a store constructed bare gets its own.
@@ -221,9 +278,10 @@ class SnapshotStore:
     # -- the rotation (shared by both publish paths) ----------------------
 
     def _rotate(self, states, events_processed: int, forgets: int,
-                mode: str, popular=None) -> Snapshot:
+                mode: str, popular=None, group: str = "train") -> Snapshot:
         if popular is None:
-            popular = popularity_topn(states, self._fallback_n, self.mesh)
+            popular = popularity_topn(states, self._fallback_n, self.mesh,
+                                      group)
         popular_ids, popular_mass = popular
         with self._lock:
             self._version += 1
@@ -235,27 +293,42 @@ class SnapshotStore:
                 popular_ids=popular_ids,
                 popular_mass=popular_mass,
             )
-            back = (self._front + 1) % len(self._slots)
-            self._slots[back] = snap
-            self._front = back                     # the atomic rotation
+            self._history.append(snap)             # the atomic rotation
+            self._trim()
             self._progress = max(self._progress, snap.events_processed)
             listeners = list(self._listeners)
             self._c_rotations.labels(mode=mode).inc()
             self._g_front_version.set(snap.version)
             self._g_front_events.set(snap.events_processed)
             self._g_staleness.set(self._progress - snap.events_processed)
+            self._cond.notify_all()
         for fn in listeners:    # outside the lock: listeners may acquire()
             fn(snap)
         return snap
 
+    def _trim(self) -> None:
+        """Drop the snapshots past the last ``slots`` that no grid reader
+        holds (under the lock)."""
+        h = self._history
+        while len(h) > self._slots and (self._pin is None
+                                        or h[0].version < self._pin):
+            h.popleft()
+
+    def _front_snapshot(self) -> Snapshot | None:
+        return self._history[-1] if self._history else None
+
     def publish(self, states, events_processed: int, forgets: int = 0,
-                telemetry=None) -> Snapshot:
+                telemetry=None, group: str = "train") -> Snapshot:
         """Synchronous publish: aggregate, rotate, then return.
 
         ``states`` must not change after the call (a copy of live
-        states). Tensor progress scalars are read here (a host sync).
+        states). Tensor progress scalars are read here (a host sync). On
+        a grid the popularity head's gather runs on the mesh's ``group``:
+        the trainer's (default) or, for the zero state a ``serve`` call
+        publishes (``agree``), the reader's.
         """
-        snap = self._rotate(states, events_processed, forgets, mode="sync")
+        snap = self._rotate(states, events_processed, forgets, mode="sync",
+                            group=group)
         if telemetry is not None and self._telemetry_sink is not None:
             self._telemetry_sink(telemetry)
         return snap
@@ -271,19 +344,45 @@ class SnapshotStore:
         the card. ``events_processed`` / ``forgets`` may be 0-d tensors.
         A hand-off still pending is replaced by this one and counted as
         coalesced: the freshest state is served, never a queue of stale
-        ones. Raises ``ValueError`` on a process grid: how many publishes
-        coalesce differs by rank, and the ranks must agree on the
-        snapshot they serve (ROADMAP item 14c).
+        ones.
+
+        On a process grid every rank calls it at the same boundary: the
+        grid's item stats are gathered here (one all-gather on the
+        default group, the trainer's), and the hand-off is queued behind
+        the pending one, never coalesced (how many publishes coalesce
+        would differ by rank, and ``agree`` needs every rank to rotate
+        the same boundaries): the call waits, before it queues, while two
+        hand-offs are outstanding (queued or rotating). The wait is for
+        the publisher thread, which issues no collective.
         """
-        if self.mesh is not None:
-            raise ValueError(
-                "async publishing on a process grid (backend='shard_map') "
-                "is ROADMAP Queue 1 item 14c; publish synchronously")
-        handoff = _handoff(states, events_processed, forgets, telemetry)
+        if self.mesh is None:
+            ids, weight = state_lib.item_stats(states)
+        else:
+            from repro_torch.core import distributed
+
+            ids, weight = distributed.gather_item_stats(self.mesh, states)
+        handoff = _handoff(states, ids, weight, events_processed, forgets,
+                           telemetry)
         with self._lock:
-            if self._pending is not None:
-                self._c_coalesced.inc()
-            self._pending = handoff
+            if self.mesh is None:
+                if self._pending:
+                    self._c_coalesced.inc()
+                    self._pending.clear()
+            else:
+                self._queued += 1
+                self._cond.wait_for(
+                    lambda: (len(self._pending) + self._rotating < 2
+                             or self._failed is not None))
+                if self._failed is not None:
+                    # Every hand-off but the last has rotated or failed
+                    # by now, on every rank: a failure among them raises
+                    # here on every rank at this boundary. The last
+                    # one's raises at the next boundary, or in flush.
+                    if self._failed_at <= self._queued - 2:
+                        raise RuntimeError("the snapshot publisher failed"
+                                           ) from self._failed
+                    return
+            self._pending.append(handoff)
             self._idle.clear()
             if not self._draining:
                 self._draining = True
@@ -295,7 +394,9 @@ class SnapshotStore:
         try:
             while True:
                 with self._lock:
-                    if self._pending is None:
+                    self._rotating = 0
+                    self._cond.notify_all()
+                    if not self._pending:
                         # Exit decision and spawn-gate clear are one
                         # critical section (see __init__): an enqueue
                         # serialized after this sees _draining False and
@@ -303,7 +404,9 @@ class SnapshotStore:
                         self._draining = False
                         self._idle.set()
                         return
-                    h, self._pending = self._pending, None
+                    h = self._pending.popleft()
+                    self._taken += 1
+                    self._rotating = 1
                 # The one wait of the async path: the boundary's copies
                 # to the host, not the training enqueued after them.
                 if h.done is not None:
@@ -316,19 +419,34 @@ class SnapshotStore:
                 if (h.telemetry is not None
                         and self._telemetry_sink is not None):
                     self._telemetry_sink(h.telemetry)
-        except BaseException:
+        except BaseException as e:
             # A failing rotation (e.g. a raising listener) must not wedge
             # the store: reopen the spawn gate so the next enqueue
-            # restarts draining, and don't leave flush() hanging.
+            # restarts draining, and don't leave flush() hanging. On a
+            # grid the rank's boundaries are then lost: the hand-offs
+            # queued behind are dropped, ``agree`` raises on every rank,
+            # and so do the trainer's next hand-offs and ``flush``.
             with self._lock:
                 self._draining = False
-                if self._pending is None:
+                self._rotating = 0
+                if self.mesh is not None:
+                    self._failed = e
+                    self._failed_at = self._taken
+                    self._pending.clear()
+                self._cond.notify_all()
+                if not self._pending:
                     self._idle.set()
             raise
 
     def flush(self, timeout: float | None = None) -> bool:
-        """Block until every pending async publish has rotated."""
-        return self._idle.wait(timeout)
+        """Block until every pending async publish has rotated. On a
+        process grid, raises ``RuntimeError`` once the rank's publisher
+        has failed."""
+        done = self._idle.wait(timeout)
+        if self._failed is not None:
+            raise RuntimeError("the snapshot publisher failed"
+                               ) from self._failed
+        return done
 
     def set_telemetry_sink(self, fn: Callable[[Any], Any] | None) -> None:
         """Install the fold target for publish-boundary telemetry
@@ -374,7 +492,7 @@ class SnapshotStore:
     def acquire(self, max_staleness_events: int | None = None) -> Snapshot:
         """The front snapshot; optionally enforce a staleness bound."""
         with self._lock:
-            snap = self._slots[self._front] if self._front >= 0 else None
+            snap = self._front_snapshot()
             progress = self._progress
         if snap is None:
             raise LookupError("no snapshot published yet")
@@ -394,9 +512,8 @@ class SnapshotStore:
     def staleness(self) -> int:
         """Processed events the front snapshot is behind reported progress."""
         with self._lock:
-            if self._front < 0:
-                return 0
-            return self._progress - self._slots[self._front].events_processed
+            snap = self._front_snapshot()
+            return 0 if snap is None else self._progress - snap.events_processed
 
     @property
     def progress(self) -> int:
@@ -408,3 +525,112 @@ class SnapshotStore:
     def latest_version(self) -> int:
         with self._lock:
             return self._version
+
+    # -- the process grid ---------------------------------------------------
+
+    def begin_training(self) -> None:
+        """Count a trainer running on this rank (``ingest``, or a service
+        run's trainer thread from before it starts); ``agree`` tells every
+        rank whether one runs on any rank. Waits while a ``serve`` call
+        that found no snapshot here decides whether to publish the zero
+        state (``agree``)."""
+        with self._train_lock:
+            self._training += 1
+
+    def end_training(self) -> None:
+        with self._train_lock:
+            self._training -= 1
+
+    @property
+    def training(self) -> bool:
+        """Whether a trainer runs on this rank (``begin_training``)."""
+        return self._training > 0
+
+    def _wait_version(self, version: int) -> None:
+        """Wait (under the lock) until this rank has rotated ``version``;
+        raises ``RuntimeError`` on a failed publisher or after
+        ``AGREE_TIMEOUT``."""
+        def ready():
+            front = self._front_snapshot()
+            return ((front is not None and front.version >= version)
+                    or self._failed is not None)
+
+        if not self._cond.wait_for(ready, AGREE_TIMEOUT):
+            raise RuntimeError(
+                f"rank {self.mesh.rank}: snapshot v{version} not rotated "
+                f"within {AGREE_TIMEOUT} s")
+        if self._failed is not None:
+            raise RuntimeError("the snapshot publisher failed"
+                               ) from self._failed
+
+    def agree(self, max_staleness_events: int | None = None) -> tuple:
+        """The snapshot every rank of the grid serves for one call, and
+        the :class:`Agreement`: one all-reduce (MAX) on the serve group
+        of this rank's front version, progress, trainer flag and
+        publisher failure (``core.distributed.serve_agree``). Every rank
+        serves the newest front (waiting for its own publisher to rotate
+        it; the ranks publish the same boundaries, and a snapshot from
+        this rank's front at the call on is kept until then), raises
+        ``StaleSnapshotError`` from the agreed progress, and raises
+        ``RuntimeError`` when a rank's publisher failed: all ranks
+        together.
+
+        When no rank has a snapshot, every rank either publishes its live
+        states (``cold_publish``, the zero state of a fresh session; its
+        popularity gather on the serve group) when no trainer runs on
+        any rank, holding its trainer back meanwhile, or, while one runs,
+        waits for its first rotation and agrees again. Returns
+        ``(snapshot, agreement)``."""
+        from repro_torch.core import distributed
+
+        rounds = 0
+        try:
+            while True:
+                rounds += 1
+                with self._lock:
+                    front = self._front_snapshot()
+                    mine = 0 if front is None else front.version
+                    self._pin = mine
+                    progress = self._progress
+                    failed = self._failed is not None
+                cold = mine == 0
+                if cold:        # no ingest may start here until decided
+                    self._train_lock.acquire()
+                try:
+                    version, progress, training, failed = (
+                        distributed.serve_agree(
+                            self.mesh,
+                            [mine, progress, self._training > 0, failed],
+                            self.device))
+                    if failed:
+                        raise RuntimeError(
+                            "a rank's snapshot publisher failed")
+                    if version == 0 and not training:
+                        if self.cold_publish is None:
+                            raise LookupError("no snapshot published yet")
+                        self.cold_publish()
+                        version = 1
+                finally:
+                    if cold:
+                        self._train_lock.release()
+                if version:
+                    break
+                with self._lock:        # a trainer runs: its first boundary
+                    self._wait_version(1)
+            with self._lock:
+                self._wait_version(version)
+                snap = next(s for s in self._history if s.version == version)
+        finally:
+            with self._lock:
+                self._pin = None
+                self._trim()
+        agreement = Agreement(version, snap.events_processed, progress,
+                              bool(training), rounds)
+        self.last_agreement = agreement
+        stale = progress - snap.events_processed
+        if max_staleness_events is not None and stale > max_staleness_events:
+            raise StaleSnapshotError(
+                f"snapshot v{snap.version} is {stale} events behind the "
+                f"stream (bound {max_staleness_events}); publish more often "
+                "or loosen the bound")
+        return snap, agreement

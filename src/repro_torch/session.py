@@ -34,12 +34,26 @@ only its own worker (``launch.mesh.make_grid_mesh``: worker ``w`` on
 rank ``w``; ranks past the grid hold none). ``states`` is the rank's
 worker; the snapshots, the popularity head, ``recommend``'s answers,
 ``checkpoint``'s file, ``restore`` and ``rescale`` equal the one-process
-session's, through the collectives of ``core.distributed``. Publishing
-is synchronous there: an async policy raises (ROADMAP item 14c).
+session's, through the collectives of ``core.distributed``. Under an
+async policy the boundaries are handed to each rank's publisher thread
+(``SnapshotStore.publish_async``: the popularity gather on the
+trainer's thread, the default group; never coalesced on a grid), and
+``recommend`` may run on one reader thread a rank while ``ingest``
+runs: its calls are serialized, and each begins with the ranks'
+agreement on the snapshot (``SnapshotStore.agree``), so that every
+rank answers from the same one, with its collectives on the mesh's
+serve group. A call that finds no snapshot on any rank publishes the
+zero state when no rank's trainer runs, else waits for the first
+boundary. A call in program order on the thread that runs ``ingest``
+needs no agreement: every rank's front is then the same.
+``checkpoint`` and ``rescale`` drain the async backlog first.
 
     def rank(info, users, items, cfg):  # cfg.backend == "shard_map"
-        s = StreamSession(cfg, publish=PublishPolicy(every=2, mode="sync"))
+        s = StreamSession(cfg, publish=PublishPolicy(every=2, mode="async"))
+        reader = threading.Thread(target=s.recommend, args=(users[:4],))
+        reader.start()                  # serves during the ingest
         s.ingest(users, items)
+        reader.join()
         return s.recommend(users[:4]).ids
     launch.mesh.run_on_ranks(rank, 4, "cuda", users, items, cfg)
 
@@ -50,6 +64,7 @@ function; ``launch.mesh.session_on_rank`` is one.)
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -79,7 +94,9 @@ class StreamSession:
     Construction allocates zero states for ``cfg.grid`` on ``cfg.device``.
     The session is single-writer: ``ingest`` mutates it, ``recommend``
     reads the last published snapshot (so it can run from other threads
-    while ``ingest`` runs, the same contract as ``SnapshotStore``).
+    while ``ingest`` runs, the same contract as ``SnapshotStore``; on a
+    process grid, from one reader thread a rank, in the same order on
+    every rank).
     """
 
     def __init__(self, cfg: StreamConfig, *, serve: ServeConfig | None = None,
@@ -109,13 +126,19 @@ class StreamSession:
             publish = serve.publish
         else:
             serve = dataclasses.replace(serve, publish=publish)
-        if (self._mesh is not None and publish.every > 0
-                and publish.is_async):
-            raise ValueError(
-                "an async PublishPolicy on a process grid (backend="
-                "'shard_map') is ROADMAP Queue 1 item 14c; use "
-                "mode='sync' or every=0")
         self.publish_policy = publish
+        if self._mesh is not None:
+            # A serve call that finds no snapshot on any rank publishes
+            # the live (zero) states itself, on the reader's thread.
+            self.store.cold_publish = lambda: self._publish("serve")
+            self.store.device = cfg.device
+        # One serve call at a time on a grid: a rank never has two
+        # serve-group collectives in flight.
+        self._serve_lock = threading.Lock()
+        # The thread that runs ``ingest`` (the constructor's until the
+        # first): its ``recommend`` calls between ingests run in program
+        # order, the same on every rank, and need no agreement.
+        self._owner = threading.current_thread()
         self._frontend = QueryFrontend(self.store, serve)
         self._states = (pipeline_lib.init_states(cfg) if self._mesh is None
                         else distributed.init_grid_states(cfg, self._mesh))
@@ -187,36 +210,44 @@ class StreamSession:
         # The telemetry vector restarts from zero at each run_stream call;
         # the previous call's folds are complete (_publish flushed).
         self._telemetry.rebase()
-        with trace_lib.span("ingest", self.metrics):
-            res = run_stream(
-                np.asarray(users), np.asarray(items), self.cfg,
-                verbose=verbose, publish_every=policy.every, on_publish=hook,
-                publish_sync=not policy.is_async,
-                initial_states=self._states, initial_carry=self._carry,
-                initial_detector=self._detector)
-        self._states = res.final_states
-        # run_stream drains the re-queue before it returns (flushed, or
-        # counted in res.dropped): the carry is consumed.
-        self._carry = (None, None)
-        if res.final_detector is not None:
-            self._detector = res.final_detector
-        self.events_processed += res.events_processed
-        self.forgets += res.forgets
-        self._publish()
+        self._owner = threading.current_thread()
+        self.store.begin_training()
+        try:
+            with trace_lib.span("ingest", self.metrics), _on_device(
+                    self.cfg.device):
+                res = run_stream(
+                    np.asarray(users), np.asarray(items), self.cfg,
+                    verbose=verbose, publish_every=policy.every,
+                    on_publish=hook, publish_sync=not policy.is_async,
+                    initial_states=self._states, initial_carry=self._carry,
+                    initial_detector=self._detector)
+            self._states = res.final_states
+            # run_stream drains the re-queue before it returns (flushed,
+            # or counted in res.dropped): the carry is consumed.
+            self._carry = (None, None)
+            if res.final_detector is not None:
+                self._detector = res.final_detector
+            self.events_processed += res.events_processed
+            self.forgets += res.forgets
+            self._publish()
+        finally:
+            self.store.end_training()
         # Final fold: the end-of-run vector covers any tail past the last
         # boundary; after _publish's flush no async fold is in flight.
         self._telemetry.fold(res.telemetry)
         return res
 
-    def _publish(self) -> None:
+    def _publish(self, group: str = "train") -> None:
         # Drain in-flight async rotations first: a mid-stream snapshot
         # rotating after this final one would move the front back to an
         # older stream position. The live states change at the next
-        # ingest, so the snapshot is a copy.
+        # ingest, so the snapshot is a copy. ``group``: the grid's group
+        # the popularity gather runs on (the calling thread's).
         with trace_lib.span("publish", self.metrics):
             self.store.flush()
             self.store.publish(state_lib.clone_state(self._states),
-                               self.events_processed, self.forgets)
+                               self.events_processed, self.forgets,
+                               group=group)
             self._update_table_bytes()
 
     # -- serve ------------------------------------------------------------
@@ -228,17 +259,36 @@ class StreamSession:
         (``grid_topn``), LRU response cache, and the popularity fallback
         for unknown users. ``n`` overrides the list length (a fresh
         front-end on the same store); default is the serving config's
-        ``top_n``.
+        ``top_n``. On a process grid every rank calls it with the same
+        arguments, in the same order (one reader thread a rank); the
+        calls are serialized. A call on the thread that runs ``ingest``,
+        while no trainer runs on the rank, serves the front as it is
+        (every rank's is the same after the async backlog drains);
+        any other begins with the ranks' agreement
+        (``SnapshotStore.agree``), which also publishes a cold session's
+        zero state.
         """
-        if self.store.latest_version == 0:
-            self._publish()     # cold session: serve the zero state
+        if self._mesh is None:
+            if self.store.latest_version == 0:
+                self._publish()     # cold session: serve the zero state
+            return self._serve(user_ids, n)
+        with self._serve_lock, _on_device(self.cfg.device):
+            if (threading.current_thread() is not self._owner
+                    or self.store.training):
+                return self._serve(user_ids, n)
+            self.store.flush()
+            if self.store.latest_version == 0:
+                self._publish()
+            return self._serve(user_ids, n, agree=False)
+
+    def _serve(self, user_ids, n, agree: bool = True):
         if n is not None and n != self._frontend.cfg.top_n:
             # The fresh frontend shares the store's registry (idempotent
             # get-or-create), so the serve counters keep accumulating.
             self._frontend = QueryFrontend(
                 self.store, dataclasses.replace(self._frontend.cfg, top_n=n))
         with trace_lib.span("serve", self.metrics):
-            return self._frontend.serve(user_ids)
+            return self._frontend.serve(user_ids, agree)
 
     # -- checkpoint / restore -----------------------------------------------
 
@@ -246,7 +296,8 @@ class StreamSession:
         """Write a grid-portable checkpoint (detector state included) of
         the live states in their resident encoding; returns its path. On a
         process grid rank 0 writes the grid's file and every rank waits
-        for it at a barrier."""
+        for it at a barrier. The async backlog is drained first."""
+        self.store.flush()
         path = save_stream_checkpoint(
             directory, self.events_processed, self._states,
             carry=self._carry, grid=self.cfg.grid,
@@ -300,8 +351,11 @@ class StreamSession:
         size: each rank extracts its worker's logical state, the ranks
         exchange their live records and entries
         (``core.distributed.exchange_logical``), and each rank builds its
-        own destination worker only.
+        own destination worker only. The async backlog is drained first.
+        Run it between ``ingest`` calls, with no ``recommend`` in flight
+        (the front-end is retargeted after the new snapshot rotates).
         """
+        self.store.flush()
         hyper = self.cfg.resolved_hyper()
         new_u = u_cap if u_cap is not None else hyper.u_cap
         new_i = i_cap if i_cap is not None else hyper.i_cap
@@ -336,6 +390,19 @@ def _grid_mesh(cfg):
     if pipeline_lib._resolve_backend(cfg) != "shard_map":
         return None
     return make_grid_mesh(cfg.grid)
+
+
+def _on_device(device):
+    """The device's context for a thread that may not have it current (a
+    reader or trainer thread on a rank's card), else nothing."""
+    import contextlib
+
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _barrier(mesh) -> None:

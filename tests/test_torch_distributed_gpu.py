@@ -19,8 +19,20 @@ import it for their functions:
   * a ``StreamSession`` on two gloo ranks sharing the card
     (``GridSpec.rect(1, 2)``, publishing every 2 micro-batches): its
     ``recommend`` equals the one-process ``scan`` session's bit for bit,
-    and each rank launched ``fused_topn`` for its own worker.
+    and each rank launched ``fused_topn`` for its own worker;
+  * an async grid session (publishing every step) with a reader thread
+    a rank calling ``recommend`` during ``ingest``, on four gloo ranks
+    sharing the card: every call's answer is the same on every rank and
+    equals the ``scan`` session's at the agreed snapshot, and each rank
+    launched ``fused_topn`` once a plane call;
+  * the same at NCCL world size 1, every step, async boundary and
+    ``publish_async`` under sync debug mode "error" (the reader's calls,
+    which read their answers back, take turns with them: the mode is
+    the process's).
 """
+
+import threading
+import time
 
 import pytest
 
@@ -183,3 +195,118 @@ def test_grid_session_on_one_card_matches_scan(cuda_device, algo, kernel):
         np.testing.assert_array_equal(got.known, want.known)
         assert (got.snapshot_version, got.fallbacks) == (
             want.snapshot_version, want.fallbacks)
+
+
+def _async_reader_rank(info, users, items, cfg, queries, checked=False):
+    """An async grid session publishing every step on this rank: a warm
+    ``ingest``, then a reader thread's ``recommend`` calls during the
+    next one; with ``checked``, every loop step, async boundary and
+    ``publish_async`` under sync debug mode "error", the reader taking
+    turns with them."""
+    import dataclasses
+
+    gate = threading.Lock()
+
+    def gated(fn):
+        def call(*a, **k):
+            with gate:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    if checked:
+        make = engine._make_batch_step
+        engine._make_batch_step = lambda *a: gated(make(*a))
+        engine._publish_event = gated(engine._publish_event)
+    cfg = dataclasses.replace(cfg, backend="shard_map", device=info.device)
+    s = rt.StreamSession(cfg, publish=rt.PublishPolicy(every=1,
+                                                       mode="async"))
+    if checked:
+        s.store.publish_async = gated(s.store.publish_async)
+    s.ingest(users[:256], items[:256])
+    ops.reset_launch_counts()
+    calls, errors = [], []
+
+    def reader():
+        try:
+            for _ in range(READS):
+                with gate:
+                    r = s.recommend(queries)
+                    calls.append((r.ids, r.scores, r.known, r.fallbacks,
+                                  s.store.last_agreement))
+                time.sleep(0.01)
+        except BaseException as e:      # reported by the test
+            errors.append(repr(e))
+
+    t = threading.Thread(target=reader)
+    t.start()
+    s.ingest(users[256:], items[256:])
+    t.join(TIMEOUT)
+    return dict(calls=calls, errors=errors, alive=t.is_alive(),
+                launches=ops.launch_counts()["fused_topn"],
+                plane=s.frontend.stats_snapshot()["plane_batches"],
+                store=s.store.stats_snapshot())
+
+
+READS = 4
+
+
+def _assert_reads_equal_scan(run, users, items, cfg, queries):
+    """Every rank's calls alike, each the ``scan`` session's answer at
+    the agreed snapshot (a sync session: the same versions), answered as
+    it rotates."""
+    cases = [r for r in run.results]
+    for rank, case in enumerate(cases):
+        assert not case["errors"] and not case["alive"], (rank, case)
+        assert len(case["calls"]) == READS
+        assert case["store"]["coalesced"] == 0
+        for a, b in zip(case["calls"], cases[0]["calls"]):
+            assert a[4] == b[4]
+            for x, y in zip(a[:4], b[:4]):
+                np.testing.assert_array_equal(x, y)
+    served = {c[4].version for c in cases[0]["calls"]}
+    s = rt.StreamSession(cfg, publish=rt.PublishPolicy(every=1, mode="sync"))
+    want = {}
+
+    def answer_at(snap):
+        if snap.version in served:
+            one = rt.SnapshotStore()
+            one.publish(snap.states, snap.events_processed, snap.forgets)
+            r = rt.QueryFrontend(one, s.frontend.cfg).serve(queries)
+            want[snap.version] = (snap.events_processed,
+                                  (r.ids, r.scores, r.known, r.fallbacks))
+
+    s.store.subscribe(answer_at)
+    s.ingest(users[:256], items[:256])
+    s.ingest(users[256:], items[256:])
+    for call in cases[0]["calls"]:
+        events, answer = want[call[4].version]
+        assert call[4].events_processed == events
+        for x, y in zip(call[:4], answer):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_grid_async_session_with_a_reader_on_one_card(cuda_device):
+    cfg = _cfg("disgd")
+    users, items = _stream()
+    q = np.concatenate([np.unique(users)[:100], [10**6]])
+    run = mesh_lib.run_on_ranks(_async_reader_rank, 4, "cuda", users, items,
+                                cfg, q, timeout=TIMEOUT)
+    _assert_reads_equal_scan(run, users, items, cfg, q)
+    for case in run.results:
+        assert case["launches"] == case["plane"] > 0
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_async_reader_never_syncs(cuda_device):
+    cfg = _cfg("disgd", rt.GridSpec.rect(1, 1))
+    users, items = _stream()
+    q = np.concatenate([np.unique(users)[:100], [10**6]])
+    run = mesh_lib.run_on_ranks(_async_reader_rank, 1, "cuda", users, items,
+                                cfg, q, True, timeout=TIMEOUT)
+    assert run.backend == "nccl"
+    _assert_reads_equal_scan(run, users, items, cfg, q)
