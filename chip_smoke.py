@@ -53,7 +53,7 @@ DISGD (K1-K3):
      equal to phase 2's bit for bit; resident bytes, peak memory and
      events/s beside phase 2's; the codecs' card ms a step (decode =
      unpack, encode = pack, CUDA events around each call) against their
-     bound, over its first 64 micro-batches under ``torch.profiler``;
+     bound, over its first 32 micro-batches under ``torch.profiler``;
   3d. ``storage_bf16``: the first 128 micro-batches under
      ``compressed(factors="bf16")`` and under the default policy: integer
      tables and ``rated`` equal, Recall@10 of both;
@@ -123,11 +123,12 @@ BPR-MF (K1 pairwise, K2, K3), after the DISGD state is freed:
 
 DICS (K4, K5), after the DISGD state is freed:
 
-  6. ``dics_path``: ``run_stream(algorithm="dics")`` over the whole
-     ``synth_stream(NETFLIX)`` (1,386,968 events) on a 4 x 4 grid whose
-     tables hold every column's users and split's items (``rated`` 1.21
-     GB, ``co`` 37.7 MB); counts zeroed just before, read just after;
-     then 32 micro-batches again under ``torch.profiler``;
+  6. ``dics_path``: ``run_stream(algorithm="dics")`` over the first half
+     of ``synth_stream(NETFLIX)`` (``DICS_PATH_EVENTS``, 692,224 of
+     1,386,968 events) on a 4 x 4 grid whose tables hold every column's
+     users and split's items (``rated`` 1.21 GB, ``co`` 37.7 MB); counts
+     zeroed just before, read just after; then its first
+     ``PROFILE_STEPS`` micro-batches again under ``torch.profiler``;
   7. ``dics_serve``: ``grid_topn(algorithm="dics", k_nn=10)`` for 8,192
      stream users in calls of 1,024, equal to the plain path;
   7a. ``storage_serve``: ``grid_topn(storage=compressed())`` on the
@@ -140,8 +141,9 @@ DICS (K4, K5), after the DISGD state is freed:
      version, timed beside it with its bound; the bucket-start scoring of
      the same micro-batch timed;
   8a. ``dics_session``: DICS through ``StreamSession`` at the full Netflix
-     width on the first 64 micro-batches (cut: a second whole stream
-     would take ~73 s), publishing every 16, a reader thread calling
+     width on the first 32 micro-batches (cut: a second run of phase 6's
+     would take ~36 s; 64 before the script came within 15% of its
+     time limit), publishing every 16, a reader thread calling
      ``recommend`` (K5) during the ingest; states and recall bits equal
      to a plain ``run_stream`` over the same events, and phase 3a's
      publish and recommend checks;
@@ -160,12 +162,13 @@ Drift control, after the DICS state is freed:
      adaptive ``DriftPolicy()``: ``recovery_report``, fires, forgets,
      events/s, ``dropped`` 0;
   9b. ``drift_backends_agree``: ``benchmarks/bench_drift.py``'s small
-     configuration (DEFAULT_PROFILE, abrupt at 0.3) for DISGD, BPR-MF and
-     DICS under the fixed cadence and the adaptive policy on ``cuda``,
-     ``scan`` and ``host`` on the card and ``cuda`` on CPU tensors
-     (``_drift_agree`` says what each pair must equal); DICS adaptive
-     fires and recovers faster than the fixed cadence on ``cuda`` and
-     ``scan``.
+     configuration (DEFAULT_PROFILE, abrupt at 0.3; DISGD and BPR-MF on
+     its first ``DRIFT_SMALL_CUT`` events) for DISGD, BPR-MF and
+     DICS under the fixed cadence and the adaptive policy on ``cuda``
+     and ``scan`` on the card (DICS also on ``host``) and ``cuda`` on
+     CPU tensors (``_drift_agree`` says what each pair must equal); DICS
+     adaptive fires and recovers faster than the fixed cadence on
+     ``cuda`` and ``scan``.
 
 The ensemble, service and autoscaler runtime (K1-K5 through the
 sessions), after the drift runs are freed:
@@ -175,7 +178,7 @@ sessions), after the drift runs are freed:
      micro-batch 2,048, u_cap 98,560, i_cap 768, k = 10, each with
      ``DriftPolicy()``) over ``make_scenario("recurring", events=131_072,
      profile=Netflix with item zipf 1.3)`` in ``ENSEMBLE_PATH_SEGMENTS``
-     segments (16, cut for the script's time; bench_ensemble has 32),
+     segments (8, cut for the script's time; bench_ensemble has 32),
      then 8 ``recommend`` calls of 1,024 users in blend mode and 8 in switch
      mode; counts zeroed before the ingest, read after the serving (K1 both
      modes, K2-K5); each member's states and recall bits equal to a
@@ -186,9 +189,9 @@ sessions), after the drift runs are freed:
      standalone members' walls, the weight trail, resets, windowed
      Recall@10 (window 400) of blend, switch, best and worst single member,
      recommend p50s, ``fuse_topn`` ms a call, peak memory;
-  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 8
+  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 4
      (``build/chip_smoke_ensemble``), restored at the same grid and run
-     through segments 9-16: weigher, states and recall bits equal to the
+     through segments 5-8: weigher, states and recall bits equal to the
      uninterrupted run's; file bytes, write and restore seconds;
   9e. ``ensemble_bar``: ``bench_ensemble.smoke_rows``'s configuration (DICS
      + DISGD, recurring, 8,192 events, 2 x 2, micro-batch 256, u_cap 256,
@@ -196,7 +199,7 @@ sessions), after the drift runs are freed:
      recall >= best single - 0.01, and ``resets`` >= 1;
   9f. ``service_path``: ``run_service`` on the DISGD deployment
      (``PublishPolicy(every=1, mode="async")``): interleaved over the first
-     64 micro-batches with 64 query batches of 64 Zipf users (5% unknown),
+     32 micro-batches with 32 query batches of 64 Zipf users (5% unknown),
      then threaded over the next 128 under Poisson arrivals at 200 batches
      a second; states equal to a twin fed the same chunks without queries,
      the trainer finished, ``dropped`` 0, batches under load; ``summary()``
@@ -223,7 +226,8 @@ as JAX's ``shard_map``; no kernel is launched):
 
   9i. ``grid_path``: the DISGD deployment's widths (``GridSpec(n_i=4)``,
      16 ranks sharing the card over gloo, the MovieLens-25M caps, k 10,
-     micro-batch 2,048) on the first ``GRID_EVENTS`` events of phase 2's
+     micro-batch 2,048; ``GRID_CARRY_SLOTS`` re-queue slots, so one
+     drain step) on the first ``GRID_EVENTS`` events of phase 2's
      stream (cut for the eager worker and the time limit), against
      ``backend="scan"`` in this process on the same cut: counters,
      loads, the telemetry vector and integers exactly, each rank's
@@ -312,6 +316,36 @@ LLM serving (K7), after the DICS state is freed:
      beside its plain version and ``scaled_dot_product_attention`` with
      a window mask.
 
+MoE and full-attention serving (K7 at ``window=None``), after the
+danube parameters are freed:
+
+ 13. ``moe_serve``: ``olmoe_1b_7b`` at full width and depth (16 layers,
+     6.92 B parameters in f32) from a ``torch.Generator`` seeded 0,
+     through ``serve.generate``: 4 prompts of OLMoE's 4,096-token context
+     from ``TokenPipeline(50304, seed=0)``, prefill, then 32 greedy decode
+     steps (16 ``swa_attention`` launches, one per layer of the prefill);
+     one more decode step under ``torch.cuda.set_sync_debug_mode("error")``;
+     then ``moe_profile`` (one prefill and 8 decode steps under
+     ``torch.profiler``);
+ 14. ``moe_consistency``: prefill over 2 x 1,024 tokens plus one decode
+     step against a prefill over all 1,025, the capacity factor raised
+     to 8 (``tests/test_decode.py:45-50``), at that test's contract;
+ 15. ``moe_routing_card``: layer 0's MoE on 512 token activations on the
+     card and on the host CPU: experts, positions and kept assignments
+     exactly equal (no near-tie within 1e-5 first), output and aux loss
+     at the CPU tests' tolerances;
+ 16. ``swa_attention`` at olmoe's shape (B 4, 16 / 16 heads, S 4,096, D
+     128, causal, no window) against its plain version as in phase 12,
+     with a window 64 short and a non-causal run as the wrong ones, timed
+     beside ``scaled_dot_product_attention(is_causal=True)``: the kernels
+     line's second K7 row (``instance``);
+ 17. ``zoo_serve``: moonshot (4 layers: the dense layer 0 and 3 MoE with
+     shared experts), dbrx (2 layers; K7 group 6), stablelm-3b (all 32)
+     and granite-34b (2 layers; K7 group 48) at full width, each 2 x
+     1,024-token prompts and 8 decode steps, K7 launches = layers; then
+     K7 on each arch's layer 0 q / k / v of those prompts against its
+     plain version, a window 64 short and a non-causal run caught.
+
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the last line.
@@ -350,6 +384,10 @@ U_CAP, I_CAP = 38_912, 6_784
 # item-CF's natural shape; caps that fit each column's users (394,106 / 4)
 # and each split's items (3,001 / 4) without collisions.
 DICS_U_CAP, DICS_I_CAP, K_NN = 98_560, 768, 10
+# dics_path trains on the stream's first half (338 of its 678 micro-
+# batches): the tables keep their deployment size; the whole stream took
+# ~70 s of the script's time limit at ~102 ms a step.
+DICS_PATH_EVENTS = 692_224
 MICRO_BATCH = 2048
 SERVE_USERS, SERVE_BATCH = 8192, 1024
 # The session phases: publish cadences in micro-batches (DISGD's whole
@@ -357,16 +395,17 @@ SERVE_USERS, SERVE_BATCH = 8192, 1024
 # DICS run, and the ids no worker knows added to recommend's queries.
 SESSION_EVERY = 64
 CONCURRENT_BATCHES, CONCURRENT_EVERY = 128, 16
-DICS_SESSION_BATCHES, DICS_SESSION_EVERY = 64, 16
+DICS_SESSION_BATCHES, DICS_SESSION_EVERY = 32, 16
 UNKNOWN_QUERIES = 256
 # The reader's pause between recommend calls during an ingest: a paced
 # client, so that cache hits (pure host work) do not take the trainer's
 # host thread for themselves.
 RECOMMEND_GAP_S = 0.005
 DEVICE = "cuda"
-# Micro-batches under torch.profiler in the DISGD, BPR-MF and forgetting
-# profiles (64 until the grid session phases needed the time).
-PROFILE_STEPS = 32
+# Micro-batches under torch.profiler in the DISGD, BPR-MF, forgetting and
+# DICS profiles (64 until the grid session phases needed the time, 32
+# until the script came within 15% of its time limit).
+PROFILE_STEPS = 16
 
 # Card cycles of the busy wait that _time_ms(cover_enqueue=True) queues
 # ahead of its start event (~2 ms at the H100's 1.98 GHz boost clock).
@@ -394,6 +433,21 @@ LLM_ARCH, LLM_BATCH, LLM_PROMPT, LLM_DECODE_STEPS = "h2o_danube_1p8b", 4, \
 SWA_ROW_RTOL = 1e-2
 SWA_RTOL = SWA_ATOL = 3e-2
 LOGIT_TOL, LOGIT_GAP = 0.15, 0.05
+# MoE serving: olmoe-1b-7b, 4 requests of OLMoE's context (arXiv:2409.02060),
+# 32 greedy decode steps; the consistency check at 2 x 1,024 tokens with
+# the capacity factor raised to 8; the card-vs-host routing check on 512
+# tokens, whose router probabilities must be 1e-5 apart where the top-k
+# ends, output at tests/test_torch_moe.py's tolerance (of the output's
+# scale) and aux 1e-5 relative. The other four archs at full width, cut
+# in depth to fit the card and the script's time (PERF.md section 4).
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_DECODE_STEPS = "olmoe_1b_7b", 4, \
+    4096, 32
+MOE_CONSISTENCY_BATCH, MOE_CONSISTENCY_PROMPT = 2, 1024
+MOE_ROUTING_TOKENS, MOE_NEAR_TIE, MOE_OUT_TOL, MOE_AUX_RTOL = 512, 1e-5, \
+    1e-2, 1e-5
+ZOO_LAYERS = {"moonshot_v1_16b_a3b": 4, "dbrx_132b": 2, "stablelm_3b": None,
+              "granite_34b": 2}
+ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE_STEPS = 2, 1024, 8
 
 
 def fail(msg: str):
@@ -587,9 +641,11 @@ def serve_calls(torch, rt, states, kw, batches, rounds=1):
 
 def _steps(n: int, cfg) -> int:
     """Micro-batch steps of a device-loop stream of ``n`` events: the
-    batches plus the static drain tail."""
+    batches plus the static drain tail (``core/engine.py``: the re-queue
+    buffer's slots over a bucket's)."""
     return (math.ceil(n / cfg.micro_batch)
-            + math.ceil(cfg.micro_batch / cfg.bucket_capacity))
+            + math.ceil((cfg.carry_slots or cfg.micro_batch)
+                        / cfg.bucket_capacity))
 
 
 def emit(phase: str, **fields):
@@ -726,6 +782,9 @@ def main():
 
     # -- 10-12. LLM serving ------------------------------------------------------
     kernels += _llm_phases(torch, np, dev)
+
+    # -- 13-17. MoE and full-attention serving -----------------------------------
+    kernels += _moe_phases(torch, np, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -882,15 +941,18 @@ def _ids_mismatch(ids, want_ids, want_sc) -> int:
     return int((ids != want_ids)[sep].sum())
 
 
-def _time_ms(torch, fn, reps=20, setup=None, cover_enqueue=False) -> float:
-    """Median ms of ``fn`` by CUDA events, after one warm-up call;
-    ``setup`` runs outside the timed region before every call. The time
+def _time_ms(torch, fn, reps=20, setup=None, cover_enqueue=False,
+             warmup=True) -> float:
+    """Median ms of ``fn`` by CUDA events, after one warm-up call (none
+    without ``warmup``); ``setup`` runs outside the timed region before
+    every call. The time
     holds the host's enqueue of ``fn`` where the card waits for it. With
     ``cover_enqueue``, a ~2 ms busy wait queued ahead of the start event
     hides that enqueue, so a sub-millisecond kernel is timed on the card
     alone (the ``device_ms`` fields)."""
     times = []
-    for r in range(reps + 1):
+    first = 1 if warmup else 0
+    for r in range(reps + first):
         if setup is not None:
             setup()
         start = torch.cuda.Event(enable_timing=True)
@@ -902,7 +964,7 @@ def _time_ms(torch, fn, reps=20, setup=None, cover_enqueue=False) -> float:
         fn()
         end.record()
         torch.cuda.synchronize()
-        if r:
+        if r >= first:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
 
@@ -1213,16 +1275,17 @@ def _kernel_checks(torch, np, rt, users, items, states, cfg, serve_q,
 
 
 def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
-               plain_reps=2):
+               plain_reps=2, plain_warmup=True):
     """isgd_update against its plain version, each timed on fresh clones
-    of the tables and compared on its last timed run's tables: (max abs
+    of the tables and compared on its last timed run's tables (the plain
+    version after no warm-up call without ``plain_warmup``): (max abs
     error, kernel ms, plain ms, bound ms, bound by, valid events, kernel
     device ms)."""
     from repro_torch.kernels import ops, ref
 
     events = (u_slot.contiguous(), i_slot.contiguous(), valid.contiguous())
 
-    def timed(fn, reps, cover_enqueue=False):
+    def timed(fn, reps, cover_enqueue=False, warmup=True):
         work = []
 
         def setup():
@@ -1230,12 +1293,13 @@ def _isgd_case(torch, user_tab, item_tab, u_slot, i_slot, valid, hyper,
 
         ms = _time_ms(torch, lambda: fn(*work, *events, eta=hyper.eta,
                                         lam=hyper.lam), reps=reps,
-                      setup=setup, cover_enqueue=cover_enqueue)
+                      setup=setup, cover_enqueue=cover_enqueue,
+                      warmup=warmup)
         return ms, work
 
     device_ms, _ = timed(ops.isgd_update, 10, cover_enqueue=True)
     ms, got = timed(ops.isgd_update, 10)
-    plain_ms, want = timed(ref.isgd_apply, plain_reps)
+    plain_ms, want = timed(ref.isgd_apply, plain_reps, warmup=plain_warmup)
     err = max(_close(g, w, "isgd_update") for g, w in zip(got, want))
     k = user_tab.shape[1]
     v = valid.bool()
@@ -1267,8 +1331,11 @@ def _isgd_row(torch, np, cases, hyper, infos):
         torch, user_tab, item_tab, u_slot, i_slot, valid, hyper)
     bench = []
     for case, (ut, it, us, is_, ok) in bench_cases:
+        # The plain version's eager loop takes 0.4-6 s a call here: one
+        # call, unwarmed (two took ~11 s more of the script's time).
         b_err, b_ms, b_plain, b_bound, b_by, _, b_device = _isgd_case(
-            torch, ut, it, us, is_, ok, hyper, plain_reps=1)
+            torch, ut, it, us, is_, ok, hyper, plain_reps=1,
+            plain_warmup=False)
         bench.append({"case": case,
                       "shape": f"U={ut.shape[0]} I={it.shape[0]} "
                                f"E={us.numel()} k={ut.shape[1]}",
@@ -1698,8 +1765,9 @@ def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
     serve.pop("first")
     emit("dics_session", stream="synth_stream(NETFLIX, seed=0)", events=n,
          cut=f"first {DICS_SESSION_BATCHES} micro-batches of "
-             f"{math.ceil(users.size / MICRO_BATCH)} (at ~106 ms a step a "
-             "second whole stream would take ~73 s of the run)",
+             f"{math.ceil(users.size / MICRO_BATCH)} trained by dics_path "
+             "(at ~106 ms a step a second run of them would take ~36 s of "
+             "the script's time limit)",
          publish_every=DICS_SESSION_EVERY, mode="async", steps=steps,
          wall_s=res.wall_seconds, ingest_wall_s=ingest_s,
          events_per_s=res.throughput, plain_events_per_s=plain.throughput,
@@ -1715,11 +1783,12 @@ def _dics_session(torch, np, rt, users, items, cfg, dics_path, serve_p50):
 
 # -- storage policies, regrid and checkpoints -----------------------------------
 
-# The bf16 phase's cut, the profiled steps of the codecs, and the
-# checkpoint phase's second grid (a refine of the item splits, with caps
-# that still hold every split's items: 27,133 / 8 <= 3,392).
+# The bf16 phase's cut, the profiled steps of the codecs (64 until the
+# script came within 15% of its time limit), and the checkpoint phase's
+# second grid (a refine of the item splits, with caps that still hold
+# every split's items: 27,133 / 8 <= 3,392).
 STORAGE_BF16_BATCHES = 128
-CODEC_PROFILE_STEPS = 64
+CODEC_PROFILE_STEPS = 32
 REFINED = (8, 4)
 REFINED_I_CAP = 3_392
 CHECKPOINT_DIR = ROOT / "build" / "chip_smoke_checkpoints"
@@ -2310,8 +2379,8 @@ FORGETTING_PRESETS = {
     "gradual": dict(policy="gradual", trigger_every=2048,
                     gradual_gamma=0.9)}
 # Cut from 128, then 64, to leave the grid phases room within the time
-# limit.
-TELEMETRY_COST_BATCHES = 32
+# limit, then 32 when the script came within 15% of it.
+TELEMETRY_COST_BATCHES = 16
 # drift_path: the DICS deployment on an abrupt drift of Netflix's
 # profile with the scenarios' steeper popularity (DEFAULT_PROFILE's
 # item_zipf), cut to DRIFT_EVENTS raw events for the run's time limit.
@@ -2320,11 +2389,18 @@ DRIFT_EVENTS, DRIFT_AT = 131_072, 0.3
 # BPR-MF cut to the stream's first events (its eager worker, on scan and
 # host, takes ~45 s over the whole stream on the card: ~1.3 s a step of
 # 128 events a worker; 2,048 until the grid's async phases needed the
-# time). DISGD and DICS keep the whole stream (8,958 events, the drift
-# at 3,293): DISGD's backends must agree across the drift, and DICS's
-# adaptive run must fire and recover.
+# time, 1,024 until the script came within 15% of its time limit). DISGD
+# is cut to 18 micro-batches (4,608 of 8,958 events), past the drift at
+# 3,293 and two LRU passes, so its backends still agree across the
+# drift (each scan run ~10 s on the whole stream). DICS keeps the whole
+# stream: its adaptive run must fire and recover. The ``host`` loop runs DICS only,
+# under both policies, across the drift (its fixed forgetting pass and
+# its detector and controller, which fire there); DISGD's and BPR-MF's
+# host runs (~35 s of the script's time limit) were cut when the MoE
+# phases came.
 DRIFT_SMALL_EVENTS = 32_768
-DRIFT_SMALL_CUT = {"bpr": 1024}
+DRIFT_SMALL_CUT = {"bpr": 512, "disgd": 4608}
+DRIFT_HOST_ALGOS = ("dics",)
 
 
 def _stream_counters(registry) -> dict:
@@ -2576,7 +2652,8 @@ def _drift_phases(torch, np, rt) -> dict:
                 continue
             runs, scans[f"{algo}.{policy}"] = _drift_agree(
                 np, rt, sc.users[:cut], sc.items[:cut], d, run_cfg,
-                f"drift_backends_agree.{algo}.{policy}")
+                f"drift_backends_agree.{algo}.{policy}",
+                host=algo in DRIFT_HOST_ALGOS)
             rows[f"{algo}.{policy}"] = dict(events=min(cut, sc.n), **runs)
     for what in ("cuda", "scan"):
         fixed, adaptive = (rows[f"dics.{p}"][what] for p in ("fixed",
@@ -2598,34 +2675,37 @@ def _drift_phases(torch, np, rt) -> dict:
     return scans
 
 
-def _drift_agree(np, rt, users, items, d, cfg, what):
-    """One policy of one algorithm on ``cuda``, ``scan`` and ``host`` on
-    the card and ``cuda`` on CPU tensors. ``host`` = ``scan`` (the same
-    eager worker): flags, forgets, evaluated recall bits, every state
-    array and the telemetry vector exactly. The card's ``cuda`` = ``cuda``
-    on CPU tensors (the plain versions the CPU tests hold to JAX): flags,
-    forgets, recall bits, integers and the telemetry vector exactly,
-    floats within STREAM_RTOL / STREAM_ATOL. ``cuda`` against ``scan``
-    under the fixed cadence, whose passes do not read the recall bits:
-    forgets, integers and the telemetry vector but its hits exactly,
-    floats within the tolerance (the cuda worker scores at bucket start,
-    the scan worker live: their recall bits, and so an adaptive run's
-    flags, differ by design in both packages). Returns the summary and
-    the ``scan`` run."""
+def _drift_agree(np, rt, users, items, d, cfg, what, host=False):
+    """One policy of one algorithm on ``cuda`` and ``scan`` (and, with
+    ``host``, ``host``) on the card and ``cuda`` on CPU tensors. ``host``
+    = ``scan`` (the same eager worker): flags, forgets, evaluated recall
+    bits, every state array and the telemetry vector exactly. The card's
+    ``cuda`` = ``cuda`` on CPU tensors (the plain versions the CPU tests
+    hold to JAX): flags, forgets, recall bits, integers and the telemetry
+    vector exactly, floats within STREAM_RTOL / STREAM_ATOL. ``cuda``
+    against ``scan`` under the fixed cadence, whose passes do not read
+    the recall bits: forgets, integers and the telemetry vector but its
+    hits exactly, floats within the tolerance (the cuda worker scores at
+    bucket start, the scan worker live: their recall bits, and so an
+    adaptive run's flags, differ by design in both packages). Returns the
+    summary and the ``scan`` run."""
     from repro_torch.core import convert
     from repro_torch.drift import recovery_report
     from repro_torch.obs.telemetry import telemetry_ints
 
+    backends = [("cuda", {}), ("scan", dict(backend="scan")),
+                ("cpu", dict(device="cpu"))]
+    if host:
+        backends.insert(2, ("host", dict(backend="host")))
     runs = {name: rt.run_stream(users, items, dataclasses.replace(cfg, **kw))
-            for name, kw in (("cuda", {}), ("scan", dict(backend="scan")),
-                             ("host", dict(backend="host")),
-                             ("cpu", dict(device="cpu")))}
+            for name, kw in backends}
     st = {k: convert.states_to_numpy(r.final_states) for k, r in runs.items()}
     tel = {k: telemetry_ints(r.telemetry) for k, r in runs.items()}
     flags = {k: (r.drift_flags if r.drift_flags is not None
                  else np.zeros(0, np.int32)) for k, r in runs.items()}
     adaptive = cfg.drift is not None
-    pairs = [("host", "scan", True), ("cuda", "cpu", True)]
+    pairs = [("host", "scan", True)] if host else []
+    pairs.append(("cuda", "cpu", True))
     if not adaptive:
         pairs.append(("cuda", "scan", False))
     for a, b, same_bits in pairs:
@@ -2669,7 +2749,8 @@ def _drift_agree(np, rt, users, items, d, cfg, what):
 
 
 def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
-    """DICS trained over the whole Netflix stream, served (dense and
+    """DICS trained over the first DICS_PATH_EVENTS events of the Netflix
+    stream, served (dense and
     compressed: ``storage_serve``, with ``disgd_serve``, its DISGD half),
     its two kernels held against their plain versions, the session and
     ``dics_storage``. Returns the kernel rows."""
@@ -2681,6 +2762,8 @@ def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
     t0 = time.perf_counter()
     users, items, _ = synth_stream(NETFLIX, seed=0)
     gen_s = time.perf_counter() - t0
+    stream_events = int(users.size)
+    users, items = users[:DICS_PATH_EVENTS], items[:DICS_PATH_EVENTS]
     n = int(users.size)
     cfg = dics_config(rt)
     grid = cfg.grid
@@ -2697,7 +2780,9 @@ def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
              f"the DICS path, expected one per step ({steps})")
     states = res.final_states
     emit("dics_path", stream="synth_stream(NETFLIX, seed=0)", events=n,
-         cut=None, generate_s=round(gen_s, 3), grid=[grid.n_i, grid.g],
+         cut=f"first {n} of {stream_events} events (at ~102 ms a step the "
+             "whole stream took ~70 s of the script's time limit)",
+         generate_s=round(gen_s, 3), grid=[grid.n_i, grid.g],
          u_cap=DICS_U_CAP, i_cap=DICS_I_CAP, k_nn=K_NN,
          micro_batch=MICRO_BATCH, bucket_capacity=cfg.bucket_capacity,
          steps=steps, wall_s=res.wall_seconds,
@@ -2707,7 +2792,7 @@ def _dics_phases(torch, np, rt, dev, infos, disgd_serve):
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          rated_bytes=states.rated.numel(), co_bytes=4 * states.co.numel(),
          launches=path_counts)
-    _profile_steps(torch, rt, users, items, cfg, steps=32,
+    _profile_steps(torch, rt, users, items, cfg, steps=PROFILE_STEPS,
                    phase="dics_profile")
 
     # -- 7. dics_serve ----------------------------------------------------------
@@ -3046,45 +3131,54 @@ def _window_pairs(np, s, window, causal):
 
 # ensemble_path: every registered algorithm on the DICS deployment, on
 # drift_path's profile and size under the recurring scenario, ingested
-# in 16 segments (bench_ensemble's 32, benchmarks/bench_ensemble.py:40-46,
-# until the grid's async phases needed the time: every ingest call runs
-# the 8-step drain tail, so halving the calls halves the phase), windowed
-# recall over its 400-event window, served in 8 blend and 8 switch calls
-# of SERVE_BATCH users; checkpointed after segment 8. ensemble_bar keeps
-# bench_ensemble's 32 segments.
+# in 8 segments (bench_ensemble's 32, benchmarks/bench_ensemble.py:40-46;
+# 16 until the script came within 15% of its time limit: every ingest
+# call runs the 8-step drain tail, so the calls set the phase's time),
+# windowed recall over its 400-event window, served in 8 blend and 8
+# switch calls of SERVE_BATCH users; checkpointed after segment 4.
+# ensemble_bar keeps bench_ensemble's 32 segments.
 ENSEMBLE_EVENTS = 131_072
 ENSEMBLE_SEGMENTS = 32
-ENSEMBLE_PATH_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 16, 8
+ENSEMBLE_PATH_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 8, 4
 ENSEMBLE_WINDOW, ENSEMBLE_MARGIN = 400, 0.01
 ENSEMBLE_SERVE_CALLS = 8
 # ensemble_bar: bench_ensemble.smoke_rows's configuration.
 ENSEMBLE_BAR_EVENTS, ENSEMBLE_BAR_MEMBERS = 8192, ("dics", "disgd")
 ENSEMBLE_DIR = ROOT / "build" / "chip_smoke_ensemble"
-# service_path: the DISGD deployment's first 64 micro-batches interleaved
-# with 64 query batches, then the next 128 threaded under Poisson load.
-SERVICE_INTERLEAVED_BATCHES, SERVICE_THREADED_BATCHES = 64, 128
+# service_path: the DISGD deployment's first 32 micro-batches interleaved
+# with 32 query batches (64 until the script came within 15% of its time
+# limit: each ingest call of one micro-batch runs the 8-step drain tail),
+# then the next 128 threaded under Poisson load.
+SERVICE_INTERLEAVED_BATCHES, SERVICE_THREADED_BATCHES = 32, 128
 SERVICE_QUERY_BATCH = 64
 # autoscale_path: the MovieLens-25M deployment from a 2 x 2 grid with
 # tests/test_storage.py's undersizing (_overloaded_run), its first 64
 # micro-batches in 16 ingest calls.
 AUTOSCALE_BATCHES, AUTOSCALE_CALLS, AUTOSCALE_MAX = 64, 16, 16
 DRIVERS_DIR = ROOT / "build" / "chip_smoke_drivers"
-# grid_path: the first events of the DISGD stream (4 micro-batches and
+# grid_path: the first events of the DISGD stream (2 micro-batches and
 # the 8 of the drain tail). The eager worker runs every event of a bucket
 # as its own few dozen launches, and 16 ranks share the card and the
 # host's cores: 32,768 events took 69 s with start-up; 16,384, then 8,192
-# once grid_session ran in the same group, keep the script within its
-# time limit.
-GRID_EVENTS = 8_192
+# once grid_session ran in the same group, then 4,096 (2 micro-batches)
+# once the script came within 15% of its time limit.
+GRID_EVENTS = 4_096
+# ... and the 16-rank group's re-queue buffer: one bucket, so each run
+# drains in one step instead of micro_batch / bucket_capacity = 8 (the
+# eager worker walks every slot of a bucket, full or empty, at ~2 s a
+# step on 16 ranks). No bucket of these micro-batches overflows (at most
+# 149 events of 256), so nothing is carried or dropped either way.
+GRID_CARRY_SLOTS = 256
 # Seconds each group of ranks may take, start-up included.
 GRID_TIMEOUT = 420.0
 # grid_nccl: the first events of grid_agree's stream on one worker (a
 # bucket of 512 events a step; the LRU pass runs gated, without firing).
 GRID_NCCL_EVENTS = 1024
 # grid_session: the first events of the DISGD stream through a session
-# on the 16 ranks (4 micro-batches, publishing every 2), and its queries:
-# trained users, then ids no worker knows.
-GRID_SESSION_EVENTS, GRID_SESSION_EVERY = 8192, 2
+# on the 16 ranks (2 micro-batches and the drain tail, publishing every
+# 2; 4 micro-batches until the script came within 15% of its time
+# limit), and its queries: trained users, then ids no worker knows.
+GRID_SESSION_EVENTS, GRID_SESSION_EVERY = 4096, 2
 GRID_SESSION_USERS, GRID_SESSION_UNKNOWN = 1024, 256
 # ... and the grid it is then rescaled to live, and back.
 GRID_SESSION_RESCALE = (2, 4)
@@ -4437,7 +4531,8 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
 
     # -- grid_path ----------------------------------------------------------------
     u, i = users[:GRID_EVENTS], items[:GRID_EVENTS]
-    cfg = dataclasses.replace(disgd_config(rt), backend="scan")
+    cfg = dataclasses.replace(disgd_config(rt), backend="scan",
+                              carry_slots=GRID_CARRY_SLOTS)
     su, si = users[:GRID_SESSION_EVENTS], items[:GRID_SESSION_EVENTS]
     queries = _grid_session_queries(np, su)
     t0 = time.perf_counter()
@@ -4460,7 +4555,8 @@ def _grid_phases(torch, np, rt, users, items, drift_scans):
              f"on one card within the script's time limit)",
          grid=[cfg.grid.n_i, cfg.grid.g], u_cap=U_CAP, i_cap=I_CAP,
          micro_batch=MICRO_BATCH, bucket_capacity=cfg.bucket_capacity,
-         run_s=spawn_s, scan_peak_bytes=scan_peak, max_abs_err=err,
+         carry_slots=cfg.carry_slots, run_s=spawn_s,
+         scan_peak_bytes=scan_peak, max_abs_err=err,
          rtol=STREAM_RTOL, atol=STREAM_ATOL,
          staging=("gloo stages the CUDA buffer through the host: each "
                   "collective waits for the step's work"))
@@ -4686,7 +4782,8 @@ def _llm_phases(torch, np, dev):
     return [row]
 
 
-def _profile_llm(torch, bundle, params, prompts, decode_steps=8):
+def _profile_llm(torch, bundle, params, prompts, decode_steps=8,
+                 phase="llm_profile"):
     """Where the serving time goes: one prefill, then ``decode_steps``
     decode steps, each window under ``torch.profiler`` (device activity
     only). Device busy share = summed kernel time / the window's wall."""
@@ -4719,7 +4816,7 @@ def _profile_llm(torch, bundle, params, prompts, decode_steps=8):
                      "launches": sum(r[1] for r in rows),
                      "top": [{"kernel": k[:90], "ms": us / 1e3, "count": c}
                              for us, c, k in rows[:8]]}
-    emit("llm_profile", batch=prompts.shape[0], prompt_len=prompts.shape[1],
+    emit(phase, batch=prompts.shape[0], prompt_len=prompts.shape[1],
          decode_steps=decode_steps, **out)
     del state
     torch.cuda.empty_cache()
@@ -4739,13 +4836,25 @@ def _layer0_qkv(torch, params, cfg, tokens):
             params.layers[0].attn, xn, positions, cfg))
 
 
-def _swa_errors(torch, q, k, v, outs, kw, hq=8):
+def _head_slices(n_heads, g, hq=8):
+    """(q heads, their kv heads) in slices of about ``hq`` q heads that
+    never split a kv head's group across two slices, nor give a slice a
+    kv head it does not read: whole groups where the group is at most
+    ``hq`` (danube's 4, dbrx's 6), else a divisor of the group (granite's
+    48, in slices of 8 reading one kv head)."""
+    hq = g * max(1, hq // g) if g <= hq else math.gcd(g, hq)
+    for h in range(0, n_heads, hq):
+        yield slice(h, h + hq), slice(h // g, (h + hq - 1) // g + 1)
+
+
+def _swa_errors(torch, q, k, v, outs, kw):
     """Hold each ``outs[name]`` [B, Hq, S, D] to the plain version on q /
-    k / v, in slices of one request and ``hq`` q heads (the plain version's
-    [hq, S, S] f32 logits). Per name: the max abs error, the max over rows
-    of |got - want|_2 / |want|_2 (a row norm below 1e-3 of its slice's
-    mean counts as that floor) and whether ``allclose`` at the JAX test's
-    rtol / atol holds; and the plain output's RMS."""
+    k / v, in slices of one request and about 8 q heads
+    (``_head_slices``; the plain version's [8, S, S] f32 logits). Per
+    name: the max abs error, the max over rows of |got - want|_2 /
+    |want|_2 (a row norm below 1e-3 of its slice's mean counts as that
+    floor) and whether ``allclose`` at the JAX test's rtol / atol holds;
+    and the plain output's RMS."""
     from repro_torch.kernels import ref
 
     g = q.shape[1] // k.shape[1]
@@ -4753,15 +4862,14 @@ def _swa_errors(torch, q, k, v, outs, kw, hq=8):
             for n in outs}
     sq = 0.0
     for bi in range(q.shape[0]):
-        for h in range(0, q.shape[1], hq):
-            kv = slice(h // g, (h + hq) // g)
-            want = ref.swa_attention(q[bi:bi + 1, h:h + hq], k[bi:bi + 1, kv],
+        for qs, kv in _head_slices(q.shape[1], g):
+            want = ref.swa_attention(q[bi:bi + 1, qs], k[bi:bi + 1, kv],
                                      v[bi:bi + 1, kv], **kw).float()
             sq += want.square().sum().item()
             norm = want.norm(dim=-1)
             norm = norm.clamp_min(1e-3 * norm.mean().item())
             for name, out in outs.items():
-                got = out[bi:bi + 1, h:h + hq].float()
+                got = out[bi:bi + 1, qs].float()
                 d = got - want
                 e = errs[name]
                 e["max_abs_err"] = max(e["max_abs_err"], d.abs().max().item())
@@ -4772,18 +4880,17 @@ def _swa_errors(torch, q, k, v, outs, kw, hq=8):
     return errs, math.sqrt(sq / q.numel())
 
 
-def _swa_row(torch, np, params, cfg, prompts, seq, counts):
-    """K7 against its plain version at the main path's full shape: layer
-    0's real q / k / v of the served prompts (S 8,192) and of the ragged
-    sequence (S 8,193), and unit-variance q / k / v of both shapes. On the
-    S 8,192 inputs the kernel with a wrong window (none; 64 keys short)
-    must fail the same check. Returns the kernels-line row."""
+def _swa_row(torch, np, params, cfg, prompts, seq, counts, instance=None):
+    """K7 against its plain version at a serving path's full shape: layer
+    0's real q / k / v of the served prompts (danube: S 8,192) and of the
+    ragged sequence (S + 1), and unit-variance q / k / v of the prompts'
+    shape and one token longer, each held by ``_swa_hold``; on the
+    prompts' shape the kernel with a wrong mask must fail the same check.
+    Returns the kernels-line row (``instance`` names a second shape of
+    K7)."""
     from repro_torch.kernels import ops, ref
 
     kw = dict(window=cfg.window, causal=cfg.causal)
-    wrong = {"window=None": dict(window=None, causal=cfg.causal),
-             f"window={cfg.window - 64}": dict(window=cfg.window - 64,
-                                                causal=cfg.causal)}
     gen = torch.Generator(device=prompts.device).manual_seed(0)
     q, k, v = _layer0_qkv(torch, params, cfg, prompts)
     checks = {}
@@ -4797,46 +4904,25 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
                 (prompts.shape[0], h, s, cfg.head_dim), generator=gen,
                 device=prompts.device, dtype=torch.bfloat16)
                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-        outs = {"kernel": ops.swa_attention(*qkv, **kw)}
-        if not what.endswith("ragged"):
-            outs.update((n, ops.swa_attention(*qkv, **w))
-                        for n, w in wrong.items())
-        errs, rms = _swa_errors(torch, *qkv, outs, kw)
-        unit = what.startswith("unit")
-        e = errs.pop("kernel")
-        if e["max_row_rel_err"] > SWA_ROW_RTOL or (unit and not e["allclose"]):
-            fail(f"swa_attention ({what}, S={qkv[0].shape[2]}): max row "
-                 f"relative error {e['max_row_rel_err']} (limit "
-                 f"{SWA_ROW_RTOL}), max abs error {e['max_abs_err']} "
-                 f"(allclose rtol=atol={SWA_RTOL}: {e['allclose']}), "
-                 f"RMS of the plain output {rms}")
-        for name, m in errs.items():
-            if m["max_row_rel_err"] <= SWA_ROW_RTOL and (
-                    not unit or m["allclose"]):
-                fail(f"swa_attention ({what}): the check passes a kernel "
-                     f"run with {name}")
-        checks[what] = dict(s=qkv[0].shape[2], rms_want=rms, **e,
-                            wrong_window_caught={
-                                n: {"max_row_rel_err": m["max_row_rel_err"],
-                                    "allclose_alone": not m["allclose"]}
-                                for n, m in errs.items()})
-        del qkv, outs
+        checks[what] = _swa_hold(torch, qkv, cfg, f"{cfg.name}, {what}",
+                                 unit=what.startswith("unit"),
+                                 wrong=not what.endswith("ragged"))
+        del qkv
     torch.cuda.empty_cache()
 
     ms = _time_ms(torch, lambda: ops.swa_attention(q, k, v, **kw), reps=10)
     device_ms = _time_ms(torch, lambda: ops.swa_attention(q, k, v, **kw),
                          reps=10, cover_enqueue=True)
     b, s, d = q.shape[0], q.shape[2], q.shape[3]
-    g, hq = cfg.n_heads // cfg.n_kv_heads, 8
+    g = cfg.n_heads // cfg.n_kv_heads
 
     def plain():
         # The plain version's [8, S, S] f32 logits fit; the full input in
-        # 16 slices of 8 q heads.
+        # slices of one request and about 8 q heads.
         for bi in range(b):
-            for h in range(0, cfg.n_heads, hq):
-                ref.swa_attention(q[bi:bi + 1, h:h + hq],
-                                  k[bi:bi + 1, h // g:(h + hq) // g],
-                                  v[bi:bi + 1, h // g:(h + hq) // g], **kw)
+            for qs, kv in _head_slices(cfg.n_heads, g):
+                ref.swa_attention(q[bi:bi + 1, qs], k[bi:bi + 1, kv],
+                                  v[bi:bi + 1, kv], **kw)
 
     plain_ms = _time_ms(torch, plain, reps=2)
     lib_ms, lib_device_ms, lib_err = _sdpa_ms(torch, q, k, v, cfg)
@@ -4844,10 +4930,11 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v bf16
     flops = 4 * pairs * d * b * cfg.n_heads
     bound, by = _bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
-    emit("swa_vs_plain", row_rtol=SWA_ROW_RTOL, rtol=SWA_RTOL, atol=SWA_ATOL,
+    emit("swa_vs_plain", instance=instance or cfg.name,
+         row_rtol=SWA_ROW_RTOL, rtol=SWA_RTOL, atol=SWA_ATOL,
          shape=f"B={b} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={d}",
          checks=checks, library_vs_kernel_max_abs_err=lib_err)
-    return dict(
+    row = dict(
         name="swa_attention", route="cuda", matched=True,
         source="src/repro_torch/kernels/csrc/swa_attention.cu",
         replaces="src/repro/kernels/swa_attention.py:35",
@@ -4858,37 +4945,338 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts):
         library_ms=lib_ms, device_ms=device_ms,
         library_device_ms=lib_device_ms,
         library="scaled_dot_product_attention(attn_mask=window, "
-                "enable_gqa=True)",
+                "enable_gqa=True)" if cfg.window is not None else
+                f"scaled_dot_product_attention(is_causal={cfg.causal})",
         bytes=n_bytes, flops=flops, window_pairs=pairs,
         shape=f"B={b} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={s} D={d} "
               f"window={cfg.window} bf16")
+    if instance is not None:
+        row["instance"] = instance
+    return row
+
+
+def _swa_hold(torch, qkv, cfg, what, unit, wrong=True):
+    """K7 on ``qkv`` at ``cfg``'s mask, held to its plain version: the max
+    row relative error within SWA_ROW_RTOL, and for unit-variance inputs
+    (``unit``) ``allclose`` at rtol = atol = SWA_RTOL too. With ``wrong``,
+    the kernel run with a wrong mask (a window: none, or 64 keys short; no
+    window: 64 keys short, or the other causality) must fail the same
+    check. Returns the check's record."""
+    from repro_torch.kernels import ops
+
+    kw = dict(window=cfg.window, causal=cfg.causal)
+    s = qkv[0].shape[2]
+    bad = {}
+    if wrong and cfg.window is None:
+        bad = {f"window={s - 64}": dict(window=s - 64, causal=cfg.causal),
+               f"causal={not cfg.causal}": dict(window=None,
+                                                 causal=not cfg.causal)}
+    elif wrong:
+        bad = {"window=None": dict(window=None, causal=cfg.causal),
+               f"window={cfg.window - 64}": dict(window=cfg.window - 64,
+                                                  causal=cfg.causal)}
+    outs = {"kernel": ops.swa_attention(*qkv, **kw)}
+    outs.update((n, ops.swa_attention(*qkv, **w)) for n, w in bad.items())
+    errs, rms = _swa_errors(torch, *qkv, outs, kw)
+    e = errs.pop("kernel")
+    if e["max_row_rel_err"] > SWA_ROW_RTOL or (unit and not e["allclose"]):
+        fail(f"swa_attention ({what}, S={s}): max row relative error "
+             f"{e['max_row_rel_err']} (limit {SWA_ROW_RTOL}), max abs error "
+             f"{e['max_abs_err']} (allclose rtol=atol={SWA_RTOL}: "
+             f"{e['allclose']}), RMS of the plain output {rms}")
+    for name, m in errs.items():
+        if m["max_row_rel_err"] <= SWA_ROW_RTOL and (
+                not unit or m["allclose"]):
+            fail(f"swa_attention ({what}): the check passes a kernel run "
+                 f"with {name}")
+    return dict(s=s, rms_want=rms, **e, wrong_window_caught={
+        n: {"max_row_rel_err": m["max_row_rel_err"],
+            "allclose_alone": not m["allclose"]} for n, m in errs.items()})
 
 
 def _sdpa_ms(torch, q, k, v, cfg):
     """The library yardstick: one ``scaled_dot_product_attention`` call
-    with a bool window mask and ``enable_gqa``, on a fused backend (the
-    math backend would materialise [B, Hq, S, S] in f32). Returns its ms,
-    its card time alone and its max abs difference from the kernel's
-    output."""
+    with a bool window mask (or ``is_causal`` without a window) and
+    ``enable_gqa``, on a fused backend (the math backend would
+    materialise [B, Hq, S, S] in f32). Returns its ms, its card time alone
+    and its max abs difference from the kernel's output."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import ops
 
-    r = torch.arange(q.shape[2], device=q.device)
-    mask = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - cfg.window)
+    if cfg.window is None:
+        def call():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=cfg.causal, enable_gqa=True)
+    else:
+        r = torch.arange(q.shape[2], device=q.device)
+        mask = (r[None, :] <= r[:, None]) & (
+            r[None, :] > r[:, None] - cfg.window)
 
-    def call():
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
-                          SDPBackend.CUDNN_ATTENTION]):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
+        def call():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
 
     err = (call().float() - ops.swa_attention(
         q, k, v, window=cfg.window, causal=cfg.causal).float()
            ).abs().max().item()
     return (_time_ms(torch, call, reps=5),
             _time_ms(torch, call, reps=5, cover_enqueue=True), err)
+
+
+# -- MoE and full-attention serving ------------------------------------------
+
+
+def _moe_phases(torch, np, dev):
+    """olmoe-1b-7b served at full size through the port, its prefill +
+    decode consistency, its MoE layer on the card against the host, K7
+    at its shape against the plain version, then the other four archs
+    cut in depth. Returns the K7 row of olmoe's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import build
+    from repro_torch.models.layers import moe
+
+    # -- 13. moe_serve -----------------------------------------------------------
+    cfg = get_config(MOE_ARCH)
+    bundle = build(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    numel = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab, seed=0)
+    prompts = torch.as_tensor(pipe.sample(MOE_BATCH, MOE_PROMPT), device=dev)
+    serve.generate(bundle, params, prompts[:, :256], 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, t = serve.generate(bundle, params, prompts, MOE_DECODE_STEPS + 1)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["swa_attention"] != cfg.n_layers:
+        fail(f"moe_serve: swa_attention launched {counts['swa_attention']} "
+             f"times in one prefill of {cfg.n_layers} layers")
+    tokens = tokens.cpu()
+    if tokens.shape != (MOE_BATCH, MOE_DECODE_STEPS + 1) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        fail(f"moe_serve: generated tokens {tuple(tokens.shape)} out of range")
+    no_sync = _decode_without_sync(torch, bundle, params, prompts[:, :256])
+    e = cfg.moe
+    emit("moe_serve", arch=cfg.name, source=cfg.source, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, window=cfg.window, experts=e.n_experts,
+         top_k=e.top_k, d_expert=e.d_expert,
+         capacity_factor=e.capacity_factor, group_size=e.group_size,
+         param_count=cfg.param_count(),
+         active_param_count=cfg.active_param_count(), numel=numel,
+         weights="f32 random, torch.Generator seeded 0", init_s=init_s,
+         batch=MOE_BATCH, prompt_len=MOE_PROMPT,
+         prompts=f"TokenPipeline({cfg.vocab}, seed=0)", **t,
+         max_memory_allocated=peak, launches=counts,
+         decode_under_sync_debug_error=no_sync,
+         first_tokens_request0=tokens[0, :8].tolist())
+    del tokens
+    _profile_llm(torch, bundle, params, prompts, phase="moe_profile")
+
+    # -- 14. moe_consistency -----------------------------------------------------
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=8.0))
+    bundle8 = build(cfg8, device=DEVICE)
+    b, s = MOE_CONSISTENCY_BATCH, MOE_CONSISTENCY_PROMPT
+    seq = torch.as_tensor(pipe.sample(b, s + 1), device=dev)
+    with torch.no_grad():
+        _, caches = bundle8.prefill(params, {"tokens": seq[:, :-1]})
+        x1 = tfm.embed_tokens(params, seq[:, -1:], cfg8)
+        h1, _ = tfm.decode_step(params, x1, cfg8, caches)
+        got = tfm.logits_from_hidden(params, h1, cfg8)[..., :cfg.vocab]
+        del caches, h1
+        ops.reset_launch_counts()
+        want, _ = bundle8.prefill(params, {"tokens": seq})
+        ragged = ops.launch_counts()["swa_attention"]
+        want = want[..., :cfg.vocab]
+    if ragged != cfg.n_layers:
+        fail(f"moe_consistency: a prefill over {s + 1} tokens launched "
+             f"swa_attention {ragged} times")
+    groups = {n: moe.group_shape(n, cfg8.moe)
+              for n in (b * s, b * (s + 1), b)}
+    if any(cap < gs for _, gs, cap in groups.values()):
+        fail(f"moe_consistency: a group can drop tokens: {groups}")
+    err, disagree = _logits_agree(np, got, want, "moe_consistency")
+    emit("moe_consistency", batch=b, prefill=s, full=s + 1,
+         capacity_factor=8.0,
+         groups_gs_cap={str(n): [gs, cap] for n, (_, gs, cap) in
+                        groups.items()},
+         scaled_max_abs_err=err, tol=LOGIT_TOL,
+         greedy_disagree_near_ties=disagree, near_tie_gap=LOGIT_GAP,
+         ragged_swa_launches=ragged)
+    del got, want
+    torch.cuda.empty_cache()
+
+    # -- 15. moe_routing_card ----------------------------------------------------
+    _moe_routing_card(torch, np, params, cfg)
+
+    # -- 16. swa_attention at olmoe's shape --------------------------------------
+    row = _swa_row(torch, np, params, cfg, prompts, seq, counts,
+                   instance=cfg.name)
+    del params, bundle, bundle8
+    torch.cuda.empty_cache()
+
+    # -- 17. zoo_serve -----------------------------------------------------------
+    _zoo_serve(torch, np, dev)
+    return [row]
+
+
+def _decode_without_sync(torch, bundle, params, prompts) -> str:
+    """One decode step after a prefill of ``prompts``, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for
+    the card (``.item()``, ``nonzero``, a blocking copy) fails the run."""
+    cfg = bundle.cfg
+    logits, caches = bundle.prefill(params, {"tokens": prompts})
+    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, caches = bundle.decode(params, caches, tok)
+    except RuntimeError as err:
+        fail(f"{cfg.name}: a decode step synchronised with the card: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return "passed"
+
+
+def _tie_free_tokens(torch, router, n: int):
+    """``n`` token activations [1, n, D] (bf16) whose router logits are
+    each a random permutation of E levels 0.1 apart (least squares
+    through the router's columns), so that no token's k-th and (k+1)-th
+    router probabilities nearly tie: the condition for comparing two
+    devices' choices exactly. The caller checks it on the probabilities
+    the layer computes."""
+    n_e = router.shape[1]
+    gen = torch.Generator().manual_seed(0)
+    levels = torch.argsort(torch.rand((n, n_e), generator=gen), dim=-1)
+    z = 0.1 * levels.double()
+    w = router.double()
+    x = z @ torch.linalg.solve(w.T @ w, w.T)         # [n, D]: x @ w = z
+    return x.to(torch.bfloat16)[None]
+
+
+def _moe_routing_card(torch, np, params, cfg):
+    """Layer 0's MoE at full width on MOE_ROUTING_TOKENS tokens, on the
+    card and on the host CPU from the same parameters and inputs."""
+    from repro_torch.models.layers import moe
+
+    e = cfg.moe
+    layer = dict(params.layers[0].moe.named_parameters())
+    host = {k: v.detach().cpu() for k, v in layer.items()}
+    x = _tie_free_tokens(torch, host["router"], MOE_ROUTING_TOKENS)
+    g, gs, cap = moe.group_shape(MOE_ROUTING_TOKENS, e)
+    xt = x.reshape(g, gs, cfg.d_model)
+    want = moe.route(host, xt, e)
+    got = moe.route(layer, xt.to(layer["router"].device), e)
+    ranked = torch.sort(want.probs, dim=-1, descending=True).values
+    gaps = ranked[..., :e.top_k] - ranked[..., 1:e.top_k + 1]
+    min_gap = gaps.min().item()
+    if min_gap < MOE_NEAR_TIE:
+        fail(f"moe_routing_card: router probabilities {min_gap} apart where "
+             f"the top-{e.top_k} ends (near-tie limit {MOE_NEAR_TIE})")
+    for f in ("top_i", "pos", "kept"):
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+            fail(f"moe_routing_card: {f} differs between the card and the "
+                 "host")
+    t0 = time.perf_counter()
+    y_host, aux_host = moe.moe_apply(host, x, cfg)
+    host_s = time.perf_counter() - t0
+    y, aux = moe.moe_apply(layer, x.to(layer["router"].device), cfg)
+    y, y_host = y.float().cpu(), y_host.float()
+    scale = max(y_host.abs().max().item(), 1.0)
+    err = (y - y_host).abs().max().item() / scale
+    aux_err = abs(aux.item() / aux_host.item() - 1)
+    if not (err <= MOE_OUT_TOL and aux_err <= MOE_AUX_RTOL
+            and torch.isfinite(y).all()):
+        fail(f"moe_routing_card: scaled output error {err} (limit "
+             f"{MOE_OUT_TOL}), aux relative error {aux_err} (limit "
+             f"{MOE_AUX_RTOL})")
+    emit("moe_routing_card", tokens=MOE_ROUTING_TOKENS, groups=g,
+         group_size=gs, capacity=cap,
+         inputs="router logits a permutation of E levels 0.1 apart",
+         min_gap_at_top_k=min_gap, near_tie_limit=MOE_NEAR_TIE,
+         dropped=int((~want.kept).sum()),
+         assignments=int(want.kept.numel()), routing="exactly equal",
+         scaled_max_abs_err=err, tol=MOE_OUT_TOL, aux=aux.item(),
+         aux_host=aux_host.item(), aux_rel_err=aux_err, host_s=host_s)
+
+
+def _zoo_serve(torch, np, dev):
+    """moonshot, dbrx, stablelm-3b and granite-34b at full width, cut in
+    depth (ZOO_LAYERS), each through ``serve.generate``: ZOO_BATCH prompts
+    of ZOO_PROMPT tokens, ZOO_DECODE_STEPS greedy steps; K7 launches =
+    layers, the warm-up prefill's logits finite, tokens in range. Then K7
+    on layer 0's real q / k / v of the prompts is held to its plain version
+    (``_swa_hold``: dbrx's group 6, granite's 48, stablelm's D 80), a
+    kernel run with a wrong mask failing the same check."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.factory import build
+
+    rows = {}
+    for arch, layers in ZOO_LAYERS.items():
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        bundle = build(cfg, device=DEVICE)
+        t0 = time.perf_counter()
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = torch.as_tensor(TokenPipeline(cfg.vocab, seed=0).sample(
+            ZOO_BATCH, ZOO_PROMPT), device=dev)
+        logits, caches = bundle.prefill(params, {"tokens": prompts[:, :128]})
+        bundle.decode(params, caches, torch.argmax(
+            logits[..., :cfg.vocab], dim=-1).to(torch.int32))   # warm-up
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"zoo_serve: {cfg.name} prefill logits not finite")
+        del logits, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tokens, t = serve.generate(bundle, params, prompts,
+                                   ZOO_DECODE_STEPS + 1)
+        launches = ops.launch_counts()["swa_attention"]
+        tokens = tokens.cpu()
+        if launches != cfg.n_layers:
+            fail(f"zoo_serve: {cfg.name} launched swa_attention {launches} "
+                 f"times in one prefill of {cfg.n_layers} layers")
+        if not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+            fail(f"zoo_serve: {cfg.name} generated tokens out of range")
+        swa_check = _swa_hold(torch, _layer0_qkv(torch, params, cfg, prompts),
+                              cfg, f"zoo_serve, {cfg.name}", unit=False)
+        rows[cfg.name] = dict(
+            source=cfg.source, layers=cfg.n_layers, full_layers=full.n_layers,
+            d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+            moe=None if cfg.moe is None else dataclasses.asdict(cfg.moe),
+            numel=sum(p.numel() for p in params.parameters()),
+            init_s=init_s, **t, swa_launches=launches, swa_check=swa_check,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            first_tokens_request0=tokens[0].tolist())
+        del params, bundle, prompts, tokens
+        torch.cuda.empty_cache()
+    emit("zoo_serve", batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
+         decode_steps=ZOO_DECODE_STEPS, swa_row_rtol=SWA_ROW_RTOL,
+         weights="f32 random, torch.Generator seeded 0", archs=rows)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,14 @@
 A copy of ``repro/configs/base.py`` (``ArchConfig`` :55): the JAX
 package's configs import no jax, but importing them loads ``repro``,
 which does, so this package keeps its own. Same fields, same
-``head_dim`` / ``padded_vocab`` / ``param_count``.
+``head_dim`` / ``padded_vocab`` / ``subquadratic`` / ``param_count`` /
+``active_param_count``.
 
-Only ``h2o_danube_1p8b`` is ported (the dense sliding-window family);
-every other architecture of the zoo raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+Ported: the dense family (h2o-danube-1.8b with a sliding window,
+stablelm-3b and granite-34b with full attention) and the MoE family
+(olmoe-1b-7b, moonshot-v1-16b-a3b, dbrx-132b). The hybrid, xLSTM, VLM
+and audio architectures raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -91,9 +94,20 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return ((self.vocab + 127) // 128) * 128
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k: bounded attention state per token
+        (``repro/configs/base.py:94``)."""
+        if self.family in ("ssm",):
+            return True
+        if self.family == "hybrid":
+            return True  # SSM heads + SWA rolling buffer
+        return self.window is not None
+
     def param_count(self) -> int:
         """Analytic parameter count (``repro/configs/base.py:101``; the
-        final norm is not counted there either)."""
+        final norm is not counted there either, and a ``first_dense``
+        layer 0 counts as an MoE layer)."""
         d, L, v = self.d_model, self.n_layers, self.padded_vocab
         dh = self.head_dim
         total = 2 * v * d  # in+out embeddings
@@ -114,6 +128,17 @@ class ArchConfig:
             per_layer += 2 * d * di + di * (2 * self.ssm.state_dim + 2) + di * d
         return total + L * per_layer
 
+    def active_param_count(self) -> int:
+        """Active params per token, MoE: top_k + shared experts only
+        (``repro/configs/base.py:123``)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        full = self.param_count()
+        expert_p = 3 * self.d_model * e.d_expert
+        inactive = (e.n_experts - e.top_k) * expert_p * self.n_layers
+        return full - inactive
+
 
 ARCH_IDS = (
     "hymba_1p5b",
@@ -127,7 +152,8 @@ ARCH_IDS = (
     "granite_34b",
     "stablelm_3b",
 )
-PORTED_ARCH_IDS = ("h2o_danube_1p8b",)
+PORTED_ARCH_IDS = ("h2o_danube_1p8b", "olmoe_1b_7b", "moonshot_v1_16b_a3b",
+                   "dbrx_132b", "stablelm_3b", "granite_34b")
 
 _ALIASES = {
     "hymba-1.5b": "hymba_1p5b",

@@ -16,10 +16,13 @@ uint16 factor table, or a uint16 ``co`` without ``co_scale``) or JAX's
 ``ml_dtypes`` bfloat16 arrays, moved through a uint16 view.
 
 For the LM zoo, ``params_from_numpy`` builds the port's model from the
-JAX parameter pytree mapped to numpy (layers stacked ``[L, ...]``), and
-``caches_from_numpy`` / ``caches_to_numpy`` move a dense model's decode
-cache (the JAX ``caches[1]``, ``{"k", "v", "pos", "length"}`` stacked
-over layers) both ways, so a JAX prefill can feed the port's decode.
+JAX parameter pytree mapped to numpy (layers stacked ``[L, ...]``, an
+MoE block's ``moe/shared`` and a ``first_dense`` model's ``layer0``
+included), and ``caches_from_numpy`` / ``caches_to_numpy`` move a decode
+cache both ways, so a JAX prefill can feed the port's decode: JAX's
+``(caches0, stacked)`` pair (``caches0`` a ``first_dense`` model's layer
+0, else ``None``; each ``{"k", "v", "pos", "length"}``, ``stacked`` over
+the other layers) against the port's one ``KVCache`` over all layers.
 """
 
 from __future__ import annotations
@@ -119,22 +122,32 @@ _CACHE_DTYPES = {"k": torch.bfloat16, "v": torch.bfloat16,
                  "pos": torch.int32, "length": torch.int32}
 
 
-def caches_from_numpy(tree: Mapping, device="cuda"):
-    """The stacked part of a JAX dense decode cache (``caches[1]``: ``k``,
-    ``v``, ``pos``, ``length`` as numpy arrays, ``k``/``v`` any float
-    type) -> the port's stacked ``KVCache``."""
-    return KVCache(**{
-        f: torch.tensor(np.asarray(tree[f], dtype=np.float32
-                                   if f in ("k", "v") else np.int32),
-                        device=device).to(dtype)
-        for f, dtype in _CACHE_DTYPES.items()})
+def caches_from_numpy(tree, device="cuda"):
+    """JAX's decode cache ``(caches0, stacked)`` as numpy arrays (``k``/``v``
+    any float type) -> the port's stacked ``KVCache``; a ``caches0`` (a
+    ``first_dense`` model's layer 0) becomes layer 0."""
+    caches0, stacked = tree
+
+    def leaf(f):
+        t = np.asarray(stacked[f], dtype=np.float32 if f in ("k", "v")
+                       else np.int32)
+        if caches0 is not None:
+            t = np.concatenate([np.asarray(caches0[f], dtype=t.dtype)[None],
+                                t])
+        return torch.tensor(t, device=device).to(_CACHE_DTYPES[f])
+
+    return KVCache(**{f: leaf(f) for f in _CACHE_DTYPES})
 
 
-def caches_to_numpy(caches) -> dict:
-    """The port's stacked ``KVCache`` -> ``{"k", "v", "pos", "length"}``
-    numpy arrays on the host (``k``/``v`` as float32)."""
+def caches_to_numpy(caches, *, first_dense: bool = False):
+    """The port's stacked ``KVCache`` -> JAX's ``(caches0, stacked)`` of
+    ``{"k", "v", "pos", "length"}`` numpy arrays on the host (``k``/``v``
+    as float32): ``caches0`` is layer 0 with ``first_dense``, else None."""
     out = {}
     for f in _CACHE_DTYPES:
         t = getattr(caches, f).detach().to("cpu", copy=True)
         out[f] = (t.float() if t.is_floating_point() else t).numpy()
-    return out
+    if first_dense:
+        return ({f: a[0] for f, a in out.items()},
+                {f: a[1:] for f, a in out.items()})
+    return None, out

@@ -1,14 +1,21 @@
 """LLM serving entry point: batched prefill + greedy decode.
 
 Port of ``repro/launch/serve.py`` (:26). This drives the transformer model
-zoo (``repro_torch.models``), not the recommender's serving plane
-(``repro_torch.serve``). Weights are random, from a ``torch.Generator``
-seeded 0; prompts come from ``TokenPipeline(vocab, seed=0)``.
+zoo (``repro_torch.models``: every arch in ``PORTED_ARCH_IDS``), not the
+recommender's serving plane (``repro_torch.serve``). Weights are random,
+from a ``torch.Generator`` seeded 0; prompts come from
+``TokenPipeline(vocab, seed=0)``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch h2o_danube_1p8b --batch 4 --prompt-len 8192 --gen 33
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch h2o_danube_1p8b --smoke --device cpu
+        --arch olmoe_1b_7b --batch 4 --prompt-len 4096 --gen 33
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch olmoe_1b_7b --smoke --device cpu
+
+``--arch dbrx_132b --smoke`` runs on the CPU only: its head dim of 16 is
+no width ``swa_attention`` is built for, and the kernel's wrapper refuses
+it on the card at the first prefill (a ``ValueError``).
 
 The greedy tokens stay on the device through the decode loop; the host
 reads them once, at the end (the JAX version reads one per step).

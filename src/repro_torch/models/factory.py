@@ -6,7 +6,8 @@ from an explicit ``torch.Generator``), ``prefill`` (full-sequence forward
 -> greedy next token + caches, ``:211``) and ``cache_len``. The decode
 caches are one ``KVCache`` whose leaves are stacked over layers
 (``k``/``v`` [L, B, Hkv, C, Dh] bf16, ``pos`` [L, B, C], ``length`` [L, B]),
-the JAX package's layout; ``decode`` updates them IN PLACE.
+the JAX package's layout (which keeps a ``first_dense`` model's layer 0
+apart); ``decode`` updates them IN PLACE.
 
 ``loss_fn`` and ``train_step`` come with the training slice (ROADMAP
 Queue 1 item 16). Everything runs on ``device`` ("cuda" unless the
@@ -63,17 +64,22 @@ def _prefill(params, batch, cfg):
     x = tfm.embed_tokens(params, tokens, cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=x.device)
-    h, entries = tfm.forward_full(params, x, positions, cfg,
-                                  collect_cache=True)
+    h, entries, _ = tfm.forward_full(params, x, positions, cfg,
+                                     collect_cache=True)
     logits = tfm.logits_from_hidden(params, h[:, -1:], cfg)
     return logits, _to_decode_cache(entries, cfg, s)
 
 
 def _to_decode_cache(entries, cfg, s: int) -> KVCache:
     """Prefill K/V of every layer -> the stacked decode cache
-    (``factory.py:176``). With a window shorter than the prompt the cache
-    is a rolling buffer: keep the last ``window`` positions, then roll so
-    that position ``p`` sits in slot ``p % window``, as decode writes."""
+    (``factory.py:176``), layer 0 first (JAX keeps a ``first_dense``
+    model's layer 0 apart, ``(caches0, stacked)``; ``core.convert`` maps
+    between the two). With a window shorter than the prompt the cache is
+    a rolling buffer: keep the last ``window`` positions, then roll so
+    that position ``p`` sits in slot ``p % window``, as decode writes.
+    Without a window it holds exactly the prompt's S slots, as JAX's
+    does: the first decode step writes slot ``S % S = 0`` and so evicts
+    position 0 (the reference's rule, copied)."""
     clen = tfm._attn_cache_len(cfg, s)
     start = s - clen
     k = torch.stack([e["k"][:, :, start:] for e in entries])  # [L,B,Hkv,C,Dh]

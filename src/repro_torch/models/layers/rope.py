@@ -27,8 +27,8 @@ def apply_rope(x, positions, *, theta: float = 10_000.0,
     half = d_rot // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exponent)
+    # A Python base: no host-to-device copy, so decode never syncs.
+    freqs = torch.pow(float(theta), exponent)
     angles = positions[..., None].float() * freqs          # [..., S, half]
     cos, sin = torch.cos(angles), torch.sin(angles)
     if cos.ndim == 2:

@@ -903,6 +903,12 @@ SWA_CASES = {
     "f32_d80_ragged": (1, 4, 2, 130, 80, 32, True, "float32"),
     "f32_d32_gqa": (2, 4, 1, 300, 32, 64, True, "float32"),
     "f32_d128": (1, 2, 2, 96, 128, None, True, "float32"),
+    # The full-attention archs' shapes at window=None: olmoe's D 128 over
+    # a 4,096-token context (group 1), dbrx's group 6 and granite's MQA
+    # group 48, the last two ragged.
+    "olmoe_s4096_full_g1": (1, 2, 2, 4096, 128, None, True, "bfloat16"),
+    "dbrx_s1031_full_g6": (1, 12, 2, 1031, 128, None, True, "bfloat16"),
+    "granite_s777_full_g48": (1, 48, 1, 777, 128, None, True, "bfloat16"),
 }
 
 
@@ -992,14 +998,75 @@ def test_forward_full_launches_swa_attention_once_per_layer(cuda_device):
     before = ops.launch_counts()["swa_attention"]
     with torch.no_grad():
         x = tfm.embed_tokens(params, toks, cfg)
-        h, _ = tfm.forward_full(params, x, torch.arange(97, device="cuda"),
-                                cfg)
+        h, _, _ = tfm.forward_full(params, x,
+                                   torch.arange(97, device="cuda"), cfg)
     assert ops.launch_counts()["swa_attention"] == before + cfg.n_layers
     logits, caches = bundle.prefill(params, {"tokens": toks[:, :-1]})
     assert ops.launch_counts()["swa_attention"] == before + 2 * cfg.n_layers
     nxt, _ = bundle.decode(params, caches, toks[:, -1:])
     assert ops.launch_counts()["swa_attention"] == before + 2 * cfg.n_layers
     assert torch.isfinite(h.float()).all() and nxt.shape == (2, 1)
+
+
+@pytest.mark.gpu
+def test_moe_forward_full_launches_swa_attention_and_routes_as_the_cpu(
+        cuda_device):
+    """olmoe-smoke (head dim 32) on the card: one ``swa_attention`` launch
+    per layer, and its MoE layer picks the CPU's experts, positions and
+    kept assignments (exactly, with no near-tie in the router) and the
+    lowest indices when the router ties every expert."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import build
+    from repro_torch.models.layers import moe
+
+    cfg = get_smoke_config("olmoe_1b_7b")
+    bundle = build(cfg, device="cuda")
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.tensor(make_batch(cfg, 2, 97, seed=0)["tokens"],
+                        device=cuda_device)
+    before = ops.launch_counts()["swa_attention"]
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, toks, cfg)
+        h, _, aux = tfm.forward_full(params, x,
+                                     torch.arange(97, device="cuda"), cfg)
+    assert ops.launch_counts()["swa_attention"] == before + cfg.n_layers
+    assert torch.isfinite(h.float()).all() and aux.item() > 0
+
+    layer = {k: v for k, v in params.layers[0].moe.named_parameters()}
+    xs = torch.tensor(np.random.default_rng(61).normal(
+        size=(4, 32, cfg.d_model)), dtype=torch.bfloat16)
+    e = dataclasses.replace(cfg.moe, capacity_factor=0.5)   # some dropped
+    for zero in (False, True):
+        p = {k: (torch.zeros_like(v) if zero and k == "router" else v)
+             for k, v in layer.items()}
+        got = moe.route(p, xs.to(cuda_device), e)
+        want = moe.route({k: v.cpu() for k, v in p.items()}, xs, e)
+        if zero:
+            assert (want.top_i == torch.arange(e.top_k)).all()
+        else:
+            ranked = want.probs.sort(-1, descending=True).values
+            gaps = ranked[..., :e.top_k] - ranked[..., 1:e.top_k + 1]
+            assert gaps.min().item() >= 1e-6
+        assert not want.kept.all()
+        for f in ("top_i", "pos", "kept"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+def test_dbrx_smoke_serve_fails_on_the_card(cuda_device):
+    """dbrx-smoke's head dim 16 is no width ``swa_attention`` is built
+    for: ``serve --device cuda`` raises at the first prefill, before any
+    launch, and is not routed to the plain version."""
+    from repro_torch.launch import serve
+
+    before = ops.launch_counts()["swa_attention"]
+    with pytest.raises(ValueError, match="head_dim 16"):
+        serve.main(["--arch", "dbrx_132b", "--smoke", "--device", "cuda"])
+    assert ops.launch_counts()["swa_attention"] == before
 
 
 @pytest.mark.gpu

@@ -106,7 +106,8 @@ def test_prefill_caches_match_jax(models, jax_prefill, s):
     cfg, bundle, params = models[3:]
     toks, _, jcaches = jax_prefill[s]
     _, caches = bundle.prefill(params, {"tokens": torch.tensor(toks[:, :s])})
-    got = convert.caches_to_numpy(caches)
+    caches0, got = convert.caches_to_numpy(caches)
+    assert caches0 is None and jcaches[0] is None
     want = jax.tree.map(lambda x: np.asarray(x, np.float32)
                         if x.dtype == jnp.bfloat16 else np.asarray(x),
                         jcaches[1])
@@ -134,7 +135,7 @@ def test_teacher_forced_decode_matches_jax(models, jax_prefill, s):
     caches = convert.caches_from_numpy(
         jax.tree.map(lambda x: np.asarray(x, np.float32)
                      if x.dtype == jnp.bfloat16 else np.asarray(x),
-                     jcaches[1]), device="cpu")
+                     jcaches), device="cpu")
 
     @jax.jit
     def jstep(caches, tok):
@@ -166,7 +167,7 @@ def test_prefill_plus_decode_equals_full_forward(models, s):
     _, caches = bundle.prefill(params, {"tokens": toks[:, :-1]})
     with torch.no_grad():
         x = tfm.embed_tokens(params, toks, cfg)
-        h, _ = tfm.forward_full(params, x, torch.arange(s + 1), cfg)
+        h, _, _ = tfm.forward_full(params, x, torch.arange(s + 1), cfg)
         want = tfm.logits_from_hidden(params, h[:, -1:], cfg)
         x1 = tfm.embed_tokens(params, toks[:, -1:], cfg)
         h1, _ = tfm.decode_step(params, x1, cfg, caches)
@@ -191,7 +192,7 @@ def test_decode_from_an_empty_cache_equals_full_forward(models):
             h1, caches = tfm.decode_step(params, x1, cfg, caches)
         got = tfm.logits_from_hidden(params, h1, cfg)
         x = tfm.embed_tokens(params, toks, cfg)
-        h, _ = tfm.forward_full(params, x, torch.arange(3), cfg)
+        h, _, _ = tfm.forward_full(params, x, torch.arange(3), cfg)
         want = tfm.logits_from_hidden(params, h[:, -1:], cfg)
     assert caches.length.eq(3).all()
     assert caches.pos[..., :3].eq(torch.arange(3, dtype=torch.int32)).all()
@@ -256,7 +257,7 @@ def test_config_and_init_scale_match_jax():
 
 def test_other_archs_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 16"):
-        get_config("olmoe_1b_7b")
+        get_config("hymba_1p5b")
     with pytest.raises(NotImplementedError, match="item 16"):
         get_smoke_config("xlstm-350m")
     with pytest.raises(KeyError):
