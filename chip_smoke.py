@@ -119,12 +119,13 @@ BPR-MF (K1 pairwise, K2, K3), after the DISGD state is freed:
      with its bound and ptxas's report; phase 4's random negatives on the
      DISGD state ride along on the same row;
   5d. ``bpr_backends_agree``: ``cuda``, ``scan`` and ``host`` on the card
-     and ``cuda`` on CPU tensors, on a small stream with slot collisions.
+     and ``cuda`` on CPU tensors, on a small stream with slot collisions
+     (its first ``BPR_AGREE_EVENTS``).
 
 DICS (K4, K5), after the DISGD state is freed:
 
-  6. ``dics_path``: ``run_stream(algorithm="dics")`` over the first half
-     of ``synth_stream(NETFLIX)`` (``DICS_PATH_EVENTS``, 692,224 of
+  6. ``dics_path``: ``run_stream(algorithm="dics")`` over the first
+     quarter of ``synth_stream(NETFLIX)`` (``DICS_PATH_EVENTS``, 346,112 of
      1,386,968 events) on a 4 x 4 grid whose tables hold every column's
      users and split's items (``rated`` 1.21 GB, ``co`` 37.7 MB); counts
      zeroed just before, read just after; then its first
@@ -178,7 +179,7 @@ sessions), after the drift runs are freed:
      micro-batch 2,048, u_cap 98,560, i_cap 768, k = 10, each with
      ``DriftPolicy()``) over ``make_scenario("recurring", events=131_072,
      profile=Netflix with item zipf 1.3)`` in ``ENSEMBLE_PATH_SEGMENTS``
-     segments (8, cut for the script's time; bench_ensemble has 32),
+     segments (4, cut for the script's time; bench_ensemble has 32),
      then 8 ``recommend`` calls of 1,024 users in blend mode and 8 in switch
      mode; counts zeroed before the ingest, read after the serving (K1 both
      modes, K2-K5); each member's states and recall bits equal to a
@@ -189,9 +190,9 @@ sessions), after the drift runs are freed:
      standalone members' walls, the weight trail, resets, windowed
      Recall@10 (window 400) of blend, switch, best and worst single member,
      recommend p50s, ``fuse_topn`` ms a call, peak memory;
-  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 4
+  9d. ``ensemble_checkpoint``: that ensemble checkpointed after segment 2
      (``build/chip_smoke_ensemble``), restored at the same grid and run
-     through segments 5-8: weigher, states and recall bits equal to the
+     through segments 3-4: weigher, states and recall bits equal to the
      uninterrupted run's; file bytes, write and restore seconds;
   9e. ``ensemble_bar``: ``bench_ensemble.smoke_rows``'s configuration (DICS
      + DISGD, recurring, 8,192 events, 2 x 2, micro-batch 256, u_cap 256,
@@ -199,7 +200,7 @@ sessions), after the drift runs are freed:
      recall >= best single - 0.01, and ``resets`` >= 1;
   9f. ``service_path``: ``run_service`` on the DISGD deployment
      (``PublishPolicy(every=1, mode="async")``): interleaved over the first
-     32 micro-batches with 32 query batches of 64 Zipf users (5% unknown),
+     16 micro-batches with 16 query batches of 64 Zipf users (5% unknown),
      then threaded over the next 128 under Poisson arrivals at 200 batches
      a second; states equal to a twin fed the same chunks without queries,
      the trainer finished, ``dropped`` 0, batches under load; ``summary()``
@@ -346,6 +347,35 @@ danube parameters are freed:
      K7 on each arch's layer 0 q / k / v of those prompts against its
      plain version, a window 64 short and a non-causal run caught.
 
+The hybrid, xLSTM, VLM and audio families (K7 at head dims 64, 96 and
+80, with and without a causal mask), after the MoE parameters are freed:
+
+ 18. ``family_serve``: hymba-1.5b, xlstm-350m, phi-3-vision-4.2b and
+     hubert-xlarge at full width and depth (f32, ``torch.Generator``
+     seeded 0), each on 2 requests: hymba 2,048-token prompts (its
+     window of 1,024 binds and the rolling buffer wraps), xLSTM 1,024,
+     phi-3-vision 576 patches + 1,024 tokens (S 1,600), each through
+     ``serve.generate`` with 8 decode steps; hubert 1,024 frames with the
+     span mask through ``bundle.prefill`` and logits over every frame.
+     K7 launches = attention layers (0 for xLSTM), logits finite, tokens
+     in range, peak memory, prefill ms and decode ms a step; one decode
+     step of hymba and xLSTM under ``set_sync_debug_mode("error")``; K7
+     on layer 0's real q / k / v held to its plain version, a window of
+     960 (hymba), a non-causal (phi-3) and a causal (hubert) run caught;
+ 19. ``family_consistency``: hymba, xLSTM (one group of 6) and
+     phi-3-vision at full width and 2 layers, prefill over 2,048 (hymba:
+     two windows), 256 (xLSTM) and 576 patches + 256 tokens (phi-3)
+     positions plus one decode step against a
+     prefill over all of them and one more token, at
+     ``tests/test_decode.py``'s contract: the mamba and xLSTM states
+     that prefill hands to decode, on the card;
+ 20. ``swa_attention`` at phi-3-vision's shape (B 4, 32 / 32 heads, S
+     4,096: 576 patches + 3,520 tokens, D 96, causal), run inside phase
+     18 while phi-3-vision's parameters live, against its plain version
+     as in phase 16, timed beside
+     ``scaled_dot_product_attention(is_causal=True)``: the kernels line's
+     third K7 row, with ptxas's report of every K7 instance.
+
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the last line.
@@ -384,10 +414,11 @@ U_CAP, I_CAP = 38_912, 6_784
 # item-CF's natural shape; caps that fit each column's users (394,106 / 4)
 # and each split's items (3,001 / 4) without collisions.
 DICS_U_CAP, DICS_I_CAP, K_NN = 98_560, 768, 10
-# dics_path trains on the stream's first half (338 of its 678 micro-
-# batches): the tables keep their deployment size; the whole stream took
-# ~70 s of the script's time limit at ~102 ms a step.
-DICS_PATH_EVENTS = 692_224
+# dics_path trains on the stream's first quarter (169 of its 678 micro-
+# batches; the first half until the LLM families' phases came and the
+# script ran 850-950 s): the tables keep their deployment size; the
+# whole stream took ~70 s of the script's time limit at ~102 ms a step.
+DICS_PATH_EVENTS = 346_112
 MICRO_BATCH = 2048
 SERVE_USERS, SERVE_BATCH = 8192, 1024
 # The session phases: publish cadences in micro-batches (DISGD's whole
@@ -448,6 +479,24 @@ MOE_ROUTING_TOKENS, MOE_NEAR_TIE, MOE_OUT_TOL, MOE_AUX_RTOL = 512, 1e-5, \
 ZOO_LAYERS = {"moonshot_v1_16b_a3b": 4, "dbrx_132b": 2, "stablelm_3b": None,
               "granite_34b": 2}
 ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE_STEPS = 2, 1024, 8
+# The hybrid, xLSTM, VLM and audio families, whole (all four fit the card
+# in f32), ZOO_BATCH requests each: prompt positions (hymba's 2,048 bind
+# its window of 1,024; phi-3-vision's are its 576 patches and 1,024
+# tokens, a ragged S of 1,600 for K7; hubert's are frames), decode steps. The consistency check at full width, 2
+# layers (xLSTM: one group of 6), FAMILY_CONSISTENCY_PROMPT positions
+# after a VLM's patches: hymba's are its serving prompt's 2,048, because
+# below its window the decode cache holds only the prompt's slots and the
+# first decode step evicts position 0 (the reference's rule; hymba-smoke
+# at 32 positions drifts 0.203 of the logits' scale in JAX itself, the
+# port 0.204), while at two windows the rolling buffer is exact and
+# wraps. K7 at phi-3-vision's shape: 4 requests of 4,096 positions.
+FAMILY_PROMPT = {"hymba_1p5b": 2048, "xlstm_350m": 1024,
+                 "phi3_vision_4p2b": 576 + 1024, "hubert_xlarge": 1024}
+FAMILY_DECODE_STEPS = 8
+FAMILY_CONSISTENCY_PROMPT = {"hymba_1p5b": 2048, "xlstm_350m": 256,
+                             "phi3_vision_4p2b": 256}
+FAMILY_CONSISTENCY_LAYERS = 2
+VLM_SWA_BATCH, VLM_SWA_SEQ = 4, 4096
 
 
 def fail(msg: str):
@@ -786,6 +835,9 @@ def main():
     # -- 13-17. MoE and full-attention serving -----------------------------------
     kernels += _moe_phases(torch, np, dev)
 
+    # -- 18-20. the hybrid, xLSTM, VLM and audio families --------------------------
+    kernels += _family_phases(torch, np, dev, infos)
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -838,17 +890,29 @@ def _device_rows(prof):
     return rows, sum(r[0] for r in rows) / 1e3
 
 
+def _kernel_name(mangled: str) -> str | None:
+    """The ``*_kernel`` identifier of a mangled entry name, read as the
+    sequence of length-prefixed names after ``_Z`` / ``_ZN`` (an
+    anonymous namespace's hash holds digits too), and a template instance
+    as ``name<N>`` (its integer argument)."""
+    i = len(re.match(r"_ZN?", mangled).group()) if mangled.startswith(
+        "_Z") else 0
+    while m := re.match(r"\d+", mangled[i:]):
+        i += m.end() + int(m.group())
+        ident = mangled[i - int(m.group()):i]
+        if ident.endswith("_kernel"):
+            inst = re.match(r"ILi(\d+)E", mangled[i:])
+            return ident + (f"<{inst.group(1)}>" if inst else "")
+    return None
+
+
 def _ptxas_entries(log: str) -> dict:
     """ptxas's report per entry function of one library (registers,
-    static shared memory, stack, spills), by the kernel's name, and a
-    template instance by ``name<N>`` (its integer argument)."""
+    static shared memory, stack, spills), by ``_kernel_name``."""
     out = {}
     for block in log.split("Compiling entry function '")[1:]:
-        name = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
-                         block.split("'", 1)[0])
-        if name:
-            key = name.group(1) + (f"<{name.group(2)}>" if name.group(2)
-                                   else "")
+        key = _kernel_name(block.split("'", 1)[0])
+        if key:
             out.setdefault(key, _ptxas(block))
     return out
 
@@ -2086,6 +2150,12 @@ def _state_bytes(states) -> int:
     return storage.total_nbytes(states)
 
 
+# bpr_backends_agree: the first half of its small stream (4 of 8 micro-
+# batches: the eager host and scan loops set its time; the whole stream
+# until the LLM families' phases came and the script ran 850-950 s).
+BPR_AGREE_EVENTS = 1950
+
+
 def bpr_config(rt):
     """The BPR-MF path's ``StreamConfig``: the DISGD deployment
     (MovieLens-25M caps) with the pairwise trainer."""
@@ -2263,7 +2333,9 @@ def _bpr_backends_agree(torch, np, rt):
     from repro_torch.data.stream import MOVIELENS_25M, scaled, synth_stream
 
     users, items, _ = synth_stream(scaled(MOVIELENS_25M, 0.003), seed=0)
-    # ~116 users per column and ~20 items per split: both tables collide.
+    # Its first BPR_AGREE_EVENTS events: ~96 users per column and ~20
+    # items per split, so both tables collide.
+    users, items = users[:BPR_AGREE_EVENTS], items[:BPR_AGREE_EVENTS]
     hyper = rt.BprHyper(u_cap=32, i_cap=8)
     cfg = rt.StreamConfig(algorithm="bpr", grid=rt.GridSpec(n_i=N_I),
                           micro_batch=512, hyper=hyper, backend="cuda",
@@ -2299,6 +2371,7 @@ def _bpr_backends_agree(torch, np, rt):
         fail("bpr cuda on the card and on the cpu: recall bits differ")
     emit("bpr_backends_agree",
          stream="synth_stream(scaled(MOVIELENS_25M, 0.003))",
+         cut=f"first {BPR_AGREE_EVENTS} of 3,901 events",
          events=int(users.size), u_cap=hyper.u_cap, i_cap=hyper.i_cap,
          max_abs_err=err, rtol=STREAM_RTOL, atol=STREAM_ATOL,
          wall_s={name: r.wall_seconds for name, r in runs.items()},
@@ -3131,25 +3204,27 @@ def _window_pairs(np, s, window, causal):
 
 # ensemble_path: every registered algorithm on the DICS deployment, on
 # drift_path's profile and size under the recurring scenario, ingested
-# in 8 segments (bench_ensemble's 32, benchmarks/bench_ensemble.py:40-46;
-# 16 until the script came within 15% of its time limit: every ingest
-# call runs the 8-step drain tail, so the calls set the phase's time),
-# windowed recall over its 400-event window, served in 8 blend and 8
-# switch calls of SERVE_BATCH users; checkpointed after segment 4.
+# in 4 segments (bench_ensemble's 32, benchmarks/bench_ensemble.py:40-46;
+# 16 until the script came within 15% of its time limit, 8 until the LLM
+# families' phases came: every ingest call runs the 8-step drain tail,
+# so the calls set the phase's time), windowed recall over its 400-event
+# window, served in 8 blend and 8 switch calls of SERVE_BATCH users;
+# checkpointed after segment 2.
 # ensemble_bar keeps bench_ensemble's 32 segments.
 ENSEMBLE_EVENTS = 131_072
 ENSEMBLE_SEGMENTS = 32
-ENSEMBLE_PATH_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 8, 4
+ENSEMBLE_PATH_SEGMENTS, ENSEMBLE_CHECKPOINT_AT = 4, 2
 ENSEMBLE_WINDOW, ENSEMBLE_MARGIN = 400, 0.01
 ENSEMBLE_SERVE_CALLS = 8
 # ensemble_bar: bench_ensemble.smoke_rows's configuration.
 ENSEMBLE_BAR_EVENTS, ENSEMBLE_BAR_MEMBERS = 8192, ("dics", "disgd")
 ENSEMBLE_DIR = ROOT / "build" / "chip_smoke_ensemble"
-# service_path: the DISGD deployment's first 32 micro-batches interleaved
-# with 32 query batches (64 until the script came within 15% of its time
-# limit: each ingest call of one micro-batch runs the 8-step drain tail),
-# then the next 128 threaded under Poisson load.
-SERVICE_INTERLEAVED_BATCHES, SERVICE_THREADED_BATCHES = 32, 128
+# service_path: the DISGD deployment's first 16 micro-batches interleaved
+# with 16 query batches (64 until the script came within 15% of its time
+# limit, 32 until the LLM families' phases came: each ingest call of one
+# micro-batch runs the 8-step drain tail), then the next 128 threaded
+# under Poisson load.
+SERVICE_INTERLEAVED_BATCHES, SERVICE_THREADED_BATCHES = 16, 128
 SERVICE_QUERY_BATCH = 64
 # autoscale_path: the MovieLens-25M deployment from a 2 x 2 grid with
 # tests/test_storage.py's undersizing (_overloaded_run), its first 64
@@ -4728,11 +4803,12 @@ def _llm_phases(torch, np, dev):
     pipe = TokenPipeline(cfg.vocab, seed=0)
     prompts = torch.as_tensor(pipe.sample(LLM_BATCH, LLM_PROMPT), device=dev)
     # Warm-up on a short prompt: cuBLAS handles, the allocator.
-    serve.generate(bundle, params, prompts[:, :256], 2)
+    serve.generate(bundle, params, {"tokens": prompts[:, :256]}, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    tokens, t = serve.generate(bundle, params, prompts, LLM_DECODE_STEPS + 1)
+    tokens, t = serve.generate(bundle, params, {"tokens": prompts},
+                               LLM_DECODE_STEPS + 1)
     counts = ops.launch_counts()
     if counts["swa_attention"] != cfg.n_layers:
         fail(f"swa_attention launched {counts['swa_attention']} times in one "
@@ -4776,7 +4852,8 @@ def _llm_phases(torch, np, dev):
     torch.cuda.empty_cache()
 
     # -- 12. swa_attention against its plain version -----------------------------
-    row = _swa_row(torch, np, params, cfg, prompts, seq, counts)
+    row = _swa_row(torch, np, params, cfg, {"tokens": prompts},
+                   {"tokens": seq}, counts)
     del params
     torch.cuda.empty_cache()
     return [row]
@@ -4822,16 +4899,17 @@ def _profile_llm(torch, bundle, params, prompts, decode_steps=8,
     torch.cuda.empty_cache()
 
 
-def _layer0_qkv(torch, params, cfg, tokens):
-    """Layer 0's q / k / v (roped, bf16, contiguous) for ``tokens``."""
+def _layer0_qkv(torch, params, cfg, batch):
+    """Layer 0's q / k / v (roped, bf16, contiguous) for ``batch`` (a
+    prefill's batch dict: tokens, a VLM's patches, an audio model's
+    frames)."""
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import _embed_inputs
     from repro_torch.models.layers import attention as attn_lib
-    from repro_torch.models.layers.norms import rmsnorm
 
     with torch.no_grad():
-        x = tfm.embed_tokens(params, tokens, cfg)
-        xn = rmsnorm(params.layers[0].ln1, x, cfg.norm_eps)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, positions = _embed_inputs(params, batch, cfg)
+        xn = tfm._norm(cfg)(params.layers[0].ln1, x, cfg.norm_eps)
         return tuple(t.contiguous() for t in attn_lib._qkv(
             params.layers[0].attn, xn, positions, cfg))
 
@@ -4886,23 +4964,23 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts, instance=None):
     ragged sequence (S + 1), and unit-variance q / k / v of the prompts'
     shape and one token longer, each held by ``_swa_hold``; on the
     prompts' shape the kernel with a wrong mask must fail the same check.
-    Returns the kernels-line row (``instance`` names a second shape of
-    K7)."""
+    ``prompts`` and ``seq`` are prefill batch dicts. Returns the
+    kernels-line row (``instance`` names another shape of K7)."""
     from repro_torch.kernels import ops, ref
 
     kw = dict(window=cfg.window, causal=cfg.causal)
-    gen = torch.Generator(device=prompts.device).manual_seed(0)
     q, k, v = _layer0_qkv(torch, params, cfg, prompts)
+    gen = torch.Generator(device=q.device).manual_seed(0)
     checks = {}
     for what, qkv in (
             ("real", (q, k, v)),
             ("real_ragged", _layer0_qkv(torch, params, cfg, seq)),
             ("unit", None), ("unit_ragged", None)):
         if qkv is None:
-            s = prompts.shape[1] + what.endswith("ragged")
+            s = q.shape[2] + what.endswith("ragged")
             qkv = tuple(torch.randn(
-                (prompts.shape[0], h, s, cfg.head_dim), generator=gen,
-                device=prompts.device, dtype=torch.bfloat16)
+                (q.shape[0], h, s, cfg.head_dim), generator=gen,
+                device=q.device, dtype=torch.bfloat16)
                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
         checks[what] = _swa_hold(torch, qkv, cfg, f"{cfg.name}, {what}",
                                  unit=what.startswith("unit"),
@@ -5056,11 +5134,12 @@ def _moe_phases(torch, np, dev):
     numel = sum(p.numel() for p in params.parameters())
     pipe = TokenPipeline(cfg.vocab, seed=0)
     prompts = torch.as_tensor(pipe.sample(MOE_BATCH, MOE_PROMPT), device=dev)
-    serve.generate(bundle, params, prompts[:, :256], 2)   # warm-up
+    serve.generate(bundle, params, {"tokens": prompts[:, :256]}, 2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    tokens, t = serve.generate(bundle, params, prompts, MOE_DECODE_STEPS + 1)
+    tokens, t = serve.generate(bundle, params, {"tokens": prompts},
+                               MOE_DECODE_STEPS + 1)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if counts["swa_attention"] != cfg.n_layers:
@@ -5070,7 +5149,8 @@ def _moe_phases(torch, np, dev):
     if tokens.shape != (MOE_BATCH, MOE_DECODE_STEPS + 1) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab)).all()):
         fail(f"moe_serve: generated tokens {tuple(tokens.shape)} out of range")
-    no_sync = _decode_without_sync(torch, bundle, params, prompts[:, :256])
+    no_sync, _ = _decode_without_sync(torch, bundle, params,
+                                      {"tokens": prompts[:, :256]})
     e = cfg.moe
     emit("moe_serve", arch=cfg.name, source=cfg.source, layers=cfg.n_layers,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
@@ -5126,8 +5206,8 @@ def _moe_phases(torch, np, dev):
     _moe_routing_card(torch, np, params, cfg)
 
     # -- 16. swa_attention at olmoe's shape --------------------------------------
-    row = _swa_row(torch, np, params, cfg, prompts, seq, counts,
-                   instance=cfg.name)
+    row = _swa_row(torch, np, params, cfg, {"tokens": prompts},
+                   {"tokens": seq}, counts, instance=cfg.name)
     del params, bundle, bundle8
     torch.cuda.empty_cache()
 
@@ -5136,12 +5216,13 @@ def _moe_phases(torch, np, dev):
     return [row]
 
 
-def _decode_without_sync(torch, bundle, params, prompts) -> str:
-    """One decode step after a prefill of ``prompts``, under
+def _decode_without_sync(torch, bundle, params, batch):
+    """One decode step after a prefill of ``batch``, under
     ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for
-    the card (``.item()``, ``nonzero``, a blocking copy) fails the run."""
+    the card (``.item()``, ``nonzero``, a blocking copy) fails the run.
+    Returns ("passed", the prefill's last-position logits)."""
     cfg = bundle.cfg
-    logits, caches = bundle.prefill(params, {"tokens": prompts})
+    logits, caches = bundle.prefill(params, batch)
     tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -5152,7 +5233,7 @@ def _decode_without_sync(torch, bundle, params, prompts) -> str:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return "passed"
+    return "passed", logits
 
 
 def _tie_free_tokens(torch, router, n: int):
@@ -5252,7 +5333,7 @@ def _zoo_serve(torch, np, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        tokens, t = serve.generate(bundle, params, prompts,
+        tokens, t = serve.generate(bundle, params, {"tokens": prompts},
                                    ZOO_DECODE_STEPS + 1)
         launches = ops.launch_counts()["swa_attention"]
         tokens = tokens.cpu()
@@ -5261,7 +5342,8 @@ def _zoo_serve(torch, np, dev):
                  f"times in one prefill of {cfg.n_layers} layers")
         if not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
             fail(f"zoo_serve: {cfg.name} generated tokens out of range")
-        swa_check = _swa_hold(torch, _layer0_qkv(torch, params, cfg, prompts),
+        swa_check = _swa_hold(torch, _layer0_qkv(torch, params, cfg,
+                                                 {"tokens": prompts}),
                               cfg, f"zoo_serve, {cfg.name}", unit=False)
         rows[cfg.name] = dict(
             source=cfg.source, layers=cfg.n_layers, full_layers=full.n_layers,
@@ -5277,6 +5359,179 @@ def _zoo_serve(torch, np, dev):
     emit("zoo_serve", batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
          decode_steps=ZOO_DECODE_STEPS, swa_row_rtol=SWA_ROW_RTOL,
          weights="f32 random, torch.Generator seeded 0", archs=rows)
+
+
+# -- the hybrid, xLSTM, VLM and audio families --------------------------------
+
+
+def _family_batch(torch, cfg, positions: int, dev, batch=ZOO_BATCH):
+    """A family's served batch over ``positions`` on the card:
+    ``serve.serve_batch``'s tokens (a VLM's patches first), or an audio
+    model's ``make_batch`` (frames, span mask, targets; seed 0)."""
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.launch import serve
+
+    if cfg.decoder:
+        return serve.serve_batch(cfg, batch, positions, dev)
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            make_batch(cfg, batch, positions, seed=0).items()}
+
+
+def _family_phases(torch, np, dev, infos):
+    """Phases 18-20: each family served whole (phi-3-vision's K7 row
+    while its parameters live), then the consistency checks. Returns the
+    K7 row of phi-3-vision's shape."""
+    rows, kernels = {}, []
+    for arch in FAMILY_PROMPT:
+        rows[arch] = _family_serve(torch, np, dev, arch, infos, kernels)
+    emit("family_serve", batch=ZOO_BATCH, decode_steps=FAMILY_DECODE_STEPS,
+         swa_row_rtol=SWA_ROW_RTOL,
+         weights="f32 random, torch.Generator seeded 0", archs=rows)
+    _family_consistency(torch, np, dev)
+    return kernels
+
+
+def _family_serve(torch, np, dev, arch, infos, kernels):
+    """One family at full width and depth: served, its checks made;
+    phi-3-vision's K7 row appended to ``kernels``. Returns the arch's
+    record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import _embed_inputs, build
+
+    cfg = get_config(arch)
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    bundle = build(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _family_batch(torch, cfg, FAMILY_PROMPT[arch], dev)
+    # Warm-up on a short input: cuBLAS handles, the allocator.
+    logits, caches = bundle.prefill(params, _family_batch(
+        torch, cfg, cfg.vlm_patches + 128, dev))
+    if cfg.decoder:
+        bundle.decode(params, caches, torch.argmax(
+            logits[..., :cfg.vocab], dim=-1).to(torch.int32))
+    del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rec = {}
+    if cfg.decoder:
+        tokens, t = serve.generate(bundle, params, batch,
+                                   FAMILY_DECODE_STEPS + 1)
+        launches = ops.launch_counts()["swa_attention"]
+        tokens = tokens.cpu()
+        if tokens.shape != (ZOO_BATCH, FAMILY_DECODE_STEPS + 1) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+            fail(f"family_serve: {cfg.name} generated tokens "
+                 f"{tuple(tokens.shape)} out of range")
+        peak = torch.cuda.max_memory_allocated()
+        rec["decode_under_sync_debug_error"], logits = _decode_without_sync(
+            torch, bundle, params, batch)
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"family_serve: {cfg.name} prefill logits not finite")
+        first = tokens[0].tolist()
+    else:
+        t0 = time.perf_counter()
+        logits, caches = bundle.prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()["swa_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        del caches
+        s = batch["frames"].shape[1]
+        t = {"prefill_ms": 1e3 * secs,
+             "prefill_tokens_per_s": ZOO_BATCH * s / secs}
+        with torch.no_grad():
+            x, positions = _embed_inputs(params, batch, cfg)
+            h, _, _ = tfm.forward_full(params, x, positions, cfg)
+            frames = tfm.logits_from_hidden(params, h, cfg)[..., :cfg.vocab]
+        del x, h
+        if frames.shape != (ZOO_BATCH, s, cfg.vocab) or not bool(
+                torch.isfinite(frames.float()).all()):
+            fail(f"family_serve: {cfg.name} frame logits "
+                 f"{tuple(frames.shape)} not finite")
+        err, _ = _logits_agree(np, logits[..., :cfg.vocab], frames[:, -1:],
+                               f"family_serve, {cfg.name} last frame")
+        rec["prefill_vs_frame_logits_scaled_err"] = err
+        rec["masked_frames"] = int(batch["mask"].sum().item())
+        first = frames[0, :8].argmax(-1).tolist()
+        del frames, logits
+    if launches != n_attn:
+        fail(f"family_serve: {cfg.name} launched swa_attention {launches} "
+             f"times in one prefill of {n_attn} attention layers")
+    if n_attn:
+        rec["swa_check"] = _swa_hold(
+            torch, _layer0_qkv(torch, params, cfg, batch), cfg,
+            f"family_serve, {cfg.name}", unit=False)
+    if cfg.vlm_patches:
+        # ptxas allocates every instance within the 168 registers the
+        # launch bound leaves; D = 96 keeps 4 packed P registers in local
+        # memory (48 B of spill stores a thread) and D = 128 more: kept
+        # in the row, as PERF.md section 6 reports them.
+        ptxas = _ptxas_entries(infos["swa_attention"].ptxas)
+        if f"swa_bf16_kernel<{cfg.head_dim}>" not in ptxas:
+            fail(f"swa_attention: no ptxas report of the D = {cfg.head_dim} "
+                 f"instance: {sorted(ptxas)}")
+        prompts, seq = (_family_batch(torch, cfg, VLM_SWA_SEQ + extra, dev,
+                                      VLM_SWA_BATCH) for extra in (0, 1))
+        row = _swa_row(torch, np, params, cfg, prompts, seq,
+                       {"swa_attention": launches}, instance=cfg.name)
+        row["ptxas"] = ptxas
+        kernels.append(row)
+        del prompts, seq
+    rec.update(
+        family=cfg.family, source=cfg.source, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, window=cfg.window,
+        causal=cfg.causal, positions=FAMILY_PROMPT[arch],
+        numel=sum(p.numel() for p in params.parameters()), init_s=init_s,
+        **t, swa_launches=launches, max_memory_allocated=peak,
+        first_ids_request0=first)
+    del params, bundle, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _family_consistency(torch, np, dev):
+    """Phase 19: prefill + one decode step against a full pass, at full
+    width and FAMILY_CONSISTENCY_LAYERS (xLSTM: one group)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.factory import build
+
+    rows = {}
+    for arch, prompt in FAMILY_CONSISTENCY_PROMPT.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=(
+            full.xlstm.slstm_period if full.family == "ssm"
+            else FAMILY_CONSISTENCY_LAYERS))
+        bundle = build(cfg, device=DEVICE)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        s = cfg.vlm_patches + prompt
+        batch = _family_batch(torch, cfg, s + 1, dev)
+        prefix = dict(batch, tokens=batch["tokens"][:, :-1])
+        with torch.no_grad():
+            _, caches = bundle.prefill(params, prefix)
+            x1 = tfm.embed_tokens(params, batch["tokens"][:, -1:], cfg)
+            h1, _ = tfm.decode_step(params, x1, cfg, caches)
+            got = tfm.logits_from_hidden(params, h1, cfg)[..., :cfg.vocab]
+            del caches, h1
+            want, _ = bundle.prefill(params, batch)
+            want = want[..., :cfg.vocab]
+        err, disagree = _logits_agree(np, got, want,
+                                      f"family_consistency, {cfg.name}")
+        rows[cfg.name] = dict(layers=cfg.n_layers, prefill=s, full=s + 1,
+                              scaled_max_abs_err=err,
+                              greedy_disagree_near_ties=disagree)
+        del params, bundle, got, want
+        torch.cuda.empty_cache()
+    emit("family_consistency", batch=ZOO_BATCH, tol=LOGIT_TOL,
+         near_tie_gap=LOGIT_GAP, archs=rows)
 
 
 if __name__ == "__main__":

@@ -6,11 +6,11 @@ which does, so this package keeps its own. Same fields, same
 ``head_dim`` / ``padded_vocab`` / ``subquadratic`` / ``param_count`` /
 ``active_param_count``.
 
-Ported: the dense family (h2o-danube-1.8b with a sliding window,
-stablelm-3b and granite-34b with full attention) and the MoE family
-(olmoe-1b-7b, moonshot-v1-16b-a3b, dbrx-132b). The hybrid, xLSTM, VLM
-and audio architectures raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Every architecture of ``ARCH_IDS`` is ported: the dense family
+(h2o-danube-1.8b with a sliding window, stablelm-3b and granite-34b with
+full attention), the MoE family (olmoe-1b-7b, moonshot-v1-16b-a3b,
+dbrx-132b), the hybrid (hymba-1.5b), xLSTM (xlstm-350m), VLM
+(phi-3-vision-4.2b) and audio (hubert-xlarge) families.
 """
 
 from __future__ import annotations
@@ -152,8 +152,7 @@ ARCH_IDS = (
     "granite_34b",
     "stablelm_3b",
 )
-PORTED_ARCH_IDS = ("h2o_danube_1p8b", "olmoe_1b_7b", "moonshot_v1_16b_a3b",
-                   "dbrx_132b", "stablelm_3b", "granite_34b")
+PORTED_ARCH_IDS = ARCH_IDS
 
 _ALIASES = {
     "hymba-1.5b": "hymba_1p5b",
@@ -173,10 +172,6 @@ def _module(arch_id: str):
     arch_id = _ALIASES.get(arch_id, arch_id)
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: the other model families come "
-            "with ROADMAP Queue 1 item 16 (the rest of the LLM model zoo)")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

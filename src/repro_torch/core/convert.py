@@ -16,13 +16,20 @@ uint16 factor table, or a uint16 ``co`` without ``co_scale``) or JAX's
 ``ml_dtypes`` bfloat16 arrays, moved through a uint16 view.
 
 For the LM zoo, ``params_from_numpy`` builds the port's model from the
-JAX parameter pytree mapped to numpy (layers stacked ``[L, ...]``, an
-MoE block's ``moe/shared`` and a ``first_dense`` model's ``layer0``
-included), and ``caches_from_numpy`` / ``caches_to_numpy`` move a decode
-cache both ways, so a JAX prefill can feed the port's decode: JAX's
-``(caches0, stacked)`` pair (``caches0`` a ``first_dense`` model's layer
-0, else ``None``; each ``{"k", "v", "pos", "length"}``, ``stacked`` over
-the other layers) against the port's one ``KVCache`` over all layers.
+JAX parameter pytree mapped to numpy, whatever its family: layers
+stacked ``[L, ...]``, an MoE block's ``moe/shared``, a ``first_dense``
+model's ``layer0``, hymba's ``mamba/*`` and ``beta_*``, xLSTM's nested
+``groups`` (``[G, p - 1, ...]`` mLSTM and ``[G, ...]`` sLSTM leaves), a
+VLM's ``projector/{w1,w2}``, an audio model's ``frame_proj``,
+``mask_embed`` and layer norms' ``scale`` and ``bias``.
+``caches_from_numpy`` / ``caches_to_numpy`` move a decode cache both
+ways, so a JAX prefill can feed the port's decode: JAX's ``(caches0,
+stacked)`` pair (``caches0`` a ``first_dense`` model's layer 0, else
+``None``; each ``{"k", "v", "pos", "length"}``, hymba's with
+``"mamba": {"ssm", "conv"}``, ``stacked`` over the other layers) against
+the port's one ``KVCache`` (or ``HybridCache``) over all layers; and
+xLSTM's ``{"mlstm": {"c", "n"}, "slstm": {"c", "n", "h"}}`` stacked over
+groups against its ``XlstmCache``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ import torch
 
 from repro_torch.core.state import DicsState, DisgdState, Tables
 from repro_torch.models.layers.attention import KVCache
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.layers.mamba import MambaState
+from repro_torch.models.layers.xlstm import MlstmState, SlstmState
+from repro_torch.models.transformer import (HybridCache, Transformer,
+                                            XlstmCache)
 
 __all__ = ["flatten_state", "to_tensor", "states_from_numpy",
            "states_to_numpy",
@@ -123,9 +133,18 @@ _CACHE_DTYPES = {"k": torch.bfloat16, "v": torch.bfloat16,
 
 
 def caches_from_numpy(tree, device="cuda"):
-    """JAX's decode cache ``(caches0, stacked)`` as numpy arrays (``k``/``v``
-    any float type) -> the port's stacked ``KVCache``; a ``caches0`` (a
-    ``first_dense`` model's layer 0) becomes layer 0."""
+    """JAX's decode cache as numpy arrays -> the port's: ``(caches0,
+    stacked)`` (``k``/``v`` any float type) -> the stacked ``KVCache``,
+    a ``caches0`` (a ``first_dense`` model's layer 0) becoming layer 0,
+    and a ``HybridCache`` where ``stacked`` holds ``mamba``; xLSTM's
+    group states -> an ``XlstmCache``. The recurrent states keep JAX's
+    types (f32, and the conv history in bf16 after a prefill)."""
+    if isinstance(tree, Mapping):
+        return XlstmCache(
+            mlstm=MlstmState(*(to_tensor(tree["mlstm"][f], device)
+                               for f in MlstmState._fields)),
+            slstm=SlstmState(*(to_tensor(tree["slstm"][f], device)
+                               for f in SlstmState._fields)))
     caches0, stacked = tree
 
     def leaf(f):
@@ -136,17 +155,34 @@ def caches_from_numpy(tree, device="cuda"):
                                 t])
         return torch.tensor(t, device=device).to(_CACHE_DTYPES[f])
 
-    return KVCache(**{f: leaf(f) for f in _CACHE_DTYPES})
+    kv = KVCache(**{f: leaf(f) for f in _CACHE_DTYPES})
+    if "mamba" not in stacked:
+        return kv
+    return HybridCache(kv=kv, mamba=MambaState(
+        *(to_tensor(stacked["mamba"][f], device)
+          for f in MambaState._fields)))
+
+
+def _host(t) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)
+    return (t.float() if t.is_floating_point() else t).numpy()
 
 
 def caches_to_numpy(caches, *, first_dense: bool = False):
-    """The port's stacked ``KVCache`` -> JAX's ``(caches0, stacked)`` of
-    ``{"k", "v", "pos", "length"}`` numpy arrays on the host (``k``/``v``
-    as float32): ``caches0`` is layer 0 with ``first_dense``, else None."""
-    out = {}
-    for f in _CACHE_DTYPES:
-        t = getattr(caches, f).detach().to("cpu", copy=True)
-        out[f] = (t.float() if t.is_floating_point() else t).numpy()
+    """The port's decode cache -> JAX's, numpy arrays on the host (floats
+    as float32): a ``KVCache`` -> ``(caches0, stacked)`` of ``{"k", "v",
+    "pos", "length"}`` (``caches0`` layer 0 with ``first_dense``, else
+    None); a ``HybridCache`` -> ``(None, stacked)`` with ``"mamba":
+    {"ssm", "conv"}``; an ``XlstmCache`` -> ``{"mlstm": {"c", "n"},
+    "slstm": {"c", "n", "h"}}``."""
+    if isinstance(caches, XlstmCache):
+        return {name: {f: _host(t) for f, t in state._asdict().items()}
+                for name, state in caches._asdict().items()}
+    kv = caches.kv if isinstance(caches, HybridCache) else caches
+    out = {f: _host(getattr(kv, f)) for f in _CACHE_DTYPES}
+    if isinstance(caches, HybridCache):
+        out["mamba"] = {f: _host(t) for f, t in
+                        caches.mamba._asdict().items()}
     if first_dense:
         return ({f: a[0] for f, a in out.items()},
                 {f: a[1:] for f, a in out.items()})

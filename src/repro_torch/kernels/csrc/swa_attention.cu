@@ -42,11 +42,14 @@
 //    products do;
 //  * a row of D bf16 is cut into panels that TMA swizzles and wgmma reads:
 //    64 columns with the 128-byte swizzle, and the rest (D = 80: 16
-//    columns, 32-byte swizzle; D = 128: another 64) in a second tensor map.
-//    Q.K^T takes its D / 16 k-steps across the panels, P.V is one wgmma
-//    per panel (D = 80: n64 + n16). Zero-filling a second 64-wide panel
-//    instead would spend 48 dead columns of shared memory per row and
-//    leave a stage 60% larger;
+//    columns, 32-byte swizzle; D = 96: 32 columns, 64-byte swizzle;
+//    D = 128: another 64) in a second tensor map. Q.K^T takes its D / 16
+//    k-steps across the panels, P.V is one wgmma per panel (D = 80: n64 +
+//    n16; D = 96: n64 + n32). Zero-filling a second 64-wide panel instead
+//    would spend 48 (D = 80) or 32 (D = 96) dead columns of shared memory
+//    per row and leave a stage 60% or 33% larger. D = 96 and 128 keep 2
+//    stages (24 or 32 KB of Q and 48 or 64 KB a stage: ~120 or ~160 KB of
+//    shared memory), the narrower widths 4;
 //  * tile classes: of the kv tiles a q block visits (those that hold a key
 //    some row of the block can see), a tile whose every (row, key) pair is
 //    visible is full and runs no mask; the rest are boundary tiles and run
@@ -346,7 +349,8 @@ struct SwaTiles {
   // to align the base.
   static constexpr uint32_t kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
   static_assert(kQBytes % 1024 == 0 && kPanel1 % 1024 == 0, "alignment");
-  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 64, "head dim");
+  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 32 || kW1 == 64,
+                "head dim");
   static __device__ __forceinline__ uint32_t k_tile(int s) {
     return kQBytes + 2 * s * kTileBytes;
   }
@@ -819,6 +823,9 @@ extern "C" int swa_attention_launch(const void* q, const void* k,
       case 80:
         return launch_bf16<80>(q, k, v, o, B, Hq, Hkv, S, window, causal,
                             st);
+      case 96:
+        return launch_bf16<96>(q, k, v, o, B, Hq, Hkv, S, window, causal,
+                            st);
       case 128:
         return launch_bf16<128>(q, k, v, o, B, Hq, Hkv, S, window, causal,
                             st);
@@ -830,6 +837,7 @@ extern "C" int swa_attention_launch(const void* q, const void* k,
     case 32: swa_f32_kernel<32><<<grid, 128, 0, st>>>(SWA_F32_ARGS); break;
     case 64: swa_f32_kernel<64><<<grid, 128, 0, st>>>(SWA_F32_ARGS); break;
     case 80: swa_f32_kernel<80><<<grid, 128, 0, st>>>(SWA_F32_ARGS); break;
+    case 96: swa_f32_kernel<96><<<grid, 128, 0, st>>>(SWA_F32_ARGS); break;
     case 128: swa_f32_kernel<128><<<grid, 128, 0, st>>>(SWA_F32_ARGS); break;
     default: return (int)cudaErrorInvalidValue;
   }

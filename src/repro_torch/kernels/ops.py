@@ -30,7 +30,7 @@ __all__ = ["masked_scores", "isgd_update", "factor_update", "fused_topn",
 MAX_K = 32       # factor width the kernels hold in a warp / a smem row
 MAX_TOP_N = 32   # running list length fused_topn / dics_topn keep per lane
 MAX_K_NN = 32    # neighbour list length dics_topn keeps per candidate
-SWA_HEAD_DIMS = (32, 64, 80, 128)   # head widths swa_attention is built for
+SWA_HEAD_DIMS = (32, 64, 80, 96, 128)   # head widths K7 is built for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {

@@ -9,7 +9,10 @@ each tensor's standard deviation is ``_materialize``'s
 root of the product of every dimension but the last, and for stacked
 layer parameters that product includes the stacking dimension (e.g.
 ``layers/attn/wq`` ``[24, 2560, 32, 80]`` has fan_in 24 * 2560 * 32).
-That keeps activations at the JAX model's scale.
+That keeps activations at the JAX model's scale. The other rules copy
+JAX's too: "zeros", "ones" (which ignores ``scale``: xLSTM's ``b_f``
+declares 2.0 and is 1) and "normal" (``scale`` is the std, with no
+fan-in).
 """
 
 from __future__ import annotations
@@ -24,9 +27,8 @@ __all__ = ["ParamDecl", "map_decls", "stacked", "init_std", "init_params"]
 
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
-    """One f32 parameter: its shape and init rule ("fan_in" or "ones";
-    the JAX package's "zeros" and "normal" come with the families that
-    declare them)."""
+    """One f32 parameter: its shape and init rule ("fan_in", "zeros",
+    "ones" or "normal")."""
 
     shape: tuple
     init: str = "fan_in"
@@ -57,7 +59,10 @@ def stacked(decl_tree, n: int):
 
 
 def init_std(d: ParamDecl) -> float:
-    """Standard deviation of a "fan_in" init (``module.py:69``)."""
+    """Standard deviation of a "fan_in" or "normal" init
+    (``module.py:62-71``)."""
+    if d.init == "normal":
+        return d.scale
     if d.init != "fan_in":
         raise ValueError(f"no random init: {d.init}")
     fan_in = math.prod(d.shape[:-1]) if len(d.shape) > 1 else d.shape[0]
@@ -65,8 +70,9 @@ def init_std(d: ParamDecl) -> float:
 
 
 def _materialize(d: ParamDecl, generator: torch.Generator, device):
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=torch.float32, device=device)
+    if d.init in ("zeros", "ones"):
+        fill = torch.zeros if d.init == "zeros" else torch.ones
+        return fill(d.shape, dtype=torch.float32, device=device)
     t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                     device=device)
     return t.mul_(init_std(d))

@@ -909,6 +909,15 @@ SWA_CASES = {
     "olmoe_s4096_full_g1": (1, 2, 2, 4096, 128, None, True, "bfloat16"),
     "dbrx_s1031_full_g6": (1, 12, 2, 1031, 128, None, True, "bfloat16"),
     "granite_s777_full_g48": (1, 48, 1, 777, 128, None, True, "bfloat16"),
+    # Head dim 96 (phi-3-vision: panels of 64 + 32 columns, 2 stages):
+    # its ragged S of 1,600 causal, hubert's mask (no window, not causal)
+    # at a ragged S, a window, and the f32 path.
+    "phi3_s1600_d96_causal": (2, 4, 4, 1600, 96, None, True, "bfloat16"),
+    "d96_s777_full_non_causal_g2": (2, 4, 2, 777, 96, None, False,
+                                    "bfloat16"),
+    "d96_s300_w129_g4": (1, 8, 2, 300, 96, 129, True, "bfloat16"),
+    "d96_s1_heads": (2, 4, 4, 1, 96, None, False, "bfloat16"),
+    "f32_d96_non_causal": (1, 2, 2, 130, 96, None, False, "float32"),
 }
 
 
@@ -1054,6 +1063,42 @@ def test_moe_forward_full_launches_swa_attention_and_routes_as_the_cpu(
         assert not want.kept.all()
         for f in ("top_i", "pos", "kept"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm_350m", "phi3_vision_4p2b",
+                                  "hubert_xlarge"])
+def test_family_prefill_and_decode_run_on_the_card(cuda_device, arch):
+    """The xLSTM, VLM and audio smoke models (head dim 32, or no
+    attention) on the card: one ``swa_attention`` launch per attention
+    layer in a prefill, none in decode, finite logits, and the card's
+    prefill logits equal to the CPU's on the same parameters within
+    tests/test_decode.py's 0.15 of their scale (the CPU runs K7's plain
+    version)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models.factory import build
+
+    cfg = get_smoke_config(arch)
+    bundle, host = build(cfg, device="cuda"), build(cfg, device="cpu")
+    params = host.init(torch.Generator().manual_seed(0))
+    card = host.init(torch.Generator().manual_seed(0)).to(cuda_device)
+    batch = make_batch(cfg, 2, 97, seed=0)
+    layers = 0 if cfg.family == "ssm" else cfg.n_layers
+    before = ops.launch_counts()["swa_attention"]
+    logits, caches = bundle.prefill(card, batch)
+    assert ops.launch_counts()["swa_attention"] == before + layers
+    want, _ = host.prefill(params, batch)
+    got = logits.float().cpu()
+    scale = max(want.float().abs().max().item(), 1.0)
+    assert torch.isfinite(got).all()
+    assert (got - want.float()).abs().max().item() / scale <= 0.15
+    if cfg.decoder:
+        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        nxt, _ = bundle.decode(card, caches, tok)
+        assert ops.launch_counts()["swa_attention"] == before + layers
+        assert nxt.shape == (2, 1)
+        assert ((nxt >= 0) & (nxt < cfg.vocab)).all()
 
 
 @pytest.mark.gpu

@@ -255,10 +255,8 @@ def test_config_and_init_scale_match_jax():
     assert torch.equal(params.layers[1].ln2["scale"], torch.ones(cfg.d_model))
 
 
-def test_other_archs_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_config("hymba_1p5b")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_smoke_config("xlstm-350m")
-    with pytest.raises(KeyError):
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="no_such_arch"):
         get_config("no_such_arch")
+    with pytest.raises(KeyError, match="no_such_arch"):
+        get_smoke_config("no_such_arch")

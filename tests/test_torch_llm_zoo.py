@@ -1,6 +1,7 @@
 """The port's MoE family (olmoe-1b-7b, moonshot-v1-16b-a3b, dbrx-132b)
 and dense full-attention archs (stablelm-3b, granite-34b) against the
-JAX package, on the CPU.
+JAX package, on the CPU; and the configuration counts and ``serve.main``
+of every arch of the zoo.
 
 Each arch's smoke config with the JAX parameters of
 ``bundle.init(jax.random.key(0))`` carried across by
@@ -45,6 +46,9 @@ from repro_torch.models.factory import build  # noqa: E402
 
 ARCHS = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "dbrx_132b", "stablelm_3b",
          "granite_34b"]
+# The hybrid, xLSTM, VLM and audio families: their parity with JAX is
+# tests/test_torch_llm_families.py's; here only their counts and serve.
+FAMILIES = ["hymba_1p5b", "xlstm_350m", "phi3_vision_4p2b", "hubert_xlarge"]
 LOGIT_TOL, GAP = 0.15, 0.05
 KV_TOL = 3e-2
 S, DECODE_STEPS = 64, 8
@@ -202,16 +206,21 @@ def test_prefill_plus_decode_equals_full_forward(arch):
     _assert_logits_close(got.float().numpy(), want.float().numpy(), cfg.vocab)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_config_counts_match_jax(arch):
     """``param_count``, ``active_param_count`` and ``subquadratic`` of the
-    full config equal JAX's; the smoke model holds ``param_count``
-    parameters plus the final norm, except moonshot's, whose dense layer
-    0 (a SwiGLU of 4 * d_expert) ``param_count`` counts as an MoE layer."""
+    full config equal JAX's (subquadratic: the hybrid and xLSTM families
+    only); the smoke model holds ``param_count`` parameters plus the final
+    norm, except moonshot's, whose dense layer 0 (a SwiGLU of 4 *
+    d_expert) ``param_count`` counts as an MoE layer. For the hybrid,
+    xLSTM, VLM and audio families, whose ``param_count`` is JAX's rough
+    analytic count, the smoke model holds exactly the parameters of JAX's
+    declaration tree."""
     full, jfull = get_config(arch), jax_get_config(arch)
     assert full.param_count() == jfull.param_count()
     assert full.active_param_count() == jfull.active_param_count()
-    assert full.subquadratic == jfull.subquadratic is False
+    assert full.subquadratic == jfull.subquadratic == (
+        full.family in ("hybrid", "ssm"))
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
               "vocab", "window", "head_dim", "padded_vocab", "rope_pct",
               "moe"):
@@ -221,6 +230,11 @@ def test_config_counts_match_jax(arch):
     cfg = get_smoke_config(arch)
     params = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     n = sum(p.numel() for p in params.parameters())
+    if arch in FAMILIES:
+        decls = jax.tree.leaves(jtfm.model_decl(jax_smoke_config(arch)),
+                                is_leaf=lambda d: hasattr(d, "shape"))
+        assert n == sum(int(np.prod(d.shape)) for d in decls)
+        return
     gap = 0
     if _first_dense(cfg):
         d, e = cfg.d_model, cfg.moe
@@ -230,10 +244,19 @@ def test_config_counts_match_jax(arch):
     assert n == cfg.param_count() + cfg.d_model - gap
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_serve_main_generates_for_every_ported_arch(arch):
-    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--batch", "2", "--prompt-len", "40", "--gen", "4"])
+    """``serve.main`` on the CPU for every arch of the zoo (phi3v-smoke's
+    40 positions are 16 patches and 24 tokens); hubert, an encoder, exits
+    as JAX's does."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "40", "--gen", "4"]
+    if not get_smoke_config(arch).decoder:
+        with pytest.raises(SystemExit, match="encoder-only; nothing to "
+                                             "decode"):
+            serve.main(argv)
+        return
+    out = serve.main(argv)
     assert out.shape == (2, 4) and out.dtype == np.int32
     assert ((out >= 0) & (out < get_smoke_config(arch).vocab)).all()
 
@@ -258,12 +281,3 @@ def test_dbrx_smoke_refuses_the_card(monkeypatch):
         bundle.prefill(params, prompt)
     assert ops.launch_counts()["swa_attention"] == before
     assert get_config("dbrx_132b").head_dim in ops.SWA_HEAD_DIMS
-
-
-@pytest.mark.parametrize("arch", ["hymba_1p5b", "xlstm_350m",
-                                  "phi3_vision_4p2b", "hubert_xlarge"])
-def test_other_families_still_raise_naming_item_16(arch):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_smoke_config(arch)
