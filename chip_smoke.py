@@ -376,6 +376,31 @@ The hybrid, xLSTM, VLM and audio families (K7 at head dims 64, 96 and
      ``scaled_dot_product_attention(is_causal=True)``: the kernels line's
      third K7 row, with ptxas's report of every K7 instance.
 
+LM training (K7 as the attention forward, a plain backward), after the
+families' parameters are freed:
+
+ 21. ``attention_grad``: ``SwaAttention`` (K7 forward, the plain chunked
+     backward) at h2o-danube-1.8b's head layout (32 / 8 heads, D 80,
+     window 4,096), B 1 x S 6,144 bf16 unit-variance q / k / v and
+     output gradient, against ``ref.swa_attention`` under autograd: the
+     max row relative error of out, dq, dk and dv within SWA_ROW_RTOL,
+     and a run with a wrong window (none, or 64 keys short) caught;
+     forward + backward ms of the Function, of the plain version and of
+     ``scaled_dot_product_attention`` with the window as a bool mask
+     (``enable_gqa``), with the bound of the work;
+ 22. ``train_path``: h2o-danube-1.8b whole (24 layers, d 2,560, f32
+     master weights from ``torch.Generator`` seeded 0, remat on) through
+     ``ModelBundle.train_step`` and AdamW at B 2 x S 8,192 (``make_batch``
+     from ``TokenPipeline(32000, seed=0)``), lr from ``cosine_schedule``
+     (peak 3e-4, warmup 0): three steps on one batch, whose losses must
+     fall strictly, then one on a fresh batch; losses and gradient norms
+     finite, K7 launched 2 x 24 times a step (the forward and remat's
+     recompute), the second step under ``set_sync_debug_mode("error")``;
+     step ms, tokens/s, peak memory, and the fresh step profiled (device
+     busy share, top kernels): the kernels line's fourth K7 row
+     (``instance`` "h2o-danube-1.8b train": the Function's forward +
+     backward times from phase 21, the launches of this phase).
+
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the last line.
@@ -497,6 +522,13 @@ FAMILY_CONSISTENCY_PROMPT = {"hymba_1p5b": 2048, "xlstm_350m": 256,
                              "phi3_vision_4p2b": 256}
 FAMILY_CONSISTENCY_LAYERS = 2
 VLM_SWA_BATCH, VLM_SWA_SEQ = 4, 4096
+# LM training: h2o-danube-1.8b whole at 2 sequences of two windows,
+# three steps on one batch (the loss must fall) and one on a fresh one;
+# the attention Function held to its plain version at one sequence of
+# 1.5 windows (the plain version's [32, S, S] f32 logits and their
+# gradients fit the card).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_FIXED_STEPS, TRAIN_PEAK_LR = 2, 8192, 3, 3e-4
+ATTN_GRAD_SEQ = 6144
 
 
 def fail(msg: str):
@@ -837,6 +869,10 @@ def main():
 
     # -- 18-20. the hybrid, xLSTM, VLM and audio families --------------------------
     kernels += _family_phases(torch, np, dev, infos)
+    torch.cuda.empty_cache()
+
+    # -- 21-22. LM training ------------------------------------------------------
+    kernels += _train_phases(torch, np, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -5532,6 +5568,219 @@ def _family_consistency(torch, np, dev):
         torch.cuda.empty_cache()
     emit("family_consistency", batch=ZOO_BATCH, tol=LOGIT_TOL,
          near_tie_gap=LOGIT_GAP, archs=rows)
+
+
+# -- LM training ----------------------------------------------------------------
+
+
+def _row_rel_err(torch, got, want) -> float:
+    """Max over rows (the last axis) of |got - want|_2 / |want|_2, a row
+    norm below 1e-3 of the mean counting as that floor (``_swa_errors``'
+    rule)."""
+    got, want = got.float(), want.float()
+    norm = want.norm(dim=-1)
+    norm = norm.clamp_min(1e-3 * norm.mean().item())
+    return ((got - want).norm(dim=-1) / norm).max().item()
+
+
+def _attention_grad(torch, np, dev, cfg):
+    """Phase 21: ``SwaAttention`` against ``ref.swa_attention`` under
+    autograd at danube's head layout, B 1 x ATTN_GRAD_SEQ. Returns the
+    record and the times for the kernels line."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers.attention import SwaAttention, q_chunk
+
+    s, d = ATTN_GRAD_SEQ, cfg.head_dim
+    window, causal = cfg.window, cfg.causal
+    qc = q_chunk(s, cfg.q_chunk)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    dout = torch.randn((1, cfg.n_heads, s, d), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    inputs = (q, k, v)
+
+    def function(w=window):
+        out = SwaAttention.apply(q, k, v, w, causal, qc)
+        return (out,) + torch.autograd.grad(out, inputs, dout)
+
+    def plain():
+        out = ref.swa_attention(q, k, v, window=window, causal=causal)
+        return (out,) + torch.autograd.grad(out, inputs, dout)
+
+    r = torch.arange(s, device=dev)
+    mask = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - window)
+    library = "scaled_dot_product_attention(attn_mask=window, enable_gqa=True)"
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 enable_gqa=True)
+        return (out,) + torch.autograd.grad(out, inputs, dout)
+
+    names = ("out", "dq", "dk", "dv")
+    before = ops.launch_counts()["swa_attention"]
+    got = function()
+    if ops.launch_counts()["swa_attention"] != before + 1:
+        fail("attention_grad: the Function did not launch K7 once")
+    want = plain()
+    errs = {n: _row_rel_err(torch, g, w) for n, g, w in zip(names, got,
+                                                            want)}
+    abs_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    if max(errs.values()) > SWA_ROW_RTOL:
+        fail(f"attention_grad: max row relative errors {errs} beyond "
+             f"{SWA_ROW_RTOL}")
+    caught = {}
+    for name, w in (("window=None", None), (f"window={window - 64}",
+                                            window - 64)):
+        bad = {n: _row_rel_err(torch, g, x) for n, g, x in
+               zip(names, function(w), want)}
+        if max(bad.values()) <= SWA_ROW_RTOL:
+            fail(f"attention_grad: the check passes a Function run with "
+                 f"{name}: {bad}")
+        caught[name] = bad
+    lib_err = max(_row_rel_err(torch, x, w) for x, w in zip(sdpa(), want))
+    del got, want
+    torch.cuda.empty_cache()
+
+    ms = _time_ms(torch, function, reps=5)
+    plain_ms = _time_ms(torch, plain, reps=3)
+    lib_ms = _time_ms(torch, sdpa, reps=5)
+    pairs = _window_pairs(np, s, window, causal)
+    # Forward: Q.K^T and P.V; backward: dV, dP, dQ, dK (given P): six
+    # products of pairs x D a head, in bf16 on the tensor cores; each
+    # input (q, k, v, dout) read once, each output (out, dq, dk, dv)
+    # written once, in bf16.
+    flops = 12 * pairs * d * cfg.n_heads
+    n_bytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                   + dout.numel())
+    bound, by = _bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    record = dict(shape=f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={s} "
+                        f"D={d} window={window} bf16", q_chunk=qc,
+                  row_rtol=SWA_ROW_RTOL, max_row_rel_err=errs,
+                  max_abs_err=abs_err, wrong_window_caught=caught,
+                  library_max_row_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, library=library, bound_ms=bound,
+                  bound_by=by, flops=flops, bytes=n_bytes,
+                  window_pairs=pairs)
+    emit("attention_grad", **record)
+    del q, k, v, dout, mask
+    torch.cuda.empty_cache()
+    return record
+
+
+def _train_phases(torch, np, dev):
+    """Phases 21-22: the attention Function against its plain version,
+    then h2o-danube-1.8b trained whole. Returns the K7 training row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = get_config(LLM_ARCH)
+    grad = _attention_grad(torch, np, dev, cfg)
+
+    # -- 22. train_path -------------------------------------------------------
+    if not cfg.remat:
+        fail(f"{cfg.name}: remat off, expected on for training")
+    bundle = build(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    numel = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed, pipeline=pipe).items()}
+        for seed in (0, 1)]
+    steps = TRAIN_FIXED_STEPS + 1
+    per_layer = 2 * cfg.n_layers          # the forward and remat's recompute
+    losses, gnorms, step_ms, launches = [], [], [], []
+    prof = None
+    ops.reset_launch_counts()
+    for step in range(steps):
+        batch = batches[0] if step < TRAIN_FIXED_STEPS else batches[1]
+        lr = cosine_schedule(np.float32(step), peak=TRAIN_PEAK_LR, warmup=0,
+                             total=steps)
+        before = ops.launch_counts()["swa_attention"]
+        profiled = step == steps - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof_step:
+            # The second step enqueues its work without a host sync.
+            torch.cuda.set_sync_debug_mode("error" if step == 1 else 0)
+            try:
+                params, opt, metrics = bundle.train_step(
+                    params, opt, batch, step, peak_lr=lr)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if profiled:
+            prof = prof_step
+        launches.append(ops.launch_counts()["swa_attention"] - before)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != [per_layer] * steps:
+        fail(f"train_path: swa_attention launched {launches} times a step, "
+             f"expected {per_layer} (2 x {cfg.n_layers} layers)")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        fail(f"train_path: losses {losses}, gradient norms {gnorms}")
+    fixed = losses[:TRAIN_FIXED_STEPS]
+    if not all(a > b for a, b in zip(fixed, fixed[1:])):
+        fail(f"train_path: the loss on one batch did not fall: {fixed}")
+    rows, busy_ms = _device_rows(prof)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = step_ms[TRAIN_FIXED_STEPS - 1]       # the last unprofiled step
+    emit("train_path", arch=cfg.name, source=cfg.source, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, window=cfg.window, vocab=cfg.vocab,
+         param_count=cfg.param_count(), numel=numel, remat=cfg.remat,
+         weights="f32 random, torch.Generator seeded 0", init_s=init_s,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         data="make_batch(seed 0 x 3 steps, seed 1), TokenPipeline(32000, "
+              "seed=0)", schedule=f"cosine_schedule(peak={TRAIN_PEAK_LR}, "
+                                  f"warmup=0, total={steps})",
+         losses=losses, gnorms=gnorms, step_ms=step_ms, warm_step_ms=warm,
+         tokens_per_s=tokens / (warm / 1e3), sync_free_step=1,
+         swa_launches_per_step=launches, max_memory_allocated=peak,
+         profiled_step={"step": steps - 1, "wall_ms": step_ms[-1],
+                        "device_busy_ms": busy_ms,
+                        "device_busy_share": busy_ms / step_ms[-1],
+                        "launches": sum(r[1] for r in rows),
+                        "top": [{"kernel": k[:90], "ms": us / 1e3,
+                                 "count": c} for us, c, k in rows[:10]]})
+    del params, opt, metrics, batches, prof
+    torch.cuda.empty_cache()
+    return [dict(
+        name="swa_attention", route="cuda", matched=True,
+        instance=f"{cfg.name} train",
+        source="src/repro_torch/kernels/csrc/swa_attention.cu",
+        replaces="src/repro/kernels/swa_attention.py:35",
+        launches=counts["swa_attention"], launches_per_step=per_layer,
+        max_abs_err=grad["max_abs_err"],
+        max_row_rel_err=max(grad["max_row_rel_err"].values()),
+        ms=grad["ms"], plain_ms=grad["plain_ms"], bound_ms=grad["bound_ms"],
+        bound_by=grad["bound_by"], library_ms=grad["library_ms"],
+        library=grad["library"], bytes=grad["bytes"], flops=grad["flops"],
+        window_pairs=grad["window_pairs"],
+        timed="forward + backward: K7 and the plain chunked backward "
+              "(models/layers/attention.SwaAttention)",
+        shape=grad["shape"])]
 
 
 if __name__ == "__main__":

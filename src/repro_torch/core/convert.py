@@ -22,6 +22,11 @@ model's ``layer0``, hymba's ``mamba/*`` and ``beta_*``, xLSTM's nested
 ``groups`` (``[G, p - 1, ...]`` mLSTM and ``[G, ...]`` sLSTM leaves), a
 VLM's ``projector/{w1,w2}``, an audio model's ``frame_proj``,
 ``mask_embed`` and layer norms' ``scale`` and ``bias``.
+``params_to_numpy`` gives the model back in that layout (layers stacked
+again: the model's leaves are per-layer views), and ``opt_to_numpy`` /
+``opt_from_numpy`` move the AdamW state (``{"m", "v", "count"}``, the
+moments in the parameters' layout), so a checkpoint of the port's
+training reads in the JAX package and the other way round.
 ``caches_from_numpy`` / ``caches_to_numpy`` move a decode cache both
 ways, so a JAX prefill can feed the port's decode: JAX's ``(caches0,
 stacked)`` pair (``caches0`` a ``first_dense`` model's layer 0, else
@@ -45,10 +50,12 @@ from repro_torch.models.layers.mamba import MambaState
 from repro_torch.models.layers.xlstm import MlstmState, SlstmState
 from repro_torch.models.transformer import (HybridCache, Transformer,
                                             XlstmCache)
+from repro_torch.optim import AdamWState
 
 __all__ = ["flatten_state", "to_tensor", "states_from_numpy",
-           "states_to_numpy",
-           "params_from_numpy", "caches_from_numpy", "caches_to_numpy"]
+           "states_to_numpy", "params_from_numpy", "params_to_numpy",
+           "opt_from_numpy", "opt_to_numpy", "caches_from_numpy",
+           "caches_to_numpy"]
 
 _HEAVY = {DisgdState: ("user_vecs", "item_vecs", "rated"),
           DicsState: ("co", "item_cnt", "rated", "co_scale")}
@@ -126,6 +133,95 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda"):
         return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
 
     return Transformer(leaf(tree), cfg)
+
+
+def _jax_path(name: str, first_dense: bool) -> tuple[tuple, tuple]:
+    """A ``Transformer`` parameter's dotted name -> (its key path in the
+    JAX tree, its index in the stacked leaf): ``layers.i.*`` ->
+    ``layers/*[i]`` (``layer0/*`` and ``layers/*[i - 1]`` for a
+    ``first_dense`` model), ``groups.g.mlstm.j.*`` -> ``groups/mlstm/*[g,
+    j]``, ``groups.g.slstm.*`` -> ``groups/slstm/*[g]``; the rest as it
+    is."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        i, rest = int(parts[1]), tuple(parts[2:])
+        if first_dense:
+            return (("layer0",) + rest, ()) if i == 0 else \
+                (("layers",) + rest, (i - 1,))
+        return ("layers",) + rest, (i,)
+    if parts[0] == "groups":
+        g = int(parts[1])
+        if parts[2] == "mlstm":
+            return ("groups", "mlstm") + tuple(parts[4:]), (g, int(parts[3]))
+        return ("groups", "slstm") + tuple(parts[3:]), (g,)
+    return tuple(parts), ()
+
+
+def _paths(model: Transformer) -> list:
+    """``_jax_path`` of each parameter, in ``model.parameters()`` order."""
+    moe = model.cfg.moe
+    first_dense = moe is not None and moe.first_dense
+    return [_jax_path(n, first_dense) for n, _ in model.named_parameters()]
+
+
+def _to_tree(model: Transformer, values) -> dict:
+    """Per-parameter tensors (aligned with ``model.parameters()``) ->
+    the JAX tree of f32 numpy arrays, stacked leaves rebuilt."""
+    groups: dict = {}
+    for (path, idx), t in zip(_paths(model), values):
+        groups.setdefault(path, []).append((idx, _host(t)))
+    tree: dict = {}
+    for path, items in groups.items():
+        if items[0][0]:
+            shape = tuple(max(i[d] for i, _ in items) + 1
+                          for d in range(len(items[0][0])))
+            leaf = np.empty(shape + items[0][1].shape, np.float32)
+            for i, a in items:
+                leaf[i] = a
+        else:
+            leaf = items[0][1]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _from_tree(model: Transformer, tree, device) -> list:
+    """The JAX tree -> one f32 tensor per parameter, in
+    ``model.parameters()`` order."""
+    out = []
+    for path, idx in _paths(model):
+        node = tree
+        for key in path:
+            node = node[key]
+        out.append(torch.tensor(np.asarray(node, dtype=np.float32)[idx],
+                                device=device))
+    return out
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The port's model -> the JAX parameter pytree as nested dicts of
+    f32 numpy arrays (copies), layers stacked ``[L, ...]``."""
+    return _to_tree(model, model.parameters())
+
+
+def opt_to_numpy(opt: AdamWState, model: Transformer) -> dict:
+    """The AdamW state of ``model`` -> JAX's ``opt._asdict()``: ``m`` and
+    ``v`` in the parameters' layout, ``count`` an int32 scalar."""
+    return {"m": _to_tree(model, opt.m), "v": _to_tree(model, opt.v),
+            "count": np.asarray(_host(opt.count), np.int32)}
+
+
+def opt_from_numpy(tree: Mapping, model: Transformer,
+                   device="cuda") -> AdamWState:
+    """JAX's ``{"m", "v", "count"}`` (numpy) -> the ``AdamWState`` of
+    ``model`` on ``device``."""
+    return AdamWState(
+        m=_from_tree(model, tree["m"], device),
+        v=_from_tree(model, tree["v"], device),
+        count=torch.tensor(np.asarray(tree["count"]), dtype=torch.int32,
+                           device=device))
 
 
 _CACHE_DTYPES = {"k": torch.bfloat16, "v": torch.bfloat16,

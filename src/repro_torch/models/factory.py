@@ -1,23 +1,29 @@
 """Model factory: ``build(cfg, device)`` -> a ``ModelBundle``.
 
-Port of ``repro/models/factory.py`` for serving: ``init`` (parameters
-from an explicit ``torch.Generator``), ``prefill`` (full-sequence forward
--> last-position logits + decode caches, ``:158``), ``decode`` (one token
--> greedy next token + caches, ``:211``) and ``cache_len``. ``prefill``
-takes the batch dict of every family (``_embed_inputs``, ``:51``):
-``tokens``; a VLM's ``tokens`` and ``patches``; an audio model's
-``frames`` and ``mask`` (the encoder's prefill: its caches are never
-decoded). The decode caches are stacked over layers (``k``/``v`` [L, B,
-Hkv, C, Dh] bf16, ``pos`` [L, B, C], ``length`` [L, B]), the JAX
-package's layout (which keeps a ``first_dense`` model's layer 0 apart):
-a ``KVCache``, hymba's ``HybridCache`` (the ``KVCache`` and its layers'
-mamba states) or xLSTM's ``XlstmCache`` (its states, which are its
-caches); ``decode`` updates them IN PLACE.
+Port of ``repro/models/factory.py``: ``init`` (parameters from an
+explicit ``torch.Generator``), ``loss_fn`` (family-aware: LM next-token
+CE, VLM text-region CE, audio masked prediction, ``:94``),
+``train_step`` (gradient-accumulation microbatches + AdamW, ``:123``),
+``prefill`` (full-sequence forward -> last-position logits + decode
+caches, ``:158``), ``decode`` (one token -> greedy next token + caches,
+``:211``) and ``cache_len``. Every step takes the batch dict of its
+family (``_embed_inputs``, ``:51``): ``tokens``; a VLM's ``tokens`` and
+``patches``; an audio model's ``frames``, ``mask`` and, to train,
+``targets`` (an encoder's prefill caches are never decoded). The decode
+caches are stacked over layers (``k``/``v`` [L, B, Hkv, C, Dh] bf16,
+``pos`` [L, B, C], ``length`` [L, B]), the JAX package's layout (which
+keeps a ``first_dense`` model's layer 0 apart): a ``KVCache``, hymba's
+``HybridCache`` (the ``KVCache`` and its layers' mamba states) or
+xLSTM's ``XlstmCache`` (its states, which are its caches); ``decode``
+updates them IN PLACE.
 
-``loss_fn`` and ``train_step`` come with the training slice (ROADMAP
-Queue 1 item 16.4). Everything runs on ``device`` ("cuda" unless the
-caller asks for the CPU, as the tests do); without a card a CUDA bundle
-raises.
+Training updates the model's parameters IN PLACE (``optim.adamw``):
+``train_step`` returns the model it was given. Its gradients come from
+``torch.autograd.grad`` over every parameter (an unused one, such as an
+audio model's token ``embed``, gets zeros, as in JAX), the attention's
+through ``layers.attention.SwaAttention``. Everything runs on ``device``
+("cuda" unless the caller asks for the CPU, as the tests do); without a
+card a CUDA bundle raises.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers.attention import KVCache
 from repro_torch.models.layers.mamba import MambaState
 from repro_torch.models.layers.xlstm import MlstmState, SlstmState
+from repro_torch.optim import adamw_update
 
 __all__ = ["ModelBundle", "build"]
 
@@ -45,6 +52,8 @@ class ModelBundle:
     device: torch.device
     decls: dict
     init: Callable            # generator -> Transformer
+    loss_fn: Callable         # (params, batch) -> (loss, metrics)
+    train_step: Callable      # (params, opt, batch, step, micro) -> ...
     prefill: Callable         # (params, batch) -> (logits_last, caches)
     decode: Callable          # (params, caches, tokens) -> (next, caches)
     cache_len: Callable       # context_len -> decode cache slots
@@ -90,6 +99,85 @@ def _embed_inputs(params, batch, cfg):
     else:
         x = tfm.embed_tokens(params, get("tokens"), cfg)
     return x, torch.arange(x.shape[1], device=device)
+
+
+def _ce(logits, targets, mask, vocab: int):
+    """Masked CE over a padded-vocab logit tensor, in f32
+    (``factory.py:82``): the pad columns at -1e30, the mean over the
+    mask's positions."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab:
+        logits = logits.index_fill(-1, torch.arange(
+            vocab, logits.shape[-1], device=logits.device), -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _loss(params, batch, cfg):
+    """``factory.py:94``: (total = ce + 0.01 * aux, {"ce", "aux"})."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    h, _, aux = tfm.forward_full(params, x, positions, cfg)
+    logits = tfm.logits_from_hidden(params, h, cfg)
+    device = logits.device
+
+    if cfg.audio_frontend:
+        mask = torch.as_tensor(batch["mask"], device=device).float()
+        targets = torch.as_tensor(batch["targets"], device=device)
+        loss = _ce(logits, targets, mask, cfg.vocab)
+    else:
+        toks = torch.as_tensor(batch["tokens"], device=device)
+        # A VLM's text region follows its patches.
+        text = logits[:, cfg.vlm_patches:-1]
+        loss = _ce(text, toks[:, 1:], torch.ones(
+            toks[:, 1:].shape, dtype=torch.float32, device=device), cfg.vocab)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+def _split(x, n: int, i: int):
+    """Microbatch ``i`` of ``n``: rows ``[i * b / n, (i + 1) * b / n)``
+    (JAX's reshape to ``[n, b / n, ...]``)."""
+    b = x.shape[0]
+    if b % n:
+        raise ValueError(f"batch of {b} in {n} microbatches")
+    return x[i * (b // n):(i + 1) * (b // n)]
+
+
+def _train_step(params, opt, batch, step, cfg, *, microbatches: int = 1,
+                peak_lr=3e-4):
+    """``factory.py:123``: gradients over every parameter (summed in f32
+    over ``microbatches`` and divided), then one AdamW step at ``lr =
+    peak_lr`` (the trainer feeds the schedule there; ``step`` is unused,
+    as in JAX). Updates ``params`` and ``opt`` IN PLACE; returns
+    (params, opt, metrics): ``loss``, ``gnorm`` and, from the loss,
+    ``ce`` and ``aux`` (with microbatches: the mean loss and 0). Every
+    metric is a 0-d tensor on the device: nothing is read on the host."""
+    leaves = list(params.parameters())
+
+    def grads_of(b):
+        loss, metrics = _loss(params, b, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), metrics, list(grads)
+
+    if microbatches == 1:
+        loss, metrics, grads = grads_of(batch)
+        metrics = {k: t.detach() for k, t in metrics.items()}
+    else:
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(microbatches):
+            mb = {k: _split(x, microbatches, i) for k, x in batch.items()}
+            mb_loss, _, mb_grads = grads_of(mb)
+            torch._foreach_add_(grads, mb_grads)
+            loss = loss + mb_loss
+            del mb_grads
+        torch._foreach_div_(grads, float(microbatches))
+        loss = loss / microbatches
+        metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+    params, opt, gnorm = adamw_update(grads, opt, params, lr=peak_lr)
+    return params, opt, dict(metrics, loss=loss, gnorm=gnorm)
 
 
 @torch.no_grad()
@@ -175,6 +263,8 @@ def build(cfg: ArchConfig, device="cuda") -> ModelBundle:
         device=device,
         decls=decls,
         init=partial(_init, decls=decls, cfg=cfg, device=device),
+        loss_fn=partial(_loss, cfg=cfg),
+        train_step=partial(_train_step, cfg=cfg),
         prefill=partial(_prefill, cfg=cfg),
         decode=partial(_decode, cfg=cfg),
         cache_len=partial(tfm._attn_cache_len, cfg),

@@ -1,11 +1,16 @@
-"""Attention: GQA with sliding windows, prefill through the flash kernel.
+"""Attention: GQA with sliding windows, its forward through the flash kernel.
 
 Port of ``repro/models/layers/attention.py`` (:35-200). The full-sequence
 attention of training and prefill goes through ``ops.swa_attention``
 (kernel K7, ``kernels/csrc/swa_attention.cu``): the JAX module computes
 the same function in chunked jnp (``_sdpa`` over q blocks, :88) and
-names the Pallas kernel as the TPU form of that schedule. Decode has no
-kernel in JAX and stays plain PyTorch here: one new token against a
+names the Pallas kernel as the TPU form of that schedule. K7 has no
+backward, and JAX trains through its jnp chunks, not through the Pallas
+kernel; so ``SwaAttention`` (an ``autograd.Function``) runs K7 forward
+and a plain PyTorch backward recomputed per q chunk on JAX's schedule
+(``_swa_backward``). Without it the kernel's output, written through raw
+pointers, would carry no gradient to ``wq`` / ``wk`` / ``wv``. Decode has
+no kernel in JAX and stays plain PyTorch here: one new token against a
 rolling buffer of ``window`` slots (SWA) or the full context, with slot
 positions tracked explicitly so the mask is exact across wraparound.
 
@@ -24,7 +29,7 @@ from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.module import ParamDecl
 
 __all__ = ["attn_decl", "attention", "decode_attention", "KVCache",
-           "init_cache"]
+           "init_cache", "SwaAttention", "q_chunk"]
 
 NEG_INF = -1e30
 
@@ -80,17 +85,92 @@ def _sdpa(q, k, v, mask, scale):
     return torch.einsum("bghst,bhtk->bghsk", p, v.float())
 
 
+def q_chunk(s: int, q_chunk_max: int) -> int:
+    """JAX's q block: the largest divisor of ``s`` not above
+    ``q_chunk_max`` (``attention.py:130``)."""
+    qc = min(q_chunk_max, s)
+    while s % qc:
+        qc -= 1
+    return qc
+
+
+def _swa_backward(q, k, v, dout, window, causal, qc):
+    """Gradients of ``ref.swa_attention`` at (q, k, v) for ``dout``, in
+    f32, a q chunk at a time on JAX's schedule (``chunk_fn``,
+    ``attention.py:135``): chunks of ``qc`` rows, each against a key slab
+    of ``min(S, window + qc)`` starting at ``clip(q_start + qc - slab, 0,
+    S - slab)``, or against every key without a window or without a
+    causal bound (a row's keys then reach past its chunk); f32 logits,
+    the softmax recomputed, a row with no visible key giving 0. dq is
+    written chunk by chunk, dk / dv accumulated over the slabs in f32; no
+    [B, H, S, S] tensor is made. Returns dq, dk, dv in q's type."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = d ** -0.5
+    slab = s if window is None or not causal else min(s, window + qc)
+    qg = q.view(b, hkv, g, s, d)
+    dog = dout.view(b, hkv, g, s, d)
+    dq = torch.empty_like(q).view(b, hkv, g, s, d)
+    dk = torch.zeros((b, hkv, s, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, s, qc):
+        k0 = min(max(q0 + qc - slab, 0), s - slab)
+        qpos = torch.arange(q0, q0 + qc, device=q.device)[:, None]
+        kpos = torch.arange(k0, k0 + slab, device=q.device)[None, :]
+        mask = torch.ones((qc, slab), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        kc = k[:, :, k0:k0 + slab].float()
+        vc = v[:, :, k0:k0 + slab].float()
+        qf = qg[:, :, :, q0:q0 + qc].float()
+        do = dog[:, :, :, q0:q0 + qc].float()
+        logits = torch.einsum("bhgqd,bhtd->bhgqt", qf, kc) * scale
+        p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+        p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+        del logits
+        dv[:, :, k0:k0 + slab] += torch.einsum("bhgqt,bhgqd->bhtd", p, do)
+        dp = torch.einsum("bhgqd,bhtd->bhgqt", do, vc)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+        del p, dp
+        dq[:, :, :, q0:q0 + qc] = torch.einsum("bhgqt,bhtd->bhgqd", ds, kc)
+        dk[:, :, k0:k0 + slab] += torch.einsum("bhgqt,bhgqd->bhtd", ds, qf)
+    return dq.view(b, hq, s, d), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class SwaAttention(torch.autograd.Function):
+    """``ops.swa_attention`` (K7 on the card, its plain version on the
+    CPU) with a gradient: the plain backward of ``_swa_backward``.
+    Saves q / k / v only; a CUDA input launches the kernel or raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, qc):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (window, causal, qc)
+        return ops.swa_attention(q, k, v, window=window, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _swa_backward(q, k, v, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def attention(params, x, positions, cfg, *, window=None, causal=None):
-    """Full-sequence attention (prefill), ``attention.py:100``.
+    """Full-sequence attention (training and prefill), ``attention.py:100``.
 
     x [B, S, D] -> (y [B, S, D], (k, v)); k (roped) and v [B, Hkv, S, Dh]
-    are returned for the decode cache. One ``ops.swa_attention`` launch.
+    are returned for the decode cache. One ``ops.swa_attention`` launch,
+    through ``SwaAttention`` (its backward: JAX's q chunks of
+    ``cfg.q_chunk``).
     """
     window = cfg.window if window is None else window
     causal = cfg.causal if causal is None else causal
     q, k, v = _qkv(params, x, positions, cfg)
-    out = ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            window=window, causal=causal)
+    out = SwaAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                             window, causal, q_chunk(q.shape[2], cfg.q_chunk))
     y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype),
                      params["wo"].to(x.dtype))
     return y, (k, v)

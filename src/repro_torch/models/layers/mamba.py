@@ -113,12 +113,13 @@ def _prefix_scan(a, b):
     """Inclusive scan along dim 1 of the pairs (a, b) under
     ``(al, bl) . (ar, br) = (al * ar, bl * ar + br)`` (left earlier):
     Hillis–Steele, each round combining every position with the one
-    ``k`` before it, k = 1, 2, 4, ... Updates ``a`` and ``b`` in place
-    and returns them: (prod of a, the state from a zero start)."""
+    ``k`` before it, k = 1, 2, 4, ... Returns new tensors (autograd keeps
+    each round's inputs): (prod of a, the state from a zero start)."""
     n, k = a.shape[1], 1
     while k < n:
-        b[:, k:] = torch.addcmul(b[:, k:], a[:, k:], b[:, :-k])
-        a[:, k:] = a[:, k:] * a[:, :-k]
+        b = torch.cat([b[:, :k], torch.addcmul(b[:, k:], a[:, k:], b[:, :-k])],
+                      dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2
     return a, b
 

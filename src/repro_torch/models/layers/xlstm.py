@@ -214,11 +214,11 @@ def slstm_apply(params, x, cfg, state: SlstmState | None = None):
     pre_x = x.float() @ _gate_weights(params, "w")          # [B, S, 4D]
     r_cat = _gate_weights(params, "r")
     b_cat = torch.cat([params[f"b_{g}"].float() for g in GATES])
-    hs = torch.empty((b, s, cfg.d_model), dtype=torch.float32,
-                     device=x.device)
+    hs = []
     for t in range(s):
         state = _slstm_step(pre_x[:, t], state, r_cat, b_cat)
-        hs[:, t] = state.h
+        hs.append(state.h)
+    hs = torch.stack(hs, dim=1)                               # [B, S, D]
     return hs.to(x.dtype) @ params["w_out"].to(x.dtype), state
 
 

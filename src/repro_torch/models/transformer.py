@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import module as mod
@@ -141,16 +142,15 @@ def model_decl(cfg) -> dict:
     return decl
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class ParamTree(nn.Module):
     """A nested parameter dict in the JAX layout (one layer's ``ln1``,
     ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp``, ``moe``, ``mamba``,
     ``beta_*``, or an xLSTM block's ``ln`` and ``cell``): leaves are
-    frozen Parameters, dicts sub-trees, read as ``tree.name`` or
-    ``tree["name"]``."""
+    trainable Parameters over the given tensors' storage (a layer's
+    leaf is a view of the stacked tensor, so an in-place update writes
+    the stack), dicts sub-trees, read as ``tree.name`` or
+    ``tree["name"]``. Serving runs under ``torch.no_grad``
+    (``factory._prefill`` / ``_decode``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -158,7 +158,7 @@ class ParamTree(nn.Module):
             if isinstance(value, dict):
                 self.add_module(name, ParamTree(value))
             else:
-                self.register_parameter(name, _frozen(value))
+                self.register_parameter(name, nn.Parameter(value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -194,8 +194,8 @@ class Transformer(nn.Module):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
-        self.head = _frozen(tree["head"])
+        self.embed = nn.Parameter(tree["embed"])
+        self.head = nn.Parameter(tree["head"])
         self.final_norm = ParamTree(tree["final_norm"])
         if cfg.family == "ssm":
             n_groups = cfg.n_layers // cfg.xlstm.slstm_period
@@ -209,8 +209,8 @@ class Transformer(nn.Module):
         if "projector" in tree:
             self.projector = ParamTree(tree["projector"])
         if "frame_proj" in tree:
-            self.frame_proj = _frozen(tree["frame_proj"])
-            self.mask_embed = _frozen(tree["mask_embed"])
+            self.frame_proj = nn.Parameter(tree["frame_proj"])
+            self.mask_embed = nn.Parameter(tree["mask_embed"])
 
 
 def embed_tokens(params, tokens, cfg):
@@ -279,23 +279,53 @@ def forward_full(params, x, positions, cfg, *, collect_cache: bool = False):
     ``MambaState``), or for xLSTM each group's (mLSTM states, sLSTM
     state); else None. ``aux_sum`` is the f32 sum of the MoE layers'
     load-balance losses (0 for the other families). Each attention layer
-    launches ``ops.swa_attention`` once.
+    launches ``ops.swa_attention`` once. With ``cfg.remat`` and grad
+    enabled (training) each block, or each xLSTM group, runs under
+    activation checkpointing: its forward runs again in the backward
+    pass, so an attention layer launches K7 twice a training step.
     """
     entries = [] if collect_cache else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     if cfg.family == "ssm":
         for group in params.groups:
+            if remat:
+                x = _checkpoint(_xlstm_group_train, group, x, cfg)
+                continue
             x, mstates, sstate = _xlstm_group_full(group, x, cfg)
             if collect_cache:
                 entries.append((mstates, sstate))
         return x, entries, aux_sum
     for lp in params.layers:
-        x, e, aux = _block_full(lp, x, positions, cfg)
+        if remat:
+            x, aux = _checkpoint(_block_train, lp, x, positions, cfg)
+        else:
+            x, e, aux = _block_full(lp, x, positions, cfg)
+            if collect_cache:
+                entries.append(e)
         if aux is not None:
             aux_sum = aux_sum + aux
-        if collect_cache:
-            entries.append(e)
     return x, entries, aux_sum
+
+
+def _block_train(lp, x, positions, cfg):
+    """``_block_full`` without the cache entries: (x, aux)."""
+    x, _, aux = _block_full(lp, x, positions, cfg)
+    return x, aux
+
+
+def _xlstm_group_train(group, x, cfg):
+    """``_xlstm_group_full`` without the states: x."""
+    return _xlstm_group_full(group, x, cfg)[0]
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` with its activations dropped and recomputed in the
+    backward pass (``jax.checkpoint``, ``transformer.py:206``, ``:221``):
+    the block's forward, K7 included, runs twice a training step. The
+    blocks draw no random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _copy_state(dst, src) -> None:

@@ -1128,3 +1128,112 @@ def test_cuda_calls_never_reach_the_plain_versions(cuda_device, monkeypatch):
     ops.isgd_update(*(torch.tensor(inp[n], device=cuda_device)
                       for n in ISGD_NAMES), eta=0.05, lam=0.01)
     torch.cuda.synchronize()
+
+
+# -- training: K7 under the attention Function ----------------------------------
+
+# (B, Hq, Hkv, S, D, window, causal, q_chunk): danube's head dim under a
+# binding window (GQA 4), phi-3-vision's D 96 causal without a window,
+# hubert's D 80 bidirectional, each at a ragged last chunk of K7's tiles.
+TRAIN_GRAD_CASES = {
+    "danube_d80_w256_g4": (1, 8, 2, 1000, 80, 256, True, 250),
+    "phi3_d96_causal": (2, 4, 4, 640, 96, None, True, 128),
+    "hubert_d80_bidirectional": (1, 4, 4, 513, 80, None, False, 171),
+}
+
+
+def _max_row_rel_err(got, want):
+    """Max over rows of |got - want|_2 / |want|_2 (a row norm below 1e-3
+    of the mean counts as that floor), as chip_smoke.py's K7 checks."""
+    got, want = got.float(), want.float()
+    norm = want.norm(dim=-1)
+    norm = norm.clamp_min(1e-3 * norm.mean().item())
+    return ((got - want).norm(dim=-1) / norm).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TRAIN_GRAD_CASES))
+def test_swa_attention_function_gradients_match_plain(cuda_device, case):
+    """``SwaAttention`` on the card (K7 forward, the plain chunked
+    backward) against ``ref.swa_attention`` under autograd on the same
+    bf16 inputs: out, dq, dk, dv within 1e-2 max row relative error (K7
+    rounds P to bf16 before P.V; both round every result to bf16)."""
+    from repro_torch.models.layers.attention import SwaAttention
+
+    b, hq, hkv, s, d, window, causal, qc = TRAIN_GRAD_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (hq, hkv, hkv))
+    dout = torch.randn((b, hq, s, d), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16)
+    before = ops.launch_counts()["swa_attention"]
+    out = SwaAttention.apply(q, k, v, window, causal, qc)
+    got = (out,) + torch.autograd.grad(out, (q, k, v), dout)
+    assert ops.launch_counts()["swa_attention"] == before + 1
+    want_out = ref.swa_attention(q, k, v, window=window, causal=causal)
+    want = (want_out,) + torch.autograd.grad(want_out, (q, k, v), dout)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _max_row_rel_err(g, w) <= 1e-2, (name, _max_row_rel_err(g, w))
+
+
+@pytest.mark.gpu
+def test_train_step_at_head_dim_80_reaches_every_parameter(cuda_device):
+    """danube-smoke widened to danube's head dim 80, remat on: every
+    parameter gets a finite, nonzero gradient on the card, K7 runs twice
+    a layer (forward, recompute), and the gradients match the CPU's on
+    the same parameters (the CPU runs K7's plain version) within 5e-2
+    relative L2 a leaf (tests/train_parity.py's tolerance)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models.factory import build
+
+    cfg = dataclasses.replace(get_smoke_config("h2o_danube_1p8b"), d_head=80,
+                              remat=True)
+    host = build(cfg, device="cpu")
+    params = host.init(torch.Generator().manual_seed(0))
+    card = host.init(torch.Generator().manual_seed(0)).to(cuda_device)
+    batch = make_batch(cfg, 2, 96, seed=0)
+    before = ops.launch_counts()["swa_attention"]
+    loss, _ = build(cfg, device="cuda").loss_fn(card, batch)
+    got = torch.autograd.grad(loss, list(card.parameters()))
+    assert ops.launch_counts()["swa_attention"] == before + 2 * cfg.n_layers
+    want_loss, _ = host.loss_fn(params, batch)
+    want = torch.autograd.grad(want_loss, list(params.parameters()))
+    assert abs(loss.item() - want_loss.item()) <= 1e-3 * want_loss.item()
+    for (name, _), g, w in zip(card.named_parameters(), got, want):
+        g = g.cpu()
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert (g - w).norm() <= 5e-2 * w.norm(), name
+
+
+@pytest.mark.gpu
+def test_train_main_runs_on_the_card(cuda_device, tmp_path):
+    """``launch.train.main`` on danube-smoke (head dim 32) on the card:
+    one K7 launch a layer a step (remat off in the smoke config), finite
+    losses, and a checkpoint whose AdamW ``m`` is nonzero in every leaf
+    (every parameter had a gradient)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+
+    cfg = get_smoke_config("h2o_danube_1p8b")
+    before = ops.launch_counts()["swa_attention"]
+    losses = train.main(["--arch", "h2o_danube_1p8b", "--smoke", "--steps",
+                         "3", "--batch", "2", "--seq", "96", "--ckpt-dir",
+                         str(tmp_path), "--ckpt-every", "3"])
+    assert ops.launch_counts()["swa_attention"] == before + 3 * cfg.n_layers
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    step, tree = restore_checkpoint(str(tmp_path))
+    assert step == 3 and int(tree["opt"]["count"]) == 3
+
+    def leaves(t):
+        return [x for v in t.values() for x in
+                (leaves(v) if isinstance(v, dict) else [v])]
+
+    for m in leaves(tree["opt"]["m"]):
+        assert np.isfinite(m).all() and np.abs(m).max() > 0
