@@ -164,12 +164,14 @@ Drift control, after the DICS state is freed:
      events/s, ``dropped`` 0;
   9b. ``drift_backends_agree``: ``benchmarks/bench_drift.py``'s small
      configuration (DEFAULT_PROFILE, abrupt at 0.3; DISGD and BPR-MF on
-     its first ``DRIFT_SMALL_CUT`` events) for DISGD, BPR-MF and
-     DICS under the fixed cadence and the adaptive policy on ``cuda``
-     and ``scan`` on the card (DICS also on ``host``) and ``cuda`` on
-     CPU tensors (``_drift_agree`` says what each pair must equal); DICS
-     adaptive fires and recovers faster than the fixed cadence on
-     ``cuda`` and ``scan``.
+     its first ``DRIFT_SMALL_CUT`` events, BPR-MF's fixed cadence on
+     its first ``DRIFT_POLICY_CUT``) for DISGD, BPR-MF and DICS under
+     the fixed cadence and the adaptive policy on ``cuda`` and ``scan``
+     on the card and ``cuda`` on CPU tensors, and DICS's on ``host``
+     against ``scan`` on its first ``DRIFT_HOST_CUT`` events
+     (``_drift_agree`` says what each pair must equal; each host run
+     forgets, the adaptive one fires); DICS adaptive fires and recovers
+     faster than the fixed cadence on ``cuda`` and ``scan``.
 
 The ensemble, service and autoscaler runtime (K1-K5 through the
 sessions), after the drift runs are freed:
@@ -401,6 +403,32 @@ families' parameters are freed:
      (``instance`` "h2o-danube-1.8b train": the Function's forward +
      backward times from phase 21, the launches of this phase).
 
+The tooling (``sharding/``, ``launch/dryrun.py``, ``roofline/``):
+
+ 23. ``sharded_train``: four gloo ranks sharing the card on the layout
+     (data 2, model 2) train h2o-danube-1.8b at full width, 2 of its 24
+     layers, B 4 x 2,048 from ``make_batch``, two steps of
+     ``sharding.fsdp.train_step``; then the same two steps on one rank
+     (``ModelBundle.train_step``): losses within 1e-3 relative, gradient
+     norms within 1e-2, each parameter within GRAD_TOL relative L2 with
+     ``tests/train_parity.py``'s element rules; each rank's resident parameter + m + v bytes three times its
+     spec blocks' bytes; K7 launched 2 layers x 2 x 2 steps a rank; each
+     rank's collective records equal to the dry-run's prediction for the
+     same configuration and layout (``launch.dryrun.run_step`` under
+     ``FakeTensorMode``, two steps);
+ 24. ``dryrun``: ``lower_combo`` of (h2o_danube_1p8b, prefill_32k),
+     (h2o_danube_1p8b, train_4k), (olmoe_1b_7b, decode_32k) on 16 x 16
+     and ``lower_recsys(algorithm="disgd")``, run in a subprocess on the
+     host (it needs no card) beside phases 21-22, which keep the card
+     busy, and waited for before phase 23: each roofline row, its memory
+     and its seconds;
+ 25. ``dryrun_card``: rank 0's program of (h2o_danube_1p8b, prefill_32k)
+     on 16 x 16 run for real on the card, on the layout (its collectives
+     return uninitialised results): ``max_memory_allocated`` within 15%
+     of the report's ``peak_bytes``, ``FlopCounterMode``'s total equal to
+     the report's ``flops``, 24 K7 launches, the wall ms beside the
+     roofline's ``max(compute_s, memory_s)``.
+
 Then the kernels line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the last line.
@@ -414,6 +442,8 @@ import json
 import math
 import re
 import statistics
+import atexit
+import os
 import subprocess
 import sys
 import time
@@ -423,12 +453,6 @@ ROOT = Path(__file__).resolve().parent
 _START = time.perf_counter()
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 rate
-# outside the tensor cores (the recommender's kernels do f32 FMAs on CUDA
-# cores) and the dense bf16 tensor-core rate (swa_attention).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_TC_FLOPS_PER_S = 989.4e12
 
 # Main-path configuration: MovieLens-25M's Table 1 statistics, the
 # README's 4 x 4 grid (16 workers), caps that fit each user column
@@ -872,7 +896,13 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 21-22. LM training ------------------------------------------------------
+    # The dry-run (24) needs no card: its subprocess runs on one host core
+    # beside these two phases, which keep the card busy.
+    dryrun_proc = _start_dryrun()
     kernels += _train_phases(torch, np, dev)
+
+    # -- 23-25. sharded training and the dry-run ----------------------------------
+    _sharding_phases(torch, np, dev, dryrun_proc)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1069,9 +1099,21 @@ def _time_ms(torch, fn, reps=20, setup=None, cover_enqueue=False,
     return statistics.median(times)
 
 
-def _bound_ms(n_bytes: float, flops: float, flops_per_s=F32_FLOPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
+def _hw():
+    """The card's published peaks (NVIDIA's H100 SXM datasheet), one
+    source for the port: ``repro_torch.roofline.analysis.HW``: the HBM3
+    rate, the f32 rate outside the tensor cores (the recommender's kernels
+    do f32 FMAs on CUDA cores) and the dense bf16 tensor-core rate
+    (swa_attention)."""
+    from repro_torch.roofline.analysis import HW
+
+    return HW()
+
+
+def _bound_ms(n_bytes: float, flops: float, bf16: bool = False):
+    hw = _hw()
+    t_bytes = n_bytes / hw.hbm_bw * 1e3
+    t_ops = flops / (hw.peak_flops if bf16 else hw.f32_flops) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1923,7 +1965,7 @@ def _codec_profile(torch, rt, users, items, cfg, policy) -> dict:
     dense = n_c * hyper.u_cap * hyper.i_cap
     packed = 4 * n_c * hyper.u_cap * storage.packed_width(hyper.i_cap)
     per_step = {k: statistics.median(v) for k, v in codec.items()}
-    bound = (dense + packed) / HBM_BYTES_PER_S * 1e3
+    bound = (dense + packed) / _hw().hbm_bw * 1e3
     return dict(events=int(min(n, users.size)), steps=prof["steps"],
                 unpack_ms=per_step["decode"], pack_ms=per_step["encode"],
                 unpack_bound_ms=bound, pack_bound_ms=bound,
@@ -2502,14 +2544,19 @@ DRIFT_EVENTS, DRIFT_AT = 131_072, 0.3
 # is cut to 18 micro-batches (4,608 of 8,958 events), past the drift at
 # 3,293 and two LRU passes, so its backends still agree across the
 # drift (each scan run ~10 s on the whole stream). DICS keeps the whole
-# stream: its adaptive run must fire and recover. The ``host`` loop runs DICS only,
-# under both policies, across the drift (its fixed forgetting pass and
-# its detector and controller, which fire there); DISGD's and BPR-MF's
-# host runs (~35 s of the script's time limit) were cut when the MoE
-# phases came.
+# stream: its adaptive run must fire and recover. DISGD's and BPR-MF's
+# ``host`` runs (~35 s of the script's time limit) were cut when the MoE
+# phases came. DICS's host loop runs under both policies on the first
+# DRIFT_HOST_CUT events (cut from the whole stream, ~23 s, when the
+# sharded training and dry-run phases came), held to ``scan`` on the same
+# events: past the drift, so the fixed cadence forgets twice and the
+# adaptive detector fires and its controller forgets. BPR-MF's fixed
+# policy runs on its first DRIFT_POLICY_CUT events (cut then from 512,
+# ~7.5 s).
 DRIFT_SMALL_EVENTS = 32_768
 DRIFT_SMALL_CUT = {"bpr": 512, "disgd": 4608}
-DRIFT_HOST_ALGOS = ("dics",)
+DRIFT_POLICY_CUT = {("bpr", "fixed"): 256}
+DRIFT_HOST_CUT = {"dics": 4608}
 
 
 def _stream_counters(registry) -> dict:
@@ -2750,7 +2797,6 @@ def _drift_phases(torch, np, rt) -> dict:
     d = sc.drift_events[0]
     rows, scans = {}, {}
     for algo in ("disgd", "bpr", "dics"):
-        cut = DRIFT_SMALL_CUT.get(algo, sc.n)
         hyper = rt.get_algorithm(algo).default_hyper()._replace(
             u_cap=256, i_cap=64)
         base = rt.StreamConfig(algorithm=algo, grid=rt.GridSpec(2),
@@ -2759,11 +2805,25 @@ def _drift_phases(torch, np, rt) -> dict:
         for policy, run_cfg in _drift_cfgs(base).items():
             if policy == "none":
                 continue
+            cut = DRIFT_POLICY_CUT.get((algo, policy),
+                                       DRIFT_SMALL_CUT.get(algo, sc.n))
             runs, scans[f"{algo}.{policy}"] = _drift_agree(
                 np, rt, sc.users[:cut], sc.items[:cut], d, run_cfg,
-                f"drift_backends_agree.{algo}.{policy}",
-                host=algo in DRIFT_HOST_ALGOS)
+                f"drift_backends_agree.{algo}.{policy}")
             rows[f"{algo}.{policy}"] = dict(events=min(cut, sc.n), **runs)
+            if algo not in DRIFT_HOST_CUT:
+                continue
+            cut = DRIFT_HOST_CUT[algo]
+            what = f"drift_backends_agree.{algo}.{policy}.host"
+            runs, _ = _drift_agree(np, rt, sc.users[:cut], sc.items[:cut],
+                                   d, run_cfg, what,
+                                   backends=("scan", "host"))
+            if runs["host"]["forgets"] < 1:
+                fail(f"{what}: no forgetting pass ran")
+            if policy == "adaptive" and runs["host"]["fires"] < 1:
+                fail(f"{what}: the detector never fired")
+            rows[f"{algo}.{policy}.host"] = dict(events=min(cut, sc.n),
+                                                 **runs)
     for what in ("cuda", "scan"):
         fixed, adaptive = (rows[f"dics.{p}"][what] for p in ("fixed",
                                                              "adaptive"))
@@ -2777,16 +2837,21 @@ def _drift_phases(torch, np, rt) -> dict:
     emit("drift_backends_agree",
          stream=f"make_scenario('abrupt', events={DRIFT_SMALL_EVENTS}, "
                 "seed=0, at=0.3)", events=sc.n, drift_event=d,
-         cut={algo: f"first {n} events" for algo, n in
-              DRIFT_SMALL_CUT.items()},
+         cut={**{algo: f"first {n} events" for algo, n in
+                 DRIFT_SMALL_CUT.items()},
+              **{".".join(k): f"first {n} events" for k, n in
+                 DRIFT_POLICY_CUT.items()},
+              **{f"{algo}.host": f"first {n} events" for algo, n in
+                 DRIFT_HOST_CUT.items()}},
          grid=[2, 2], u_cap=256, i_cap=64, micro_batch=256,
          rtol=STREAM_RTOL, atol=STREAM_ATOL, runs=rows)
     return scans
 
 
-def _drift_agree(np, rt, users, items, d, cfg, what, host=False):
-    """One policy of one algorithm on ``cuda`` and ``scan`` (and, with
-    ``host``, ``host``) on the card and ``cuda`` on CPU tensors. ``host``
+def _drift_agree(np, rt, users, items, d, cfg, what,
+                 backends=("cuda", "scan", "cpu")):
+    """One policy of one algorithm on ``backends``: ``cuda``, ``scan``
+    and ``host`` on the card, ``cpu`` (``cuda`` on CPU tensors). ``host``
     = ``scan`` (the same eager worker): flags, forgets, evaluated recall
     bits, every state array and the telemetry vector exactly. The card's
     ``cuda`` = ``cuda`` on CPU tensors (the plain versions the CPU tests
@@ -2796,28 +2861,29 @@ def _drift_agree(np, rt, users, items, d, cfg, what, host=False):
     the recall bits: forgets, integers and the telemetry vector but its
     hits exactly, floats within the tolerance (the cuda worker scores at
     bucket start, the scan worker live: their recall bits, and so an
-    adaptive run's flags, differ by design in both packages). Returns the
-    summary and the ``scan`` run."""
+    adaptive run's flags, differ by design in both packages). Each pair
+    of ``backends`` so named is compared. Returns the summary and the
+    ``scan`` run."""
     from repro_torch.core import convert
     from repro_torch.drift import recovery_report
     from repro_torch.obs.telemetry import telemetry_ints
 
-    backends = [("cuda", {}), ("scan", dict(backend="scan")),
-                ("cpu", dict(device="cpu"))]
-    if host:
-        backends.insert(2, ("host", dict(backend="host")))
-    runs = {name: rt.run_stream(users, items, dataclasses.replace(cfg, **kw))
-            for name, kw in backends}
+    kws = {"cuda": {}, "scan": dict(backend="scan"),
+           "host": dict(backend="host"), "cpu": dict(device="cpu")}
+    runs = {name: rt.run_stream(users, items,
+                                dataclasses.replace(cfg, **kws[name]))
+            for name in backends}
     st = {k: convert.states_to_numpy(r.final_states) for k, r in runs.items()}
     tel = {k: telemetry_ints(r.telemetry) for k, r in runs.items()}
     flags = {k: (r.drift_flags if r.drift_flags is not None
                  else np.zeros(0, np.int32)) for k, r in runs.items()}
     adaptive = cfg.drift is not None
-    pairs = [("host", "scan", True)] if host else []
-    pairs.append(("cuda", "cpu", True))
+    pairs = [("host", "scan", True), ("cuda", "cpu", True)]
     if not adaptive:
         pairs.append(("cuda", "scan", False))
     for a, b, same_bits in pairs:
+        if a not in runs or b not in runs:
+            continue
         ra, rb = runs[a], runs[b]
         if (ra.events_processed, ra.dropped, ra.forgets) != (
                 rb.events_processed, rb.dropped, rb.forgets):
@@ -5043,7 +5109,7 @@ def _swa_row(torch, np, params, cfg, prompts, seq, counts, instance=None):
     pairs = _window_pairs(np, s, cfg.window, cfg.causal)
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v bf16
     flops = 4 * pairs * d * b * cfg.n_heads
-    bound, by = _bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    bound, by = _bound_ms(n_bytes, flops, bf16=True)
     emit("swa_vs_plain", instance=instance or cfg.name,
          row_rtol=SWA_ROW_RTOL, rtol=SWA_RTOL, atol=SWA_ATOL,
          shape=f"B={b} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={d}",
@@ -5660,7 +5726,7 @@ def _attention_grad(torch, np, dev, cfg):
     flops = 12 * pairs * d * cfg.n_heads
     n_bytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
                    + dout.numel())
-    bound, by = _bound_ms(n_bytes, flops, BF16_TC_FLOPS_PER_S)
+    bound, by = _bound_ms(n_bytes, flops, bf16=True)
     record = dict(shape=f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={s} "
                         f"D={d} window={window} bf16", q_chunk=qc,
                   row_rtol=SWA_ROW_RTOL, max_row_rel_err=errs,
@@ -5781,6 +5847,330 @@ def _train_phases(torch, np, dev):
         timed="forward + backward: K7 and the plain chunked backward "
               "(models/layers/attention.SwaAttention)",
         shape=grad["shape"])]
+
+
+# -- sharded training and the dry-run ----------------------------------------
+
+# sharded_train: h2o-danube-1.8b at full width, cut to 2 of its 24 layers,
+# on the (data 2, model 2) layout; B 4 x 2,048, two steps at a constant lr.
+SHARDED_LAYOUT, SHARDED_LAYERS, SHARDED_BATCH, SHARDED_SEQ = (2, 2), 2, 4, \
+    2048
+SHARDED_STEPS, SHARDED_LR = 2, 3e-4
+# tests/train_parity.py's LOSS_RTOL, GNORM_RTOL, GRAD_TOL and FLIP_FRACTION.
+SHARDED_LOSS_RTOL, SHARDED_GNORM_RTOL, SHARDED_GRAD_TOL = 1e-3, 1e-2, 5e-2
+SHARDED_FLIP_FRACTION = 0.05
+DRYRUN_COMBOS = (("h2o_danube_1p8b", "prefill_32k"),
+                 ("h2o_danube_1p8b", "train_4k"),
+                 ("olmoe_1b_7b", "decode_32k"))
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.json"
+DRYRUN_PEAK_RTOL = 0.15
+DRYRUN_CODE = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun
+out = []
+for arch, shape in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    r = dryrun.lower_combo(arch, shape)
+    r["seconds"] = time.perf_counter() - t0
+    out.append(r)
+t0 = time.perf_counter()
+r = dryrun.lower_recsys(algorithm="disgd")
+r["seconds"] = time.perf_counter() - t0
+out.append(r)
+with open(sys.argv[3], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _start_dryrun():
+    """Phase 24's subprocess (the host only, one thread, at a lower
+    priority than the script's), stopped at exit if it is still
+    running."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    log = open(DRYRUN_OUT.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, str(SRC),
+         json.dumps(DRYRUN_COMBOS), str(DRYRUN_OUT)],
+        stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+        preexec_fn=lambda: os.nice(10))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+    atexit.register(stop)
+    return proc
+
+
+def _sharded_train_rank(info, cfg, batches, layout):
+    """Phase 23 on one rank: its blocks, two steps, its records."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import ctx, fsdp
+
+    mesh = ctx.bind_mesh(make_cpu_mesh(*layout))
+    dev = torch.device(info.device)
+    t0 = time.perf_counter()
+    model = fsdp.shard_model(cfg, mesh, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    opt = adamw_init(model)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    init_s = time.perf_counter() - t0
+    out = {"resident_bytes": fsdp.resident_bytes(model, opt),
+           "spec_bytes": fsdp.shard_bytes(cfg, mesh), "init_s": init_s}
+    ctx.reset_records()
+    ops.reset_launch_counts()
+    metrics, step_s = [], []
+    for step, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        model, opt, met = fsdp.train_step(model, opt, batch, step, cfg,
+                                          peak_lr=SHARDED_LR)
+        metrics.append({k: float(v) for k, v in met.items()})
+        step_s.append(time.perf_counter() - t0)
+    out.update(metrics=metrics, step_s=step_s,
+               records=[tuple(r) for r in ctx.records()],
+               launches=ops.launch_counts()["swa_attention"],
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+               else None)
+    tree = fsdp.gathered_state(model)["params"]
+    if info.rank == 0:
+        out["params"] = tree
+    return out
+
+
+def _sharding_phases(torch, np, dev, dryrun_proc):
+    """Phases 23-25: sharded training on four ranks against one, the
+    dry-run's reports, and its program run for real on the card. The
+    dry-run's subprocess is waited for first, so that phase 23's ranks
+    have the host to themselves."""
+    waited = _dryrun_wait(dryrun_proc)
+    _sharded_train(torch, np, dev)
+    reports = _dryrun_reports(waited)
+    _dryrun_card(torch, reports)
+
+
+def _sharded_train(torch, np, dev):
+    """Phase 23."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import convert
+    from repro_torch.data.tokens import TokenPipeline, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.factory import build
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=SHARDED_LAYERS)
+    pipe = TokenPipeline(cfg.vocab, seed=0)
+    batches = [make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, seed=step,
+                          pipeline=pipe) for step in range(SHARDED_STEPS)]
+    n_ranks = math.prod(SHARDED_LAYOUT)
+    t0 = time.perf_counter()
+    run = mesh_lib.run_on_ranks(_sharded_train_rank, n_ranks, DEVICE, cfg,
+                                batches, SHARDED_LAYOUT, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    ranks = run.results
+    # The same two steps on one rank, from the same draws.
+    bundle = build(cfg, device=DEVICE)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(params)
+    ops.reset_launch_counts()
+    one = []
+    for step, batch in enumerate(batches):
+        params, opt, met = bundle.train_step(params, opt, batch, step,
+                                             peak_lr=SHARDED_LR)
+        one.append({k: float(v) for k, v in met.items()})
+    one_launches = ops.launch_counts()["swa_attention"]
+    final = convert.params_to_numpy(params)
+    del params, opt
+    torch.cuda.empty_cache()
+    # The dry-run's prediction of each rank's collectives.
+    with dryrun._fake():
+        pred = dryrun.run_step(
+            cfg, InputShape("sharded_train", SHARDED_SEQ, SHARDED_BATCH,
+                            "train"), mesh_lib.make_cpu_mesh(*SHARDED_LAYOUT),
+            count=False)["records"]
+    pred = [tuple(r) for r in pred] * SHARDED_STEPS
+    want_launches = 2 * SHARDED_LAYERS * SHARDED_STEPS
+    if one_launches != want_launches:
+        fail(f"sharded_train: the one-rank run launched K7 {one_launches} "
+             f"times, expected {want_launches}")
+    worst = {}
+    for r, got in enumerate(ranks):
+        for step, (g, w) in enumerate(zip(got["metrics"], one)):
+            for key, rtol in (("loss", SHARDED_LOSS_RTOL),
+                              ("gnorm", SHARDED_GNORM_RTOL)):
+                if not math.isfinite(g[key]) or \
+                        abs(g[key] - w[key]) > rtol * abs(w[key]):
+                    fail(f"sharded_train: rank {r} step {step} {key} "
+                         f"{g[key]} against one rank's {w[key]}")
+        if got["resident_bytes"] != 3 * got["spec_bytes"]:
+            fail(f"sharded_train: rank {r} holds {got['resident_bytes']} "
+                 f"bytes of parameters, m and v, its spec blocks "
+                 f"{got['spec_bytes']} x 3")
+        if got["launches"] != want_launches:
+            fail(f"sharded_train: rank {r} launched K7 {got['launches']} "
+                 f"times, expected {want_launches}")
+        if got["records"] != pred:
+            fail(f"sharded_train: rank {r}'s {len(got['records'])} "
+                 f"collectives differ from the dry-run's {len(pred)}")
+    # Each parameter: relative L2 within GRAD_TOL of one rank's; each
+    # element within 2.05 x lr a step (Adam moves it by about lr), and at
+    # most FLIP_FRACTION of a leaf's elements more than 0.1 x lr apart
+    # (an element whose gradient is rounding noise may step the other
+    # way: tests/train_parity.py's rules).
+    for (key, g), (_, w) in zip(_tree_leaves(ranks[0]["params"]),
+                                _tree_leaves(final)):
+        d = np.abs(g - w)
+        err = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+        flips = float((d > 0.1 * SHARDED_LR).mean())
+        worst[key] = (err, flips)
+        if not (err <= SHARDED_GRAD_TOL and flips <= SHARDED_FLIP_FRACTION
+                and d.max() <= 2.05 * SHARDED_LR * SHARDED_STEPS):
+            fail(f"sharded_train: {key} {err} relative L2 from one rank's, "
+                 f"{flips} of its elements 0.1 lr apart, max "
+                 f"{d.max() / SHARDED_LR} lr")
+    del final
+    kinds = {}
+    for kind, nbytes, group in ranks[0]["records"]:
+        k = kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += 1
+        k["bytes"] += nbytes
+    emit("sharded_train", arch=cfg.name, layers=cfg.n_layers,
+         cut=f"{SHARDED_LAYERS} of 24 layers", d_model=cfg.d_model,
+         layout=dict(zip(("data", "model"), SHARDED_LAYOUT)),
+         backend=run.backend, ranks_per_card=run.ranks_per_card,
+         batch=SHARDED_BATCH, seq=SHARDED_SEQ, steps=SHARDED_STEPS,
+         lr=SHARDED_LR, losses=[m["loss"] for m in ranks[0]["metrics"]],
+         one_rank_losses=[m["loss"] for m in one],
+         gnorms=[m["gnorm"] for m in ranks[0]["metrics"]],
+         one_rank_gnorms=[m["gnorm"] for m in one],
+         worst_param_rel_l2=max(e for e, _ in worst.values()),
+         worst_flip_fraction=max(f for _, f in worst.values()),
+         resident_bytes=[r["resident_bytes"] for r in ranks],
+         spec_bytes=[r["spec_bytes"] for r in ranks],
+         peak_bytes=[r["peak_bytes"] for r in ranks],
+         init_s=[r["init_s"] for r in ranks],
+         step_s=[r["step_s"] for r in ranks], launches_per_rank=[
+             r["launches"] for r in ranks], collectives=kinds,
+         records_match_dryrun=True, ranks_s=ranks_s,
+         seconds=time.perf_counter() - t_phase)
+
+
+def _dryrun_wait(dryrun_proc) -> float:
+    """Phase 24's subprocess to its end; the seconds waited."""
+    t_wait = time.perf_counter()
+    try:
+        code = dryrun_proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("dryrun: the subprocess did not finish in 900 s")
+    if code != 0 or not DRYRUN_OUT.is_file():
+        log = DRYRUN_OUT.with_suffix(".log").read_text()[-3000:]
+        fail(f"dryrun: the subprocess exited {code}: {log}")
+    return time.perf_counter() - t_wait
+
+
+def _dryrun_reports(waited: float) -> list:
+    """Phase 24: the subprocess's reports."""
+    reports = json.loads(DRYRUN_OUT.read_text())
+    for r in reports:
+        if r.get("plan") != "run" or "roofline" not in r:
+            fail(f"dryrun: {r.get('arch')} {r.get('shape')}: {r}")
+        emit("dryrun", arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+             seconds=r["seconds"], microbatches=r.get("microbatches"),
+             trace_device=r.get("trace_device"),
+             analysis_mode=r.get("analysis_mode"), memory=r["memory"],
+             roofline=r["roofline"], collectives=r["collectives"])
+    emit("dryrun_total", combos=len(reports),
+         reports_s=sum(r["seconds"] for r in reports), waited_s=waited)
+    return reports
+
+
+def _dryrun_card(torch, reports):
+    """Phase 25."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    report = reports[0]
+    if (report["arch"], report["shape"]) != DRYRUN_COMBOS[0]:
+        fail(f"dryrun_card: first report is {report['arch']} "
+             f"{report['shape']}")
+    cfg = get_config(report["arch"])
+    shape = SHAPES[report["shape"]]
+    mesh = mesh_lib.make_production_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    got = dryrun.run_step(cfg, shape, mesh, device=DEVICE)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = ops.launch_counts()["swa_attention"]
+    del got
+    want_peak = report["memory"]["peak_bytes"]
+    # The step again without counters, timed.
+    step, _ = dryrun.make_step(cfg, shape, mesh, device=DEVICE)
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with FlopCounterMode(display=False) as counter:
+        step()
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    del step
+    torch.cuda.empty_cache()
+    roof = report["roofline"]
+    if flops != roof["flops"]:
+        fail(f"dryrun_card: FlopCounterMode counted {flops} FLOPs on the "
+             f"card, the report {roof['flops']}")
+    if launches != cfg.n_layers:
+        fail(f"dryrun_card: K7 launched {launches} times, expected "
+             f"{cfg.n_layers}")
+    if abs(peak - want_peak) > DRYRUN_PEAK_RTOL * want_peak:
+        fail(f"dryrun_card: max_memory_allocated {peak} against the "
+             f"report's peak_bytes {want_peak}")
+    bound_ms = 1e3 * max(roof["compute_s"], roof["memory_s"])
+    emit("dryrun_card", arch=report["arch"], shape=report["shape"],
+         mesh=report["mesh"], rank=0, flops=flops, report_flops=roof["flops"],
+         max_memory_allocated=peak, report_peak_bytes=want_peak,
+         peak_rel_err=(peak - want_peak) / want_peak,
+         swa_launches=launches, wall_ms=statistics.median(walls),
+         walls_ms=walls, roofline_bound_ms=bound_ms,
+         compute_ms=1e3 * roof["compute_s"], memory_ms=1e3 * roof["memory_s"],
+         seconds=time.perf_counter() - t_phase)
+
+
+def _tree_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict in sorted-key order."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", value
 
 
 if __name__ == "__main__":

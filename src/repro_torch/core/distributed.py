@@ -58,7 +58,10 @@ last ``reset_collective_stats()``, the bytes they wrote on this rank and
 their milliseconds (CUDA events on a card, read when asked; the host
 clock on the CPU, where gloo's collectives return when they are
 done). Each group has its own counter: the trainer's thread and the
-reader's never share one.
+reader's never share one. On a mesh that is a layout only (no process
+group, as the dry-run's production mesh) an all-reduce is not run:
+``layout_collectives(group)`` lists it, as ``(kind, result bytes, group
+size)``.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ __all__ = [
     "serve_agree",
     "collective_stats",
     "reset_collective_stats",
+    "layout_collectives",
     "RankStream",
     "stream_on_rank",
 ]
@@ -102,12 +106,13 @@ GROUPS = ("train", "serve")
 
 
 def _zero() -> dict:
-    return {"calls": 0, "bytes": 0, "host_ms": 0.0, "events": []}
+    return {"calls": 0, "bytes": 0, "host_ms": 0.0, "events": [],
+            "layout": []}
 
 
 # A group's collectives since the last reset: their count, the bytes they
 # wrote on this rank, host milliseconds (CPU) and (start, end) CUDA event
-# pairs (card).
+# pairs (card); and those a layout's mesh issued without running them.
 _stats = {name: _zero() for name in GROUPS}
 
 
@@ -123,6 +128,12 @@ def collective_stats(group: str = "train") -> dict:
         b.synchronize()
         ms += a.elapsed_time(b)
     return {"calls": st["calls"], "bytes": st["bytes"], "ms": ms}
+
+
+def layout_collectives(group: str = "train") -> list:
+    """``(kind, result bytes, group size)`` of each collective that
+    ``group`` issued on a layout's mesh since the last reset."""
+    return list(_stats[group]["layout"])
 
 
 def reset_collective_stats() -> None:
@@ -259,7 +270,10 @@ def _all_reduce(mesh, buf: torch.Tensor, group: str = "train",
     import torch.distributed as dist
 
     pg = _group(mesh, group)
-    if pg is None:      # a world of one process
+    if pg is None:      # a world of one process, or a layout (the dry-run)
+        if mesh.size > 1:
+            _stats[group]["layout"].append(
+                ("all-reduce", buf.numel() * buf.element_size(), mesh.size))
         return
     op = dist.ReduceOp.SUM if op is None else op
     _timed(buf, lambda: dist.all_reduce(buf, op=op, group=pg), group=group)

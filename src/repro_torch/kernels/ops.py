@@ -11,20 +11,30 @@ non-zero ``cudaError_t``, and adds one to its launch count
 
 ``topn_select`` / ``topn_merge`` are plain torch (the candidate set of a
 merge is ``n_i * top_n``, too small for a kernel).
+
+``swa_attention`` (K7) is bound as the custom operator
+``torch.ops.repro_torch.swa_attention``: its fake implementation gives
+the output's shape (a trace under ``FakeTensorMode``, as the dry-run's,
+never builds or launches the kernel) and its FLOP formula
+(``torch.utils.flop_counter``) counts the pairs the window and the
+causal mask keep times ``4 * D`` a head (``swa_pairs``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ref import topn_select
 
 __all__ = ["masked_scores", "isgd_update", "factor_update", "fused_topn",
            "dics_update", "dics_topn", "swa_attention", "topn_select",
-           "topn_merge", "launch_counts", "reset_launch_counts", "MAX_K",
+           "topn_merge", "launch_counts", "reset_launch_counts", "swa_pairs",
+           "MAX_K",
            "MAX_TOP_N", "MAX_K_NN", "SWA_HEAD_DIMS"]
 
 MAX_K = 32       # factor width the kernels hold in a warp / a smem row
@@ -348,6 +358,13 @@ def swa_attention(q, k, v, *, window: int | None = None, causal: bool = True):
     ``ref.swa_tile_classes``; f32 on FMA units); plain version
     ``ref.swa_attention``.
     """
+    return torch.ops.repro_torch.swa_attention(q, k, v, window, causal)
+
+
+@torch.library.custom_op("repro_torch::swa_attention", mutates_args=())
+def _swa_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: Optional[int], causal: bool) -> torch.Tensor:
+    """K7 on CUDA tensors, ``ref.swa_attention`` on CPU tensors."""
     if _on_cpu(q, k, v):
         return ref.swa_attention(q, k, v, window=window, causal=causal)
     b, hq, s, d = q.shape
@@ -378,6 +395,29 @@ def swa_attention(q, k, v, *, window: int | None = None, causal: bool = True):
             -1 if window is None else int(window), int(causal),
             _SWA_TYPES[q.dtype])
     return out
+
+
+@_swa_attention_op.register_fake
+def _(q, k, v, window, causal):
+    return torch.empty_like(q)
+
+
+def swa_pairs(s: int, window: int | None, causal: bool) -> int:
+    """(query, key) pairs one head of K7 computes: key ``j`` of query
+    ``i`` when ``j <= i`` (causal) and ``i - j < window``."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2 if causal else s * s
+    if causal:
+        return window * (window + 1) // 2 + (s - window) * window
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+@register_flop_formula(torch.ops.repro_torch.swa_attention)
+def _swa_flops(q_shape, k_shape, v_shape, window, causal, *args,
+               out_shape=None, **kwargs) -> int:
+    """Q.K^T and P.V over the kept pairs: 4 * D FLOPs a pair a head."""
+    b, hq, s, d = q_shape
+    return b * hq * swa_pairs(s, window, causal) * 4 * d
 
 
 def topn_merge(ids, scores, top_n: int):

@@ -6,12 +6,15 @@ CE, VLM text-region CE, audio masked prediction, ``:94``),
 ``train_step`` (gradient-accumulation microbatches + AdamW, ``:123``),
 ``prefill`` (full-sequence forward -> last-position logits + decode
 caches, ``:158``), ``decode`` (one token -> greedy next token + caches,
-``:211``) and ``cache_len``. Every step takes the batch dict of its
-family (``_embed_inputs``, ``:51``): ``tokens``; a VLM's ``tokens`` and
-``patches``; an audio model's ``frames``, ``mask`` and, to train,
-``targets`` (an encoder's prefill caches are never decoded). The decode
-caches are stacked over layers (``k``/``v`` [L, B, Hkv, C, Dh] bf16,
-``pos`` [L, B, C], ``length`` [L, B]), the JAX package's layout (which
+``:211``), ``cache_len``, and for the dry-run and the sharding rules
+``input_specs`` / ``input_axes`` (``:225-259``: one batch of an
+``InputShape`` as ``(shape, torch dtype)`` pairs and its logical axes)
+and ``cache_decls`` (the decode cache's declarations). Every step takes
+the batch dict of its family (``_embed_inputs``, ``:51``): ``tokens``; a
+VLM's ``tokens`` and ``patches``; an audio model's ``frames``, ``mask``
+and, to train, ``targets`` (an encoder's prefill caches are never
+decoded). The decode caches are stacked over layers (``k``/``v`` [L, B,
+Hkv, C, Dh] bf16, ``pos`` [L, B, C], ``length`` [L, B]), the JAX package's layout (which
 keeps a ``first_dense`` model's layer 0 apart): a ``KVCache``, hymba's
 ``HybridCache`` (the ``KVCache`` and its layers' mamba states) or
 xLSTM's ``XlstmCache`` (its states, which are its caches); ``decode``
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import InputShape
 from repro_torch.models import module as mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers.attention import KVCache
@@ -57,6 +61,9 @@ class ModelBundle:
     prefill: Callable         # (params, batch) -> (logits_last, caches)
     decode: Callable          # (params, caches, tokens) -> (next, caches)
     cache_len: Callable       # context_len -> decode cache slots
+    input_specs: Callable     # (shape) -> {name: (shape, torch dtype)}
+    input_axes: Callable      # (shape) -> {name: logical-axes tuple}
+    cache_decls: Callable     # (batch, context_len, seq_shard) -> decls
 
 
 def _device(device) -> torch.device:
@@ -79,7 +86,7 @@ def _embed_inputs(params, batch, cfg):
     ``mask_embed`` where masked; a VLM's patches through the projector
     (GeLU, tanh form as ``jax.nn.gelu``'s default), placed before the
     token embeddings, positions over both; else the tokens."""
-    device = params.embed.device
+    device = params.head.device
 
     def get(name):
         return torch.as_tensor(batch[name], device=device)
@@ -101,10 +108,9 @@ def _embed_inputs(params, batch, cfg):
     return x, torch.arange(x.shape[1], device=device)
 
 
-def _ce(logits, targets, mask, vocab: int):
-    """Masked CE over a padded-vocab logit tensor, in f32
-    (``factory.py:82``): the pad columns at -1e30, the mean over the
-    mask's positions."""
+def _nll(logits, targets, mask, vocab: int):
+    """(sum of the masked CE, the mask's count), f32, over a padded-vocab
+    logit tensor (``factory.py:82``): the pad columns at -1e30."""
     logits = logits.float()
     if logits.shape[-1] > vocab:
         logits = logits.index_fill(-1, torch.arange(
@@ -112,11 +118,14 @@ def _ce(logits, targets, mask, vocab: int):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.sum(), mask.sum()
 
 
-def _loss(params, batch, cfg):
-    """``factory.py:94``: (total = ce + 0.01 * aux, {"ce", "aux"})."""
+def _loss(params, batch, cfg, *, total=None):
+    """``factory.py:94``: (total = ce + 0.01 * aux, {"ce", "aux"}), ce the
+    mean over the mask's positions. ``total`` (a sharded step's): the
+    count of the whole batch from this rank's (its sum over the ranks),
+    so that the rank's ce is its share of the whole batch's mean."""
     x, positions = _embed_inputs(params, batch, cfg)
     h, _, aux = tfm.forward_full(params, x, positions, cfg)
     logits = tfm.logits_from_hidden(params, h, cfg)
@@ -125,13 +134,16 @@ def _loss(params, batch, cfg):
     if cfg.audio_frontend:
         mask = torch.as_tensor(batch["mask"], device=device).float()
         targets = torch.as_tensor(batch["targets"], device=device)
-        loss = _ce(logits, targets, mask, cfg.vocab)
+        nll, count = _nll(logits, targets, mask, cfg.vocab)
     else:
         toks = torch.as_tensor(batch["tokens"], device=device)
         # A VLM's text region follows its patches.
         text = logits[:, cfg.vlm_patches:-1]
-        loss = _ce(text, toks[:, 1:], torch.ones(
+        nll, count = _nll(text, toks[:, 1:], torch.ones(
             toks[:, 1:].shape, dtype=torch.float32, device=device), cfg.vocab)
+    if total is not None:
+        count = total(count.detach())
+    loss = nll / torch.clamp(count, min=1.0)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -255,6 +267,30 @@ def _decode(params, caches, tokens, cfg):
     return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
 
+def _input_arrays(cfg, shape: InputShape):
+    """(specs, axes) for one global batch of ``shape``
+    (``factory.py:225``): ``{name: (shape, torch dtype)}`` and ``{name:
+    logical axes}``."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return ({"tokens": ((b, 1), torch.int32)},
+                {"tokens": ("batch", "seq")})
+    if cfg.audio_frontend:
+        return ({"frames": ((b, s, cfg.d_frame), torch.float32),
+                 "mask": ((b, s), torch.bool),
+                 "targets": ((b, s), torch.int32)},
+                {"frames": ("batch", "seq", None),
+                 "mask": ("batch", "seq"),
+                 "targets": ("batch", "seq")})
+    if cfg.vlm_patches:
+        return ({"tokens": ((b, s - cfg.vlm_patches), torch.int32),
+                 "patches": ((b, cfg.vlm_patches, cfg.vlm_d_vision),
+                             torch.float32)},
+                {"tokens": ("batch", "seq"),
+                 "patches": ("batch", "seq", None)})
+    return {"tokens": ((b, s), torch.int32)}, {"tokens": ("batch", "seq")}
+
+
 def build(cfg: ArchConfig, device="cuda") -> ModelBundle:
     decls = tfm.model_decl(cfg)   # raises for an unknown family
     device = _device(device)
@@ -268,4 +304,7 @@ def build(cfg: ArchConfig, device="cuda") -> ModelBundle:
         prefill=partial(_prefill, cfg=cfg),
         decode=partial(_decode, cfg=cfg),
         cache_len=partial(tfm._attn_cache_len, cfg),
+        input_specs=lambda shape: _input_arrays(cfg, shape)[0],
+        input_axes=lambda shape: _input_arrays(cfg, shape)[1],
+        cache_decls=partial(tfm.cache_decls, cfg),
     )

@@ -29,7 +29,7 @@ from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.module import ParamDecl
 
 __all__ = ["attn_decl", "attention", "decode_attention", "KVCache",
-           "init_cache", "SwaAttention", "q_chunk"]
+           "init_cache", "cache_decl", "SwaAttention", "q_chunk"]
 
 NEG_INF = -1e30
 
@@ -37,10 +37,10 @@ NEG_INF = -1e30
 def attn_decl(cfg) -> dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": ParamDecl((d, h, dh)),
-        "wk": ParamDecl((d, kv, dh)),
-        "wv": ParamDecl((d, kv, dh)),
-        "wo": ParamDecl((h, dh, d)),
+        "wq": ParamDecl((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamDecl((d, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDecl((d, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDecl((h, dh, d), ("heads", "head_dim", "embed")),
     }
 
 
@@ -49,6 +49,27 @@ class KVCache(NamedTuple):
     v: torch.Tensor        # [..., B, Hkv, C, Dh]
     pos: torch.Tensor      # [..., B, C] i32 absolute position per slot, -1 empty
     length: torch.Tensor   # [..., B] i32 next absolute position
+
+
+def cache_decl(cfg, batch: int, cache_len: int, *, seq_shard: bool,
+               dtype="bfloat16") -> dict:
+    """One layer's cache declarations with their logical axes
+    (``attention.py:52``); ``seq_shard`` puts the slots on
+    ``"cache_seq"`` (sharded over ``model`` when the KV heads cannot be)."""
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    seq_axis = "cache_seq" if seq_shard else "seq"
+    return {
+        "k": ParamDecl((batch, kv, cache_len, dh),
+                       ("batch", "kv_heads", seq_axis, "head_dim"),
+                       init="zeros", dtype=dtype),
+        "v": ParamDecl((batch, kv, cache_len, dh),
+                       ("batch", "kv_heads", seq_axis, "head_dim"),
+                       init="zeros", dtype=dtype),
+        "pos": ParamDecl((batch, cache_len), ("batch", seq_axis),
+                         init="zeros", dtype="int32"),
+        "length": ParamDecl((batch,), ("batch",), init="zeros",
+                            dtype="int32"),
+    }
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> KVCache:

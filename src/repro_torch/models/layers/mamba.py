@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.models.module import ParamDecl
 
 __all__ = ["mamba_decl", "mamba_scan", "mamba_decode_step", "MambaState",
-           "init_mamba_state"]
+           "init_mamba_state", "mamba_state_decl"]
 
 
 class MambaState(NamedTuple):
@@ -45,15 +45,27 @@ def mamba_decl(cfg) -> dict:
     d = cfg.d_model
     d_inner, dt_rank, n, cw = _dims(cfg)
     return {
-        "w_in": ParamDecl((d, 2 * d_inner)),
-        "conv_w": ParamDecl((cw, d_inner), scale=0.5),
-        "conv_b": ParamDecl((d_inner,), init="zeros"),
-        "w_x": ParamDecl((d_inner, dt_rank + 2 * n)),
-        "w_dt": ParamDecl((dt_rank, d_inner)),
-        "b_dt": ParamDecl((d_inner,), init="zeros"),
-        "log_a": ParamDecl((d_inner, n), init="normal", scale=0.5),
-        "d_skip": ParamDecl((d_inner,), init="ones"),
-        "w_out": ParamDecl((d_inner, d)),
+        "w_in": ParamDecl((d, 2 * d_inner), ("embed", "inner")),
+        "conv_w": ParamDecl((cw, d_inner), ("conv", "inner"), scale=0.5),
+        "conv_b": ParamDecl((d_inner,), ("inner",), init="zeros"),
+        "w_x": ParamDecl((d_inner, dt_rank + 2 * n), ("inner", None)),
+        "w_dt": ParamDecl((dt_rank, d_inner), (None, "inner")),
+        "b_dt": ParamDecl((d_inner,), ("inner",), init="zeros"),
+        "log_a": ParamDecl((d_inner, n), ("inner", "state"), init="normal",
+                           scale=0.5),
+        "d_skip": ParamDecl((d_inner,), ("inner",), init="ones"),
+        "w_out": ParamDecl((d_inner, d), ("inner", "embed")),
+    }
+
+
+def mamba_state_decl(cfg, batch: int, dtype="float32") -> dict:
+    """A layer's decode-state declarations (``mamba.py:56``)."""
+    d_inner, _, n, cw = _dims(cfg)
+    return {
+        "ssm": ParamDecl((batch, d_inner, n), ("batch", "inner", "state"),
+                         init="zeros", dtype=dtype),
+        "conv": ParamDecl((batch, cw - 1, d_inner), ("batch", None, "inner"),
+                          init="zeros", dtype=dtype),
     }
 
 

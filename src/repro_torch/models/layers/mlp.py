@@ -12,9 +12,9 @@ __all__ = ["swiglu_decl", "swiglu", "gelu_mlp_decl", "gelu_mlp"]
 
 def swiglu_decl(d: int, d_ff: int) -> dict:
     return {
-        "w_gate": ParamDecl((d, d_ff)),
-        "w_up": ParamDecl((d, d_ff)),
-        "w_down": ParamDecl((d_ff, d)),
+        "w_gate": ParamDecl((d, d_ff), ("embed", "ff")),
+        "w_up": ParamDecl((d, d_ff), ("embed", "ff")),
+        "w_down": ParamDecl((d_ff, d), ("ff", "embed")),
     }
 
 
@@ -27,10 +27,10 @@ def swiglu(params, x):
 
 def gelu_mlp_decl(d: int, d_ff: int) -> dict:
     return {
-        "w_in": ParamDecl((d, d_ff)),
-        "b_in": ParamDecl((d_ff,), init="zeros"),
-        "w_out": ParamDecl((d_ff, d)),
-        "b_out": ParamDecl((d,), init="zeros"),
+        "w_in": ParamDecl((d, d_ff), ("embed", "ff")),
+        "b_in": ParamDecl((d_ff,), ("ff",), init="zeros"),
+        "w_out": ParamDecl((d_ff, d), ("ff", "embed")),
+        "b_out": ParamDecl((d,), ("embed",), init="zeros"),
     }
 
 

@@ -34,10 +34,14 @@ __all__ = ["moe_decl", "moe_apply", "route", "Routing", "group_shape"]
 def moe_decl(cfg) -> dict:
     d, e = cfg.d_model, cfg.moe
     decl = {
-        "router": ParamDecl((d, e.n_experts), scale=0.1),
-        "w_gate": ParamDecl((e.n_experts, d, e.d_expert)),
-        "w_up": ParamDecl((e.n_experts, d, e.d_expert)),
-        "w_down": ParamDecl((e.n_experts, e.d_expert, d)),
+        "router": ParamDecl((d, e.n_experts), ("embed", "experts"),
+                            scale=0.1),
+        "w_gate": ParamDecl((e.n_experts, d, e.d_expert),
+                            ("experts", "embed", None)),
+        "w_up": ParamDecl((e.n_experts, d, e.d_expert),
+                          ("experts", "embed", None)),
+        "w_down": ParamDecl((e.n_experts, e.d_expert, d),
+                            ("experts", None, "embed")),
     }
     if e.n_shared:
         decl["shared"] = swiglu_decl(d, e.n_shared * e.d_expert)
@@ -109,12 +113,39 @@ def _experts(params, xin, dtype):
     return torch.bmm(h, params["w_down"].to(dtype))
 
 
-def moe_apply(params, x, cfg):
-    """x [B, S, D] -> ([B, S, D] in x's type, aux loss f32 [])."""
+def moe_apply(params, x, cfg, batch=None):
+    """x [B, S, D] -> ([B, S, D] in x's type, aux loss f32 []).
+
+    ``batch`` (a ``sharding.ctx.BatchShard``: ``n`` blocks, this rank's
+    ``block``, ``gather_rows``) says that x is this rank's rows of a
+    batch split over ranks. Then the groups are those of the whole
+    batch: a group size from the whole token count, and the aux loss
+    this rank's share of the mean over every group (the shares sum to
+    the whole batch's aux). When the ranks' rows do not split into whole
+    groups, this rank routes the whole batch (``batch.gather_rows``) and
+    keeps its rows."""
+    if batch is None or batch.n == 1:
+        return _moe(params, x, cfg)
+    n, block = batch.n, batch.block
+    b, s, d = x.shape
+    g_all, gs, _ = group_shape(b * s * n, cfg.moe)
+    if (b * s) % gs:
+        y, aux = _moe(params, batch.gather_rows(x), cfg)
+        return y[block * b:(block + 1) * b], aux / n
+    y, aux = _moe(params, x, cfg, gs)
+    return y, aux * ((b * s // gs) / g_all)
+
+
+def _moe(params, x, cfg, gs=None):
+    """``moe_apply`` on groups of ``gs`` tokens (default: ``group_shape``
+    of x's tokens); aux the mean over x's groups."""
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
-    g, gs, _ = group_shape(t, e)
+    if gs is None:
+        g, gs, _ = group_shape(t, e)
+    else:
+        g = t // gs
     xt = x.reshape(g, gs, d)
     r = route(params, xt, e)
     cap, n_e, k = r.capacity, e.n_experts, e.top_k

@@ -10,7 +10,7 @@ __all__ = ["rmsnorm_decl", "rmsnorm", "layernorm_decl", "layernorm"]
 
 
 def rmsnorm_decl(d: int) -> dict:
-    return {"scale": ParamDecl((d,), init="ones")}
+    return {"scale": ParamDecl((d,), ("embed",), init="ones")}
 
 
 def rmsnorm(params, x, eps: float = 1e-5):
@@ -23,8 +23,8 @@ def rmsnorm(params, x, eps: float = 1e-5):
 
 
 def layernorm_decl(d: int) -> dict:
-    return {"scale": ParamDecl((d,), init="ones"),
-            "bias": ParamDecl((d,), init="zeros")}
+    return {"scale": ParamDecl((d,), ("embed",), init="ones"),
+            "bias": ParamDecl((d,), ("embed",), init="zeros")}
 
 
 def layernorm(params, x, eps: float = 1e-5):

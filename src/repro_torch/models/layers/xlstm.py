@@ -33,7 +33,8 @@ from repro_torch.models.module import ParamDecl
 __all__ = [
     "mlstm_decl", "mlstm_apply", "mlstm_decode", "MlstmState",
     "slstm_decl", "slstm_apply", "slstm_decode", "SlstmState",
-    "init_mlstm_state", "init_slstm_state",
+    "init_mlstm_state", "init_slstm_state", "mlstm_state_decl",
+    "slstm_state_decl",
 ]
 
 GATES = ("i", "f", "z", "o")
@@ -62,14 +63,25 @@ def mlstm_decl(cfg) -> dict:
     d = cfg.d_model
     d_inner, h, _ = _mlstm_dims(cfg)
     return {
-        "w_up": ParamDecl((d, 2 * d_inner)),
-        "w_q": ParamDecl((d_inner, d_inner)),
-        "w_k": ParamDecl((d_inner, d_inner)),
-        "w_v": ParamDecl((d_inner, d_inner)),
-        "w_i": ParamDecl((d_inner, h), scale=0.1),
-        "w_f": ParamDecl((d_inner, h), scale=0.1),
-        "b_f": ParamDecl((h,), init="ones", scale=2.0),
-        "w_down": ParamDecl((d_inner, d)),
+        "w_up": ParamDecl((d, 2 * d_inner), ("embed", "inner")),
+        "w_q": ParamDecl((d_inner, d_inner), ("inner", None)),
+        "w_k": ParamDecl((d_inner, d_inner), ("inner", None)),
+        "w_v": ParamDecl((d_inner, d_inner), ("inner", None)),
+        "w_i": ParamDecl((d_inner, h), ("inner", "heads"), scale=0.1),
+        "w_f": ParamDecl((d_inner, h), ("inner", "heads"), scale=0.1),
+        "b_f": ParamDecl((h,), ("heads",), init="ones", scale=2.0),
+        "w_down": ParamDecl((d_inner, d), ("inner", "embed")),
+    }
+
+
+def mlstm_state_decl(cfg, batch: int) -> dict:
+    """An mLSTM block's state declarations (``xlstm.py:72``)."""
+    _, h, dh = _mlstm_dims(cfg)
+    return {
+        "c": ParamDecl((batch, h, dh, dh), ("batch", "heads", None, None),
+                       init="zeros"),
+        "n": ParamDecl((batch, h, dh), ("batch", "heads", None),
+                       init="zeros"),
     }
 
 
@@ -176,11 +188,18 @@ def slstm_decl(cfg) -> dict:
     d = cfg.d_model
     decl = {}
     for gate in GATES:
-        decl[f"w_{gate}"] = ParamDecl((d, d))
-        decl[f"r_{gate}"] = ParamDecl((d, d), scale=0.5)
-        decl[f"b_{gate}"] = ParamDecl((d,), init="zeros")
-    decl["w_out"] = ParamDecl((d, d))
+        decl[f"w_{gate}"] = ParamDecl((d, d), ("embed", "inner"))
+        decl[f"r_{gate}"] = ParamDecl((d, d), (None, "inner"), scale=0.5)
+        decl[f"b_{gate}"] = ParamDecl((d,), ("inner",), init="zeros")
+    decl["w_out"] = ParamDecl((d, d), ("inner", "embed"))
     return decl
+
+
+def slstm_state_decl(cfg, batch: int) -> dict:
+    """An sLSTM block's state declarations (``xlstm.py:209``)."""
+    d = cfg.d_model
+    return {k: ParamDecl((batch, d), ("batch", None), init="zeros")
+            for k in ("c", "n", "h")}
 
 
 def init_slstm_state(cfg, batch: int, device=None) -> SlstmState:

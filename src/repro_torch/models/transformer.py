@@ -49,7 +49,7 @@ from repro_torch.models.module import ParamDecl
 
 __all__ = ["model_decl", "Transformer", "embed_tokens", "logits_from_hidden",
            "forward_full", "decode_step", "check_family", "HybridCache",
-           "XlstmCache"]
+           "XlstmCache", "cache_decls"]
 
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
@@ -97,8 +97,9 @@ def _block_decl(cfg, dense_ff: int | None = None) -> dict:
         d["mlp"] = swiglu_decl(cfg.d_model, dense_ff or cfg.d_ff)
     if cfg.family == "hybrid":
         d["mamba"] = mamba_lib.mamba_decl(cfg)
-        d["beta_attn"] = ParamDecl((cfg.d_model,), init="ones")
-        d["beta_mamba"] = ParamDecl((cfg.d_model,), init="ones")
+        d["beta_attn"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
+        d["beta_mamba"] = ParamDecl((cfg.d_model,), ("embed",),
+                                     init="ones")
     return d
 
 
@@ -106,7 +107,7 @@ def _xlstm_group_decl(cfg) -> dict:
     p = cfg.xlstm.slstm_period
     one_m = {"ln": rmsnorm_decl(cfg.d_model), "cell": xlstm_lib.mlstm_decl(cfg)}
     one_s = {"ln": rmsnorm_decl(cfg.d_model), "cell": xlstm_lib.slstm_decl(cfg)}
-    return {"mlstm": mod.stacked(one_m, p - 1), "slstm": one_s}
+    return {"mlstm": mod.stacked(one_m, p - 1, "layers"), "slstm": one_s}
 
 
 def model_decl(cfg) -> dict:
@@ -116,9 +117,9 @@ def model_decl(cfg) -> dict:
     check_family(cfg)
     v, d = cfg.padded_vocab, cfg.d_model
     decl = {
-        "embed": ParamDecl((v, d), scale=1.0),
+        "embed": ParamDecl((v, d), ("vocab", "embed"), scale=1.0),
         "final_norm": _norm_decl(cfg),
-        "head": ParamDecl((d, v)),
+        "head": ParamDecl((d, v), ("embed", "vocab")),
     }
     if cfg.family == "ssm":
         p = cfg.xlstm.slstm_period
@@ -126,19 +127,21 @@ def model_decl(cfg) -> dict:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers in groups "
                              f"of {p}")
         decl["groups"] = mod.stacked(_xlstm_group_decl(cfg),
-                                     cfg.n_layers // p)
+                                     cfg.n_layers // p, "layers")
         return decl
     n_stacked = cfg.n_layers
     if cfg.moe is not None and cfg.moe.first_dense:
         decl["layer0"] = _block_decl(cfg, dense_ff=cfg.moe.d_expert * 4)
         n_stacked -= 1
-    decl["layers"] = mod.stacked(_block_decl(cfg), n_stacked)
+    decl["layers"] = mod.stacked(_block_decl(cfg), n_stacked, "layers")
     if cfg.vlm_patches:
-        decl["projector"] = {"w1": ParamDecl((cfg.vlm_d_vision, d)),
-                             "w2": ParamDecl((d, d))}
+        decl["projector"] = {
+            "w1": ParamDecl((cfg.vlm_d_vision, d), (None, "embed")),
+            "w2": ParamDecl((d, d), ("embed", None))}
     if cfg.audio_frontend:
-        decl["frame_proj"] = ParamDecl((cfg.d_frame, d))
-        decl["mask_embed"] = ParamDecl((d,), init="normal", scale=0.02)
+        decl["frame_proj"] = ParamDecl((cfg.d_frame, d), (None, "embed"))
+        decl["mask_embed"] = ParamDecl((d,), ("embed",), init="normal",
+                                       scale=0.02)
     return decl
 
 
@@ -227,7 +230,7 @@ def logits_from_hidden(params, x, cfg):
 def _ffn(lp, xn, cfg):
     """The block's feed-forward: (output, aux loss or None)."""
     if hasattr(lp, "moe"):
-        return moe_lib.moe_apply(lp.moe, xn, cfg)
+        return moe_lib.moe_apply(lp.moe, xn, cfg, getattr(lp, "batch", None))
     if cfg.family == "audio":
         return gelu_mlp(lp.mlp, xn), None
     return swiglu(lp.mlp, xn), None
@@ -239,9 +242,21 @@ def _mix(lp, attn_out, mamba_out, x):
                   + mamba_out * lp.beta_mamba.to(x.dtype))
 
 
+def _unit(tree):
+    """A block's (or an xLSTM group's) parameters as the compute reads
+    them. In a sharded model's view (``sharding.fsdp``) a unit is a
+    ``fsdp.Unit``, whose ``gather`` returns its parameters whole (and the
+    step's ``batch`` split, which an MoE block reads); it runs here,
+    inside the remat region, so that the backward's recompute gathers
+    again."""
+    gather = getattr(tree, "gather", None)
+    return tree if gather is None else gather()
+
+
 def _block_full(lp, x, positions, cfg):
     """One block over the full sequence. Returns (x, {"k", "v"} and, for
     hymba, "mamba", aux)."""
+    lp = _unit(lp)
     norm = _norm(cfg)
     xn = norm(lp.ln1, x, cfg.norm_eps)
     attn_out, (k, v) = attn_lib.attention(lp.attn, xn, positions, cfg)
@@ -258,6 +273,7 @@ def _block_full(lp, x, positions, cfg):
 def _xlstm_group_full(group, x, cfg):
     """One group over the full sequence (``transformer.py:178``). Returns
     (x, [MlstmState per mLSTM block], SlstmState)."""
+    group = _unit(group)
     states = []
     for blk in group.mlstm:
         y, st = xlstm_lib.mlstm_apply(blk.cell, rmsnorm(blk.ln, x,
@@ -338,6 +354,7 @@ def _block_decode(lp, x, cfg, cache: attn_lib.KVCache, mamba=None):
     """``transformer.py:236``: an MoE block routes the step's B tokens
     as one group, whose capacity drops none of them; hymba's block steps
     its mamba state (``mamba``, updated in place) beside the attention."""
+    lp = _unit(lp)
     norm = _norm(cfg)
     xn = norm(lp.ln1, x, cfg.norm_eps)
     attn_out = attn_lib.decode_attention(lp.attn, xn, cache, cfg)
@@ -354,6 +371,7 @@ def _block_decode(lp, x, cfg, cache: attn_lib.KVCache, mamba=None):
 def _xlstm_group_decode(group, x, cfg, mlstm, slstm):
     """``transformer.py:266``: one group's step; ``mlstm`` ([p - 1, ...]
     leaves) and ``slstm`` are updated in place."""
+    group = _unit(group)
     for j, blk in enumerate(group.mlstm):
         st = xlstm_lib.MlstmState(*(t[j] for t in mlstm))
         y, new = xlstm_lib.mlstm_decode(blk.cell, rmsnorm(blk.ln, x,
@@ -394,3 +412,30 @@ def _attn_cache_len(cfg, context_len: int) -> int:
     if cfg.window is not None:
         return min(cfg.window, context_len)
     return context_len
+
+
+def cache_decls(cfg, batch: int, context_len: int, *,
+                seq_shard: bool = False):
+    """The decode cache's declarations in JAX's tree
+    (``transformer.py:320``): xLSTM's group states stacked over groups
+    (mLSTM's also over the group's blocks); else ``(cache0, stacked)``,
+    ``cache0`` a ``first_dense`` model's layer 0 (or None) and
+    ``stacked`` the other layers' ``k``, ``v``, ``pos``, ``length`` (and
+    hymba's ``mamba``), stacked. The port's caches stack every layer in
+    one ``KVCache`` (``core.convert.caches_from_numpy`` maps one layout to
+    the other); each layer's leaves and axes are these."""
+    clen = _attn_cache_len(cfg, context_len)
+    if cfg.family == "ssm":
+        p = cfg.xlstm.slstm_period
+        group = {"mlstm": mod.stacked(xlstm_lib.mlstm_state_decl(cfg, batch),
+                                      p - 1, "layers"),
+                 "slstm": xlstm_lib.slstm_state_decl(cfg, batch)}
+        return mod.stacked(group, cfg.n_layers // p, "layers")
+    entry = attn_lib.cache_decl(cfg, batch, clen, seq_shard=seq_shard)
+    if cfg.family == "hybrid":
+        entry["mamba"] = mamba_lib.mamba_state_decl(cfg, batch)
+    n_stacked, cache0 = cfg.n_layers, None
+    if cfg.moe is not None and cfg.moe.first_dense:
+        cache0 = attn_lib.cache_decl(cfg, batch, clen, seq_shard=seq_shard)
+        n_stacked -= 1
+    return cache0, mod.stacked(entry, n_stacked, "layers")

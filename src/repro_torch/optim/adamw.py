@@ -57,11 +57,15 @@ def adamw_init(params) -> AdamWState:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float | None = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float | None = 1.0,
+                 gnorm=None):
     """One AdamW step (``adamw.py:29``), IN PLACE. ``lr``: a number or a
-    0-d CPU tensor (``cosine_schedule``'s), read on the host. Returns
-    (params, the new state, the gradients' global norm before the clip,
-    f32 [] on the device; 0 without a clip)."""
+    0-d CPU tensor (``cosine_schedule``'s), read on the host. ``gnorm``:
+    the gradients' global norm when the caller has it (a sharded step's
+    gradients are blocks of the whole model's: ``sharding.fsdp``); by
+    default the norm of ``grads``. Returns (params, the new state, the
+    gradients' global norm before the clip, f32 [] on the device; 0
+    without a clip)."""
     ps, gs = leaves(params), leaves(grads)
     m, v = list(state.m), list(state.v)
     if not len(ps) == len(gs) == len(m) == len(v):
@@ -72,7 +76,9 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
     gs = [g if g.dtype == torch.float32 else g.float() for g in gs]
 
     if grad_clip is not None:
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        if gnorm is None:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(gs)))
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         torch._foreach_mul_(gs, scale)

@@ -978,6 +978,21 @@ def test_swa_attention_rows_without_keys_give_zero_on_the_card(cuda_device,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16_window", "f32_non_causal"])
+def test_swa_attention_custom_op_passes_opcheck(cuda_device, case):
+    """K7 as ``torch.ops.repro_torch.swa_attention``: schema, fake
+    (the dry-run's trace), autograd registration and an AOT dispatch with
+    dynamic shapes agree with the kernel's launch."""
+    dtype, window, causal = ((torch.bfloat16, 100, True) if case ==
+                             "bf16_window" else (torch.float32, None, False))
+    q, k, v = (torch.tensor(x, device=cuda_device).to(dtype) for x in
+               _swa_inputs(np.random.default_rng(59), 2, 4, 2, 257, 80))
+    result = torch.library.opcheck(torch.ops.repro_torch.swa_attention.default,
+                                   (q, k, v, window, causal))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.gpu
 def test_swa_attention_refuses_what_it_was_not_built_for(cuda_device):
     def qkv(d, dtype=torch.bfloat16, hkv=2):
         return (torch.zeros(1, 4, 8, d, dtype=dtype, device=cuda_device),

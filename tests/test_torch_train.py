@@ -195,11 +195,6 @@ def test_jax_restore_reads_the_port_checkpoint(launch):
         assert w.shape == g.shape and g.dtype == np.float32
 
 
-def test_train_refuses_sharding():
-    with pytest.raises(NotImplementedError, match="16.5"):
-        train.main(LAUNCH_ARGV + ["--device", "cpu", "--model-shards", "2"])
-
-
 def test_train_lm_example_runs_on_the_cpu():
     losses = train_lm.main(["--steps", "24", "--device", "cpu"])
     assert len(losses) == 24 and losses[-1] < losses[0]
